@@ -1,0 +1,328 @@
+"""Overlay replay engine on PyTorch: the port of the bench.py main path.
+
+Counterpart of fluidframework_tpu/core/overlay_replay.py.
+`OverlayDeviceReplica` consumes a pre-decoded `ColumnarStream` and
+converges on the final document: the stream uploads once
+(`prepare`), then `replay` runs every chunk through the overlay chunk
+kernel, the fold and the log append (ops/overlay.py) with no host sync
+inside the loop; errors ride the table's error word and are checked
+at the end. After the timed region the host rebuilds the settled
+document from the fold log (`reconstruct_settled`, copied from the
+source module) and reads it out through the numpy spec's
+`OverlayReplica` (annotated spans, text, attribution).
+
+A ``device=`` argument takes the place of the JAX version's
+``interpret=``: ``cuda`` (the default) launches the CUDA kernel,
+``"cpu"`` runs its plain PyTorch version. `replay_streaming`,
+`stack_replicas`, `restore_shard` and `OverlayKernelMessageReplica`
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.mergetree_kernel import (
+    NO_KEY,
+    OP_NOOP,
+    PROP_ABSENT,
+    PROP_DELETE,
+    OpBatch,
+    raise_kernel_errors,
+)
+from ..ops.overlay import (
+    REC_DROP_SPAN,
+    REC_NONE,
+    REC_SETTLE_SPAN,
+    REC_SETTLE_TEXT,
+    make_overlay_table,
+    replay_chunk_step,
+    replay_fused,
+)
+from ..ops.overlay_ref import (
+    SETTLED_BASE,
+    OverlayDoc,
+    OverlayReplica,
+    merge_span_props,
+)
+from ..protocol.constants import NO_CLIENT
+from ..testing.synthetic import ColumnarStream
+from ..utils.devices import DeviceLike, resolve_device
+
+
+def reconstruct_settled(
+    initial_text: np.ndarray,
+    stream_text: np.ndarray,
+    log: np.ndarray,
+    counts: List[int],
+    n_prop_keys: int,
+    initial_props: Optional[np.ndarray] = None,
+    initial_attr: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Replay the fold log into the final settled (text, props, attr).
+
+    Each epoch's records are in storage (== coordinate) order with
+    anchors in that epoch's settled space — exactly the walk
+    `overlay_ref.OverlayDoc.fold` performs in-place; here it runs once
+    per epoch over the logged rows instead (same codes, same
+    PROP_DELETE tombstone semantics; `attr` carries each settled
+    position's insert-attribution key, record column 4).
+
+    `initial_props`/`initial_attr` seed the settled props/attr arrays
+    (defaults: all-absent / zero) — the INCREMENTAL form
+    `core.overlay_fold.OverlayFoldReplica` applies per emission round,
+    where the initial settled state carries real props from earlier
+    rounds instead of a fresh load."""
+    KK = n_prop_keys
+    settled_t = np.asarray(initial_text, np.int32)
+    settled_p = (
+        np.asarray(initial_props, np.int32).copy()
+        if initial_props is not None
+        else np.full((len(settled_t), KK), PROP_ABSENT, np.int32)
+    )
+    settled_a = (
+        np.asarray(initial_attr, np.int32).copy()
+        if initial_attr is not None
+        else np.zeros(len(settled_t), np.int32)
+    )
+    off = 0
+    for cnt in counts:
+        recs = log[off: off + cnt]
+        off += cnt
+        if cnt == 0:
+            continue
+        pieces_t: List[np.ndarray] = []
+        pieces_p: List[np.ndarray] = []
+        pieces_a: List[np.ndarray] = []
+        cursor = 0
+        for r in recs:
+            a = int(r[0])
+            code = int(r[1])
+            b = int(r[2])
+            ln = int(r[3])
+            iseq = int(r[4])
+            props = r[5:]
+            pieces_t.append(settled_t[cursor:a])
+            pieces_p.append(settled_p[cursor:a])
+            pieces_a.append(settled_a[cursor:a])
+            cursor = a
+            if code == REC_SETTLE_TEXT:
+                pieces_t.append(stream_text[b: b + ln])
+                row = props.copy()
+                row[row == PROP_DELETE] = PROP_ABSENT
+                pieces_p.append(np.broadcast_to(row, (ln, KK)).copy())
+                pieces_a.append(np.full(ln, iseq, np.int32))
+            elif code == REC_DROP_SPAN:
+                cursor = a + ln
+            elif code == REC_SETTLE_SPAN:
+                pieces_t.append(settled_t[a: a + ln])
+                pieces_p.append(
+                    merge_span_props(settled_p[a: a + ln], props)
+                )
+                pieces_a.append(settled_a[a: a + ln])
+                cursor = a + ln
+            elif code == REC_NONE:
+                pass  # dropped text row: reconstructs to nothing
+            else:
+                raise ValueError(f"bad fold-log code {code}")
+        pieces_t.append(settled_t[cursor:])
+        pieces_p.append(settled_p[cursor:])
+        pieces_a.append(settled_a[cursor:])
+        settled_t = np.concatenate(pieces_t) if pieces_t else (
+            np.zeros(0, np.int32)
+        )
+        settled_p = (
+            np.concatenate(pieces_p)
+            if pieces_p else np.zeros((0, KK), np.int32)
+        )
+        settled_a = (
+            np.concatenate(pieces_a)
+            if pieces_a else np.zeros(0, np.int32)
+        )
+    return settled_t, settled_p, settled_a
+
+
+class OverlayDeviceReplica:
+    """Device-resident overlay replica driven by columnar op arrays.
+
+    Same output surface as the JAX `OverlayDeviceReplica` and the numpy
+    `OverlayReplica` (get_text / annotated_spans / check_errors), so the
+    digest gates compare all engines directly. `device` is ``cuda`` by
+    default (raising when there is none) or an explicit ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        stream: ColumnarStream,
+        initial_len: int = 0,
+        chunk_size: int = 2048,
+        window: int = 8192,
+        n_removers: int = 4,
+        n_prop_keys: int = 8,
+        device: DeviceLike = None,
+        log_cap: Optional[int] = None,
+    ):
+        self.device = resolve_device(device)
+        self.stream = stream
+        self.chunk_size = chunk_size
+        self.window = window
+        self.n_removers = n_removers
+        self.n_prop_keys = n_prop_keys
+        self.initial_len = initial_len
+
+        n = len(stream)
+        self.n_chunks = -(-n // chunk_size) if n else 0
+        # Every row ever created folds (or survives) exactly once; ~3
+        # rows/op (insert + split tails / gap spans) bounds the log.
+        self.log_cap = log_cap or (3 * n + 4 * window)
+        self.table = make_overlay_table(
+            window, n_removers, n_prop_keys, settled_len=initial_len,
+            device=self.device,
+        )
+        self.log = torch.zeros(
+            (self.log_cap, 5 + n_prop_keys), dtype=torch.int32,
+            device=self.device,
+        )
+        self.counts = torch.zeros(
+            max(self.n_chunks, 1), dtype=torch.int32, device=self.device
+        )
+        self.cursor = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.chunks_done = 0
+        self._doc: Optional[OverlayDoc] = None
+        self._dev: Optional[OpBatch] = None
+
+    # -------------------------------------------------------------- replay
+
+    def prepare(self) -> None:
+        """Upload the (NOOP-padded) op stream and per-chunk MSN
+        schedule to the device: the load phase, outside the timed
+        replay region."""
+        if self._dev is not None:
+            return
+        s = self.stream
+        n = len(s)
+        B = self.chunk_size
+        pad = self.n_chunks * B
+
+        def up(a: np.ndarray, fill: int = 0) -> torch.Tensor:
+            out = np.full(pad, fill, np.int32)
+            out[:n] = a
+            return torch.from_numpy(out).to(self.device)
+
+        self._dev = OpBatch(
+            op_type=up(s.op_type, OP_NOOP),
+            pos1=up(s.pos1), pos2=up(s.pos2),
+            seq=up(s.seq), ref_seq=up(s.ref_seq),
+            client=up(s.client, NO_CLIENT),
+            buf_start=up(s.buf_start), ins_len=up(s.ins_len),
+            prop_keys=up(s.prop_key, NO_KEY)[:, None],
+            prop_vals=up(s.prop_val, PROP_ABSENT)[:, None],
+        )
+        # Applied MSN at each chunk's end (the fold perspective).
+        ends = np.minimum(np.arange(1, self.n_chunks + 1) * B, n) - 1
+        self._msn_by_chunk = torch.from_numpy(
+            s.min_seq[ends].astype(np.int32)).to(self.device)
+
+    def replay(self, limit_chunks: Optional[int] = None) -> None:
+        """Replay the stream. Full replays run `replay_fused` (one
+        loop, no host sync inside); `limit_chunks` runs the per-chunk
+        `replay_chunk_step` form for the first chunks instead."""
+        self.prepare()
+        if limit_chunks is None and self.n_chunks:
+            self.table, self.log, self.counts, self.cursor = replay_fused(
+                self.table, self._dev, self.log, self.counts,
+                self._msn_by_chunk, self.chunk_size,
+            )
+            self.chunks_done = self.n_chunks
+            self._doc = None
+            return
+        for ci in range(self.n_chunks):
+            if limit_chunks is not None and ci >= limit_chunks:
+                break
+            self.table, self.log, self.counts, self.cursor = (
+                replay_chunk_step(
+                    self.table, self._dev, ci * self.chunk_size,
+                    self.chunk_size, self._msn_by_chunk[ci], self.log,
+                    self.counts, self.cursor, ci,
+                )
+            )
+            self.chunks_done = ci + 1
+        self._doc = None
+
+    # ------------------------------------------------------------- output
+
+    def check_errors(self) -> None:
+        raise_kernel_errors(int(self.table.error))
+
+    def _materialize(self) -> OverlayDoc:
+        """Pull the table + fold log once and rebuild the final
+        overlay document host-side (off the timed path)."""
+        if self._doc is not None:
+            return self._doc
+        cursor = int(self.cursor)
+        if cursor + self.window > self.log_cap:
+            raise RuntimeError(
+                f"fold log overflow ({cursor} + {self.window} rows > "
+                f"cap {self.log_cap}); raise log_cap"
+            )
+        counts = self.counts.cpu().numpy()[: self.chunks_done].tolist()
+        log = self.log[:cursor].cpu().numpy()
+        settled_t, settled_p, settled_a = reconstruct_settled(
+            self.stream.text[: self.initial_len], self.stream.text,
+            log, counts, self.n_prop_keys,
+        )
+        doc = OverlayDoc(settled_t, self.n_removers, self.n_prop_keys)
+        doc.settled_props = settled_p
+        doc.settled_attr = settled_a
+        t = self.table
+        m = int(t.n_rows)
+
+        def rows(a: torch.Tensor) -> np.ndarray:
+            return a[:m].cpu().numpy()
+
+        doc.anchor = rows(t.anchor)
+        doc.buf = rows(t.buf_start)
+        doc.length = rows(t.length)
+        doc.iseq = rows(t.ins_seq)
+        doc.iclient = rows(t.ins_client)
+        doc.rseq = rows(t.rem_seq)
+        doc.rcl = rows(t.rem_clients)
+        doc.props = rows(t.props)
+        doc.error = int(t.error)
+        stream_text = np.asarray(self.stream.text, np.int32)
+
+        def row_text(i: int) -> np.ndarray:
+            b = int(doc.buf[i])
+            ln = int(doc.length[i])
+            if b >= SETTLED_BASE:
+                a = b - SETTLED_BASE
+                return doc.settled_text[a: a + ln]
+            return stream_text[b: b + ln]
+
+        doc._row_text = row_text  # type: ignore[assignment]
+        self._doc = doc
+        return doc
+
+    def _shim(self) -> OverlayReplica:
+        shim = OverlayReplica.__new__(OverlayReplica)
+        shim.doc = self._materialize()
+        shim.stream = self.stream
+        return shim
+
+    def get_text(self) -> str:
+        return OverlayReplica.get_text(self._shim())
+
+    def annotated_spans(self):
+        return OverlayReplica.annotated_spans(self._shim())
+
+    def attribution_spans(self):
+        """(run_length, insert-attribution key) runs over the visible
+        document: settled keys ride the fold log's ins_seq column,
+        unsettled rows derive theirs from the table's ins_seq."""
+        return OverlayReplica.attribution_spans(self._shim())
+
+    def verify_invariants(self) -> None:
+        self._materialize().verify_invariants()

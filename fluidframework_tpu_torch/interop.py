@@ -1,0 +1,67 @@
+"""Carry state between the JAX package and the port, as numpy arrays.
+
+The port imports nothing of the JAX package, so state crosses as
+plain numpy: a dict of the JAX `OverlayTable` / `OpBatch` fields (or
+any object with those attributes, e.g. ``table._asdict()`` or the
+NamedTuple itself), and any object with the `ColumnarStream` fields.
+With these a table that the JAX engine produced mid-replay can be
+continued by the port, and the other way round.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+from .ops.mergetree_kernel import OpBatch
+from .ops.overlay import OverlayTable
+from .testing.synthetic import ColumnarStream
+from .utils.devices import DeviceLike, resolve_device
+
+Fields = Union[Mapping[str, Any], Any]
+
+
+def _get(src: Fields, name: str) -> np.ndarray:
+    v = src[name] if isinstance(src, Mapping) else getattr(src, name)
+    return np.asarray(v)
+
+
+def _tensors(cls, src: Fields, device: DeviceLike):
+    dev = resolve_device(device)
+    return cls(**{
+        f.name: torch.from_numpy(
+            np.array(_get(src, f.name), dtype=np.int32)).to(dev)
+        for f in fields(cls)
+    })
+
+
+def table_from_numpy(src: Fields, device: DeviceLike = None) -> OverlayTable:
+    """The port's `OverlayTable` from the JAX table's fields (numpy
+    arrays or anything `np.asarray` takes), on `device`."""
+    return _tensors(OverlayTable, src, device)
+
+
+def table_to_numpy(table: OverlayTable) -> Dict[str, np.ndarray]:
+    """The table's fields as int32 numpy arrays, keyed like the JAX
+    `OverlayTable` (``jax OverlayTable(**d)`` rebuilds it there)."""
+    return {
+        f.name: getattr(table, f.name).cpu().numpy()
+        for f in fields(OverlayTable)
+    }
+
+
+def opbatch_from_numpy(src: Fields, device: DeviceLike = None) -> OpBatch:
+    """The port's `OpBatch` from the JAX batch's fields."""
+    return _tensors(OpBatch, src, device)
+
+
+def stream_from_numpy(src: Fields) -> ColumnarStream:
+    """The port's `ColumnarStream` (host numpy arrays) from the JAX
+    package's stream, or any object with the same fields."""
+    return ColumnarStream(**{
+        f.name: np.array(_get(src, f.name), dtype=np.int32)
+        for f in fields(ColumnarStream)
+    })

@@ -1,0 +1,660 @@
+"""The overlay merge-tree engine on PyTorch: O(collab window) work per op.
+
+Counterpart of fluidframework_tpu/ops/overlay_pallas.py, with exactly
+the semantics of `ops.overlay_ref.OverlayDoc` (the numpy spec). The
+table holds only UNSETTLED rows; settled content is the coordinate
+space ``[0, S)`` whose text and props live in the fold log.
+
+Per chunk of B sequenced ops:
+
+1. `overlay_apply_chunk` applies the ops one after another. On a CUDA
+   tensor it launches the hand-written kernel
+   ``csrc/overlay_chunk.cu`` (one thread block per document; the
+   counterpart of the Pallas `_overlay_chunk_kernel`); on a CPU tensor
+   it runs `overlay_apply_chunk_ref`, the plain PyTorch version, one
+   op at a time and vectorized over rows. No other device is taken,
+   and a CUDA tensor never falls back to the plain version.
+2. `fold_device` settles rows under the chunk's MSN in plain tensor
+   ops and emits the fold records (the JAX package does this in XLA).
+3. `replay_chunk_step` appends the records to a preallocated log in
+   place. `replay_fused` runs every chunk in one Python loop with no
+   host sync inside it.
+
+Names, column layout (``[W]`` columns, ``rem_clients[W, KR]``,
+``props[W, KK]``) and sentinels are those of the JAX package, so the
+tests compare the two like with like. All state is int32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, fields
+from typing import Tuple
+
+import torch
+
+from ..protocol.constants import NO_CLIENT
+from ..utils.devices import DeviceLike, resolve_device
+from . import _build
+from .mergetree_kernel import (
+    ERR_BAD_POS,
+    ERR_CAPACITY,
+    ERR_REMOVERS,
+    NO_KEY,
+    NOT_REMOVED,
+    OP_ANNOTATE,
+    OP_INSERT,
+    OP_REMOVE,
+    PROP_ABSENT,
+    PROP_DELETE,
+    OpBatch,
+)
+from .overlay_ref import SETTLED_BASE
+from .zamboni import pack_partition
+
+# Fold-record type codes (column 1 of a log record).
+REC_NONE = 0  # dropped text row: nothing to reconstruct
+REC_SETTLE_TEXT = 1  # unsettled insert becomes settled text at anchor
+REC_DROP_SPAN = 2  # settled coords [anchor, anchor+len) excised
+REC_SETTLE_SPAN = 3  # props merge into settled [anchor, anchor+len)
+
+LANES = 128  # the JAX kernel's lane width (its gap staging tiles by it)
+I32 = torch.int32
+
+
+@dataclass
+class OverlayTable:
+    """Overlay state: unsettled rows + the settled length."""
+
+    n_rows: torch.Tensor  # int32 scalar
+    anchor: torch.Tensor  # int32[W] settled coordinate the row sits at
+    buf_start: torch.Tensor  # int32[W]; >= SETTLED_BASE marks span rows
+    length: torch.Tensor  # int32[W]
+    ins_seq: torch.Tensor  # int32[W] (0 for span rows)
+    ins_client: torch.Tensor  # int32[W]
+    rem_seq: torch.Tensor  # int32[W] (NOT_REMOVED if live)
+    rem_clients: torch.Tensor  # int32[W, KR]
+    props: torch.Tensor  # int32[W, KK]
+    settled_len: torch.Tensor  # int32 scalar: S
+    error: torch.Tensor  # int32 scalar ERR_* flags
+
+    @property
+    def device(self) -> torch.device:
+        return self.length.device
+
+    def to(self, device) -> "OverlayTable":
+        return OverlayTable(
+            *(getattr(self, f.name).to(device) for f in fields(self))
+        )
+
+
+def make_overlay_table(
+    window: int, n_removers: int = 4, n_prop_keys: int = 8,
+    settled_len: int = 0, device: DeviceLike = None,
+) -> OverlayTable:
+    dev = resolve_device(device)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=I32, device=dev)
+
+    return OverlayTable(
+        n_rows=full((), 0),
+        anchor=full((window,), 0),
+        buf_start=full((window,), 0),
+        length=full((window,), 0),
+        ins_seq=full((window,), 0),
+        ins_client=full((window,), NO_CLIENT),
+        rem_seq=full((window,), NOT_REMOVED),
+        rem_clients=full((window, n_removers), NO_CLIENT),
+        props=full((window, n_prop_keys), PROP_ABSENT),
+        settled_len=full((), settled_len),
+        error=full((), 0),
+    )
+
+
+def _check_geometry(table: OverlayTable, ops: OpBatch) -> None:
+    window = table.length.shape[0]
+    if window % (8 * LANES):
+        raise ValueError("window must be a multiple of 1024")
+    if ops.prop_keys.shape[0] != ops.pos1.shape[0]:
+        raise ValueError("prop_keys must be [B, PK]")
+
+
+def _i32(x: int) -> int:
+    """Wrap a Python int to int32, as the kernels' arithmetic does."""
+    return ((x + 2**31) % 2**32) - 2**31
+
+
+# ----------------------------------------------------------------------
+# The plain PyTorch version of the chunk kernel.
+
+
+def overlay_apply_chunk_ref(table: OverlayTable, ops: OpBatch) -> OverlayTable:
+    """Apply a chunk of sequenced ops, one after another, in plain
+    PyTorch: the same steps as the Pallas `_overlay_chunk_kernel`
+    (overlay_pallas.py:118), vectorized over the W rows of a stacked
+    [8+KR+KK, W] table. Op scalars and the block-uniform decisions are
+    Python ints (one host read per reduction), so this version is for
+    the CPU tests and for holding the CUDA kernel to; it is no
+    yardstick of speed. Rows ``[:n_rows]`` of its result equal the
+    JAX kernel's; rows beyond are scratch."""
+    _check_geometry(table, ops)
+    dev = table.length.device
+    W = table.length.shape[0]
+    KR = table.rem_clients.shape[1]
+    KK = table.props.shape[1]
+    PK = ops.prop_keys.shape[1]
+
+    A_, B_, L_, IS_, IC_, RS_ = 0, 1, 2, 3, 4, 5
+    RC0 = 6
+    PP0 = RC0 + KR
+    PRE_ = PP0 + KK
+    VIS_ = PRE_ + 1
+
+    T = torch.cat([
+        torch.stack([table.anchor, table.buf_start, table.length,
+                     table.ins_seq, table.ins_client, table.rem_seq]),
+        table.rem_clients.t(), table.props.t(),
+        torch.zeros((2, W), dtype=I32, device=dev),
+    ]).to(I32).contiguous()
+    flat = torch.arange(W, dtype=I32, device=dev)
+    S = int(table.settled_len)
+    nlive = int(table.n_rows)
+    err = int(table.error)
+
+    cols = [getattr(ops, n).tolist() for n in (
+        "op_type", "pos1", "pos2", "seq", "ref_seq", "client",
+        "buf_start", "ins_len")]
+    pkeys = ops.prop_keys.tolist()
+    pvals = ops.prop_vals.tolist()
+
+    def at(ci: int, j: int) -> int:
+        return int(T[ci, min(j, W - 1)])
+
+    def first_idx(mask: torch.Tensor) -> int:
+        return int(torch.where(mask, flat, W).min())
+
+    def set1(ci: int, j: int, val: int) -> None:
+        if 0 <= j < W:
+            T[ci, j] = _i32(val)
+
+    def roll_from(thr: int) -> None:
+        """Row j takes row j-1 for j >= thr, over the whole stack (the
+        flat roll wraps: row 0 takes row W-1 when thr is 0; callers
+        overwrite that row)."""
+        if thr >= W:
+            return
+        T.copy_(torch.where(flat >= thr, torch.roll(T, 1, 1), T))
+
+    def clear_new_row(j: int) -> None:
+        if 0 <= j < W:
+            T[RC0:PP0, j] = NO_CLIENT
+            T[PP0:PRE_, j] = PROP_ABSENT
+
+    def vis_pass(r: int, c: int) -> Tuple[torch.Tensor, int]:
+        live = flat < nlive
+        rseq = T[RS_]
+        removed = rseq != NOT_REMOVED
+        tomb = removed & (rseq <= r)
+        ins_vis = (T[IC_] == c) | (T[IS_] <= r)
+        among = (T[RC0:PP0] == c).any(0)
+        skip = (~live) | tomb | (removed & ~ins_vis)
+        visible = (~skip) & ins_vis & ~(removed & among)
+        vis = torch.where(visible, T[L_], 0)
+        consume = torch.where(live & (T[B_] >= SETTLED_BASE), T[L_], 0)
+        delta = vis - consume
+        inc = torch.cumsum(delta, 0, dtype=I32)
+        T[PRE_] = T[A_] + (inc - delta)
+        T[VIS_] = vis
+        return skip, int(inc[-1])
+
+    for i in range(ops.pos1.shape[0]):
+        (otype, pos1, pos2, oseq, orefseq, oclient, obuf,
+         oilen) = (col[i] for col in cols)
+
+        if otype == OP_INSERT:
+            skip, dsum = vis_pass(orefseq, oclient)
+            nl = nlive
+            live = flat < nl
+            pre = T[PRE_]
+            vis = T[VIS_]
+            total = S + dsum
+            inside = (pre < pos1) & (pre + vis > pos1)
+            land = live & (
+                (pre > pos1)
+                | ((pre == pos1) & (~skip) & ((vis > 0) | (oseq > T[IS_])))
+            )
+            j0 = first_idx(inside | land)
+            preX, visX = at(PRE_, j0), at(VIS_, j0)
+            ancX, bufX = at(A_, j0), at(B_, j0)
+            has_split = j0 < W and preX < pos1 and preX + visX > pos1
+            land_dead = j0 >= nl
+            span_s = bufX >= SETTLED_BASE
+            off = pos1 - preX
+            if has_split:
+                aval = ancX + (off if span_s else 0)
+            elif land_dead:
+                aval = min(pos1 - dsum, S)
+            else:
+                aval = ancX - (preX - pos1)
+            t1 = j0 + 1 if has_split else min(j0, nl)
+            n_new = 2 if has_split else 1
+            if not has_split and land_dead and total < pos1:
+                err |= ERR_BAD_POS
+            if nl + n_new > W:
+                err |= ERR_CAPACITY
+            roll_from(t1)
+            if has_split:
+                roll_from(t1)
+                set1(L_, t1 - 1, off)
+                set1(VIS_, t1 - 1, off)
+                t = t1 + 1  # tail: a raw copy of the split row
+                if t < W:
+                    set1(B_, t, at(B_, t) + off)
+                    set1(L_, t, at(L_, t) - off)
+                    if span_s:
+                        set1(A_, t, at(A_, t) + off)
+                    set1(PRE_, t, pos1)
+                    set1(VIS_, t, at(VIS_, t) - off)
+            for ci, v in ((A_, aval), (B_, obuf), (L_, oilen), (IS_, oseq),
+                          (IC_, oclient), (RS_, NOT_REMOVED)):
+                set1(ci, t1, v)
+            clear_new_row(t1)
+            for key, val in zip(pkeys[i], pvals[i]):
+                if key != NO_KEY and 0 <= key < KK:
+                    set1(PP0 + key, t1,
+                         PROP_ABSENT if val == PROP_DELETE else val)
+            set1(PRE_, t1, pos1)
+            set1(VIS_, t1, oilen)
+            nlive = nl + n_new
+
+        elif otype in (OP_REMOVE, OP_ANNOTATE):
+            skip, dsum = vis_pass(orefseq, oclient)
+            nl = nlive
+            live = flat < nl
+            pre = T[PRE_]
+            vis = T[VIS_]
+            if S + dsum < pos2:
+                err |= ERR_BAD_POS
+            j1 = first_idx((pre < pos1) & (pre + vis > pos1))
+            j2 = first_idx((pre < pos2) & (pre + vis > pos2))
+            has1, has2 = j1 < W, j2 < W
+            pre1, anc1, buf1 = at(PRE_, j1), at(A_, j1), at(B_, j1)
+            pre2, anc2, buf2 = at(PRE_, j2), at(A_, j2), at(B_, j2)
+            off1, off2 = pos1 - pre1, pos2 - pre2
+            span1, span2 = buf1 >= SETTLED_BASE, buf2 >= SETTLED_BASE
+            jc1 = first_idx(live & (pre >= pos1))
+            jc2 = first_idx(live & (pre >= pos2))
+            if has1:
+                c1 = anc1 + (off1 if span1 else 0)
+            elif jc1 < W:
+                c1 = at(A_, jc1) - (at(PRE_, jc1) - pos1)
+            else:
+                c1 = pos1 - dsum
+            if has2:
+                c2 = anc2 + (off2 if span2 else 0)
+            elif jc2 < W:
+                c2 = at(A_, jc2) - (at(PRE_, jc2) - pos2)
+            else:
+                c2 = pos2 - dsum
+            r1 = j1 + 1 if has1 else (j2 + 1 if has2 else W)
+            if nl + has1 + has2 > W:
+                err |= ERR_CAPACITY
+            if has1 or has2:
+                roll_from(r1)
+            if has1 and has2:
+                roll_from(j2 + 2)
+            if has1:
+                set1(L_, j1, off1)
+                set1(VIS_, j1, off1)
+                t = j1 + 1
+                if t < W:
+                    set1(B_, t, at(B_, t) + off1)
+                    set1(L_, t, at(L_, t) - off1)
+                    if span1:
+                        set1(A_, t, at(A_, t) + off1)
+                    set1(PRE_, t, pos1)
+                    set1(VIS_, t, at(VIS_, t) - off1)
+            if has2:
+                d2 = j2 + int(has1)
+                base = off1 if (has1 and j1 == j2) else 0
+                set1(L_, d2, off2 - base)
+                set1(VIS_, d2, off2 - base)
+                # tail2 is a raw copy of the ORIGINAL row j2
+                t = d2 + 1
+                if t < W:
+                    set1(B_, t, at(B_, t) + off2)
+                    set1(L_, t, at(L_, t) - off2)
+                    if span2:
+                        set1(A_, t, at(A_, t) + off2)
+                    set1(PRE_, t, pos2)
+                    set1(VIS_, t, at(VIS_, t) - off2)
+            nlive = nl + int(has1) + int(has2)
+
+            # Gap materialization: span rows for the settled
+            # coordinates [c1, c2) covers. The count is taken once;
+            # each step recomputes the gaps on the shifted table.
+            def gaps():
+                live = flat < nlive
+                consume = torch.where(
+                    live & (T[B_] >= SETTLED_BASE), T[L_], 0)
+                glo = torch.where(flat == 0, 0, torch.roll(T[A_] + consume, 1))
+                ghi = torch.where(live, T[A_], S)
+                prev_live = (flat == 0) | torch.roll(live, 1)
+                lo = torch.clamp(glo, min=c1)
+                hi = torch.clamp(ghi, max=c2)
+                return (live | prev_live) & (lo < hi), lo, hi, ghi
+
+            n_mat = int(gaps()[0].sum())
+            for _ in range(n_mat):
+                mat, lo, hi, ghi = gaps()
+                nl = nlive
+                j = first_idx(mat)
+                # the JAX kernel stages gap bounds in (W/128, 128) tiles
+                # and reads them with a clamped tile index
+                jg = min(j // LANES, W // LANES - 1) * LANES + j % LANES
+                lo_j, hi_j, ghi_j = int(lo[jg]), int(hi[jg]), int(ghi[jg])
+                pre_new = (at(PRE_, j) if j < nl else S + dsum) - (ghi_j - lo_j)
+                if nl + 1 > W:
+                    err |= ERR_CAPACITY
+                roll_from(j)
+                for ci, v in ((A_, lo_j), (B_, SETTLED_BASE + lo_j),
+                              (L_, hi_j - lo_j), (IS_, 0),
+                              (IC_, NO_CLIENT), (RS_, NOT_REMOVED)):
+                    set1(ci, j, v)
+                clear_new_row(j)
+                set1(PRE_, j, pre_new)
+                set1(VIS_, j, hi_j - lo_j)
+                nlive = nl + 1
+
+            # Covered-range updates (markRangeRemoved / annotateRange).
+            pre = T[PRE_]
+            vis = T[VIS_]
+            covered = ((vis > 0) & (pre >= pos1) & (pre + vis <= pos2)
+                       & (flat < nlive))
+            if otype == OP_REMOVE:
+                rcl = T[RC0:PP0]
+                already = T[RS_] != NOT_REMOVED
+                T[RS_] = torch.where(covered & ~already, oseq, T[RS_])
+                iota_k = torch.arange(KR, dtype=I32, device=dev)[:, None]
+                first_free = torch.where(
+                    rcl == NO_CLIENT, iota_k, KR).amin(0)
+                no_free = first_free == KR
+                slot = torch.where(already, first_free, 0)
+                write = covered & ~(already & no_free)
+                T[RC0:PP0] = torch.where(
+                    write[None] & (iota_k == slot[None]), oclient, rcl)
+                if bool((covered & already & no_free).any()):
+                    err |= ERR_REMOVERS
+            else:
+                # Last writer wins; a delete tombstones on span rows
+                # but clears on text rows.
+                is_span = T[B_] >= SETTLED_BASE
+                for key, val in zip(pkeys[i], pvals[i]):
+                    if not 0 <= key < KK:
+                        continue
+                    if val == PROP_DELETE:
+                        newv = torch.where(is_span, PROP_DELETE, PROP_ABSENT)
+                    else:
+                        newv = torch.full_like(is_span, val, dtype=I32)
+                    T[PP0 + key] = torch.where(covered, newv, T[PP0 + key])
+
+    def scalar(v: int) -> torch.Tensor:
+        return torch.tensor(v, dtype=I32, device=dev)
+
+    return OverlayTable(
+        n_rows=scalar(nlive),
+        anchor=T[A_].clone(), buf_start=T[B_].clone(),
+        length=T[L_].clone(), ins_seq=T[IS_].clone(),
+        ins_client=T[IC_].clone(), rem_seq=T[RS_].clone(),
+        rem_clients=T[RC0:PP0].t().contiguous(),
+        props=T[PP0:PRE_].t().contiguous(),
+        settled_len=table.settled_len.clone(),
+        error=scalar(err),
+    )
+
+
+# ----------------------------------------------------------------------
+# The CUDA kernel's wrapper.
+
+
+class OverlayChunkKernel:
+    """Launches ``csrc/overlay_chunk.cu`` for one chunk of ops.
+
+    Replaces the Pallas `_overlay_chunk_kernel`
+    (fluidframework_tpu/ops/overlay_pallas.py:118). ``launches`` counts
+    the kernel launches this wrapper made; it is incremented where the
+    kernel is launched and nowhere else. The wrapper checks device,
+    dtype, shape and contiguity, allocates the output table, launches
+    on PyTorch's current stream without synchronising, and raises if
+    the launch was refused.
+    """
+
+    name = "overlay_chunk"
+    source = "fluidframework_tpu_torch/csrc/overlay_chunk.cu"
+    replaces = "fluidframework_tpu/ops/overlay_pallas.py:118"
+    WINDOWS = (1024, 2048, 4096)  # 1024 threads x 1, 2 or 4 rows
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fn = None
+
+    def _entry(self):
+        if self._fn is None:
+            lib = _build.load(self.name)
+            fn = lib.overlay_chunk_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int] * 8 + [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, table: OverlayTable, ops: OpBatch) -> OverlayTable:
+        _check_geometry(table, ops)
+        dev = table.length.device
+        if dev.type != "cuda":
+            raise ValueError(
+                f"the overlay CUDA kernel needs CUDA tensors, got {dev}")
+        W = table.length.shape[0]
+        if W not in self.WINDOWS:
+            raise ValueError(
+                f"the overlay CUDA kernel takes window in {self.WINDOWS} "
+                f"(its hot columns live in shared memory); got {W}")
+        KR = table.rem_clients.shape[1]
+        KK = table.props.shape[1]
+        B, PK = ops.prop_keys.shape
+        ins = [table.n_rows, table.error, table.settled_len,
+               table.anchor, table.buf_start, table.length, table.ins_seq,
+               table.ins_client, table.rem_seq, table.rem_clients,
+               table.props,
+               ops.op_type, ops.pos1, ops.pos2, ops.seq, ops.ref_seq,
+               ops.client, ops.buf_start, ops.ins_len, ops.prop_keys,
+               ops.prop_vals]
+        for t in ins:
+            if t.device != dev or t.dtype != I32:
+                raise ValueError(
+                    "overlay kernel inputs must be int32 tensors on "
+                    f"{dev}; got {t.dtype} on {t.device}")
+        ins = [t.contiguous() for t in ins]
+        for t, shape in zip(ins[3:], [(W,)] * 6 + [(W, KR), (W, KK)]
+                            + [(B,)] * 8 + [(B, PK)] * 2):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"overlay kernel: shape {tuple(t.shape)} "
+                                 f"where {shape} was expected")
+        out = OverlayTable(
+            n_rows=torch.empty((), dtype=I32, device=dev),
+            anchor=torch.empty_like(ins[3]),
+            buf_start=torch.empty_like(ins[4]),
+            length=torch.empty_like(ins[5]),
+            ins_seq=torch.empty_like(ins[6]),
+            ins_client=torch.empty_like(ins[7]),
+            rem_seq=torch.empty_like(ins[8]),
+            rem_clients=torch.empty_like(ins[9]),
+            props=torch.empty_like(ins[10]),
+            settled_len=table.settled_len,
+            error=torch.empty((), dtype=I32, device=dev),
+        )
+        outs = [out.anchor, out.buf_start, out.length, out.ins_seq,
+                out.ins_client, out.rem_seq, out.rem_clients, out.props,
+                out.n_rows, out.error]
+        ptrs = (ctypes.c_void_p * (len(ins) + len(outs)))(
+            *(t.data_ptr() for t in ins + outs))
+        fn = self._entry()
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        stream = torch.cuda.current_stream(index).cuda_stream
+        rc = fn(index, 1, W, KR, KK, B, PK, len(ins) + len(outs),
+                ptrs, ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(
+                f"overlay_chunk kernel launch failed with CUDA error {rc}")
+        self.launches += 1
+        return out
+
+
+overlay_chunk_kernel = OverlayChunkKernel()
+
+
+def overlay_apply_chunk(table: OverlayTable, ops: OpBatch) -> OverlayTable:
+    """Apply a chunk of sequenced ops (ascending seq order) to the
+    overlay. A CUDA table goes to the hand-written kernel (or raises);
+    a CPU table to the plain version. Bit-identical on rows
+    ``[:n_rows]`` to the JAX `overlay_apply_chunk`."""
+    kind = table.length.device.type
+    if kind == "cuda":
+        return overlay_chunk_kernel(table, ops)
+    if kind == "cpu":
+        return overlay_apply_chunk_ref(table, ops)
+    raise ValueError(f"overlay_apply_chunk: unsupported device {kind}")
+
+
+# ----------------------------------------------------------------------
+# Fold and replay.
+
+
+def fold_device(table: OverlayTable, msn) -> Tuple[
+        OverlayTable, torch.Tensor, torch.Tensor]:
+    """Settle-merge under applied MSN `msn` (overlay_ref.fold; the
+    zamboni role), in tensor ops with no host sync.
+
+    Returns ``(table', records, n_rec)``: one stable partition packs
+    surviving rows to the front (re-anchored) and the folding rows to
+    the back, which then rotate to the front of the ``(W, 5+KK)``
+    record block ``[anchor, code, buf, len, ins_seq, props...]``
+    (pre-fold anchors; ``code == REC_NONE`` rows reconstruct to
+    nothing). Same result as the JAX `fold_device`."""
+    W = table.length.shape[0]
+    KR = table.rem_clients.shape[1]
+    KK = table.props.shape[1]
+    dev = table.length.device
+    msn = torch.as_tensor(msn, dtype=I32, device=dev)
+    idx = torch.arange(W, dtype=I32, device=dev)
+    live = idx < table.n_rows
+    is_span = live & (table.buf_start >= SETTLED_BASE)
+    removed = live & (table.rem_seq != NOT_REMOVED)
+    drop = removed & (table.rem_seq <= msn)
+    settle_text = live & ~removed & ~is_span & (table.ins_seq <= msn)
+    settle_span = live & ~removed & is_span
+    folding = drop | settle_text | settle_span
+
+    exc = torch.where(drop & is_span, table.length, 0)
+    ins = torch.where(settle_text, table.length, 0)
+    exc_b = torch.cumsum(exc, 0, dtype=I32) - exc
+    ins_b = torch.cumsum(ins, 0, dtype=I32) - ins
+    new_anchor = table.anchor - exc_b + ins_b
+    new_s = (table.settled_len + torch.sum(ins, dtype=I32)
+             - torch.sum(exc, dtype=I32))
+
+    keep = live & ~folding
+    n_new = torch.sum(keep, dtype=I32)
+    n_rec = torch.sum(folding, dtype=I32)
+    new_buf = torch.where(is_span, SETTLED_BASE + new_anchor, table.buf_start)
+    code = torch.where(
+        settle_text, REC_SETTLE_TEXT,
+        torch.where(drop & is_span, REC_DROP_SPAN,
+                    torch.where(settle_span, REC_SETTLE_SPAN, REC_NONE)),
+    ).to(I32)
+    stack = torch.cat([
+        torch.stack([new_anchor, new_buf, table.length, table.ins_seq,
+                     table.ins_client, table.rem_seq]),
+        table.rem_clients.t(), table.props.t(),
+        torch.stack([table.anchor, code]),
+    ])
+    packed = pack_partition(~keep, stack)
+    valid = idx < n_new
+
+    def fill(a, f):
+        return torch.where(valid, a, f)
+
+    out = OverlayTable(
+        n_rows=n_new,
+        anchor=fill(packed[0], 0),
+        buf_start=fill(packed[1], 0),
+        length=fill(packed[2], 0),
+        ins_seq=fill(packed[3], 0),
+        ins_client=fill(packed[4], NO_CLIENT),
+        rem_seq=fill(packed[5], NOT_REMOVED),
+        rem_clients=torch.where(
+            valid[:, None], packed[6:6 + KR].t(), NO_CLIENT).contiguous(),
+        props=torch.where(
+            valid[:, None], packed[6 + KR:6 + KR + KK].t(),
+            PROP_ABSENT).contiguous(),
+        settled_len=new_s.to(I32),
+        error=table.error,
+    )
+    # The back of the partition holds the folding rows in storage
+    # order, then dead rows; rotate them to the front of the block.
+    rec = torch.cat([
+        packed[6 + KR + KK:6 + KR + KK + 2], packed[1:4],
+        packed[6 + KR:6 + KR + KK],
+    ]).t()
+    rot = torch.remainder(idx.to(torch.int64) + n_new, W)
+    records = torch.index_select(rec, 0, rot)
+    return out, records, n_rec
+
+
+def replay_chunk_step(
+    table: OverlayTable, stream_ops: OpBatch, lo: int, chunk: int, msn,
+    log: torch.Tensor, counts: torch.Tensor, cursor: torch.Tensor,
+    epoch: int,
+):
+    """One replay step: ops ``[lo, lo+chunk)`` through the chunk kernel,
+    the fold at the chunk boundary, and the append of the fold records
+    to the log at ``cursor``. ``log`` and ``counts`` are updated IN
+    PLACE (the JAX version donates them). No host sync.
+
+    Returns ``(table', log, counts, cursor')``; ``counts[epoch]`` holds
+    this epoch's record count."""
+    table = overlay_apply_chunk(table, stream_ops.slice(lo, lo + chunk))
+    table, records, n_rec = fold_device(table, msn)
+    W = records.shape[0]
+    if log.shape[0] < W:
+        raise ValueError(f"fold log of {log.shape[0]} rows < window {W}")
+    # lax.dynamic_update_slice clamps the start so the block fits.
+    start = torch.clamp(cursor, 0, log.shape[0] - W).to(torch.int64)
+    rows = start + torch.arange(W, dtype=torch.int64, device=log.device)
+    log.index_copy_(0, rows, records)
+    counts.select(0, epoch).copy_(n_rec)
+    return table, log, counts, cursor + n_rec
+
+
+def replay_fused(
+    table: OverlayTable, stream_ops: OpBatch, log: torch.Tensor,
+    counts: torch.Tensor, msn_by_chunk: torch.Tensor, chunk: int,
+    epoch0: int = 0,
+):
+    """The whole replay: every chunk of `stream_ops` through
+    `replay_chunk_step`, in one Python loop with no host sync inside
+    it (one kernel launch per chunk, the fold's tensor ops around it).
+
+    `msn_by_chunk[ci]` is the applied MSN at chunk ci's end. `epoch0`
+    numbers the first chunk globally, and the log cursor resumes where
+    ``counts[:epoch0]`` left it. Returns ``(table, log, counts,
+    cursor)``."""
+    n_chunks = msn_by_chunk.shape[0]
+    cursor = torch.sum(counts[:epoch0], dtype=I32)
+    for ci in range(n_chunks):
+        table, log, counts, cursor = replay_chunk_step(
+            table, stream_ops, ci * chunk, chunk, msn_by_chunk[ci], log,
+            counts, cursor, epoch0 + ci,
+        )
+    return table, log, counts, cursor

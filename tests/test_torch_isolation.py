@@ -1,0 +1,116 @@
+"""The port stands alone and runs on the GPU unless told otherwise.
+
+- every module of `fluidframework_tpu_torch` imports with ``jax`` and
+  ``fluidframework_tpu`` blocked, and no source of the port (nor
+  ``chip_smoke.py``) imports either;
+- without CUDA, the entry points given no device raise instead of
+  running on the CPU, and a non-CPU tensor never reaches the plain
+  version of the kernel.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fluidframework_tpu_torch
+from fluidframework_tpu_torch import interop
+from fluidframework_tpu_torch.core.overlay_replay import OverlayDeviceReplica
+from fluidframework_tpu_torch.ops import overlay as tov
+from fluidframework_tpu_torch.testing.synthetic import generate_stream
+from fluidframework_tpu_torch.utils.devices import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = pathlib.Path(fluidframework_tpu_torch.__file__).resolve().parent
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _imported_names(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("check", ["subprocess_import", "ast_scan"])
+def test_port_imports_no_jax(check):
+    if check == "subprocess_import":
+        mods = _port_modules()
+        assert len(mods) >= 15
+        code = (
+            "import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['fluidframework_tpu'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in [k.split('.')[0] for k, v in sys.modules.items() if v is not None]\n"
+            "print('ok')\n"
+        )
+        env = dict(os.environ)
+        env.pop("JAX_PLATFORMS", None)
+        out = subprocess.run(
+            [sys.executable, "-c", code], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "ok"
+    else:
+        files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+        for path in files:
+            for name in _imported_names(path):
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "fluidframework_tpu"), (
+                    f"{path} imports {name}")
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    stream = generate_stream(64, n_clients=4, seed=1, initial_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OverlayDeviceReplica(stream, initial_len=8, window=1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tov.make_overlay_table(1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.table_from_numpy(
+            interop.table_to_numpy(tov.make_overlay_table(1024, device="cpu")))
+
+    # overlay_apply_chunk reaches the plain version only for CPU
+    # tensors: a tensor on another device raises, and the CUDA wrapper
+    # refuses CPU tensors rather than computing anything.
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    table = tov.make_overlay_table(1024, device="cpu")
+    rep = OverlayDeviceReplica(stream, initial_len=8, window=1024,
+                               chunk_size=64, device="cpu")
+    rep.prepare()
+    ops = rep._dev
+    monkeypatch.setattr(tov, "overlay_apply_chunk_ref", boom)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tov.overlay_apply_chunk(table.to("meta"), ops.to("meta"))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tov.overlay_chunk_kernel(table, ops)
+    assert tov.overlay_chunk_kernel.launches == 0
+    with pytest.raises(AssertionError, match="the plain version ran"):
+        tov.overlay_apply_chunk(table, ops)
