@@ -1,11 +1,12 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
 The port imports nothing of the JAX package, so state crosses as
-plain numpy: a dict of the JAX `OverlayTable` / `OpBatch` fields (or
-any object with those attributes, e.g. ``table._asdict()`` or the
-NamedTuple itself), and any object with the `ColumnarStream` fields.
-With these a table that the JAX engine produced mid-replay can be
-continued by the port, and the other way round.
+plain numpy: a dict of the JAX `OverlayTable` / `SegmentTable` /
+`OpBatch` fields (or any object with those attributes, e.g.
+``table._asdict()`` or the NamedTuple itself), and any object with the
+`ColumnarStream` fields. With these a table that the JAX engine
+produced mid-replay can be continued by the port, and the other way
+round.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
-from .ops.mergetree_kernel import OpBatch
+from .ops.mergetree_kernel import OpBatch, SegmentTable
 from .ops.overlay import OverlayTable
 from .testing.synthetic import ColumnarStream
 from .utils.devices import DeviceLike, resolve_device
@@ -50,6 +51,22 @@ def table_to_numpy(table: OverlayTable) -> Dict[str, np.ndarray]:
     return {
         f.name: getattr(table, f.name).cpu().numpy()
         for f in fields(OverlayTable)
+    }
+
+
+def segment_table_from_numpy(src: Fields,
+                             device: DeviceLike = None) -> SegmentTable:
+    """The port's row-model `SegmentTable` from the JAX table's fields,
+    on `device`."""
+    return _tensors(SegmentTable, src, device)
+
+
+def segment_table_to_numpy(table: SegmentTable) -> Dict[str, np.ndarray]:
+    """The table's fields as int32 numpy arrays, keyed like the JAX
+    `SegmentTable` (``jax SegmentTable(**d)`` rebuilds it there)."""
+    return {
+        f.name: getattr(table, f.name).cpu().numpy()
+        for f in fields(SegmentTable)
     }
 
 

@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -82,3 +82,19 @@ def load(name: str) -> ctypes.CDLL:
             build_logs[name] = log
             _libs[name] = ctypes.CDLL(path)
         return _libs[name]
+
+
+def launch(name: str, fn, device, ints: Sequence[int], tensors) -> None:
+    """Call a kernel's C entry point ``fn(device_index, *ints, n_ptrs,
+    ptrs, stream)`` with the tensors' data pointers, on PyTorch's
+    current stream of `device`, without synchronising; raises if the
+    entry point returns a CUDA error (a refused launch never runs, and
+    a later synchronise would not report it)."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    rc = fn(index, *ints, len(tensors), ptrs, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")

@@ -497,16 +497,8 @@ class OverlayChunkKernel:
         outs = [out.anchor, out.buf_start, out.length, out.ins_seq,
                 out.ins_client, out.rem_seq, out.rem_clients, out.props,
                 out.n_rows, out.error]
-        ptrs = (ctypes.c_void_p * (len(ins) + len(outs)))(
-            *(t.data_ptr() for t in ins + outs))
-        fn = self._entry()
-        index = dev.index if dev.index is not None else torch.cuda.current_device()
-        stream = torch.cuda.current_stream(index).cuda_stream
-        rc = fn(index, 1, W, KR, KK, B, PK, len(ins) + len(outs),
-                ptrs, ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(
-                f"overlay_chunk kernel launch failed with CUDA error {rc}")
+        _build.launch(self.name, self._entry(), dev, (1, W, KR, KK, B, PK),
+                      ins + outs)
         self.launches += 1
         return out
 

@@ -1,18 +1,31 @@
-"""Stable binary partition of table columns (the fold's packing step).
+"""Device-side compaction ops: the stable partition and the zamboni.
 
-Counterpart of `_pack_partition` in fluidframework_tpu/ops/zamboni.py
-(line 129). The JAX version is built from log-shift masked rolls
-because a gather is slow on the TPU; here the destination of every row
-comes straight from two int32 prefix sums and one scatter moves all
-columns. The result is bit-identical: both place kept rows at the
-front and dropped rows at the back, each group in its original order.
+Counterparts in fluidframework_tpu/ops/zamboni.py:
+
+- `pack_partition` of `_pack_partition` (line 129). The JAX version is
+  built from log-shift masked rolls because a gather is slow on the
+  TPU; here the destination of every row comes straight from two int32
+  prefix sums and one scatter moves all columns. The result is
+  bit-identical: both place kept rows at the front and dropped rows at
+  the back, each group in its original order. It is also exactly the
+  JAX `_pack_sort` (line 123) on a 0/1 key, which is how
+  `compact_gather_text` uses it.
+- `compact_gather_text` of the function of that name (line 185): the
+  row-model replay's full compaction with the text re-gather.
+  `zamboni_device` is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import torch
+
+from ..protocol.constants import NO_CLIENT
+from .mergetree_kernel import NOT_REMOVED, PROP_ABSENT, SegmentTable
+
+STREAM_BASE = 1 << 28  # stream-arena offsets start here (columnar_replay)
+I32 = torch.int32
 
 
 def pack_partition(
@@ -34,3 +47,123 @@ def pack_partition(
     out = torch.empty_like(stack)
     out.index_copy_(1, dest.to(torch.int64), stack)
     return out
+
+
+def compact_gather_text(
+    table: SegmentTable,
+    min_seq,
+    doc_arena: torch.Tensor,
+    stream_text: torch.Tensor,
+) -> Tuple[SegmentTable, torch.Tensor]:
+    """Full compaction of a row-model table under applied MSN
+    `min_seq`, with the text re-gather, in tensor ops with no host
+    sync. Same result as the JAX `compact_gather_text`, table and
+    arena both:
+
+    1. tombstone drop: rows removed at or below the MSN go; a stable
+       partition packs the survivors to the front;
+    2. text move: every surviving span ``[buf, buf+len)`` lands at its
+       new contiguous offset in a fresh doc arena. Per source region
+       (the doc arena, then the stream text at STREAM_BASE) the
+       per-element offset comes from +/-delta events at span
+       boundaries (``index_add_``) and one cumsum; one ``index_copy_``
+       moves the elements. JAX drops out-of-range scatter indices; here
+       they go to one spare slot past the end, which is cut off;
+    3. coalescing: settled neighbours (insert seq <= MSN, not removed)
+       with equal props merge; a second stable partition packs the run
+       starts to the front, and run lengths are differences of the new
+       text offsets.
+
+    Returns ``(table, new_doc_arena)``."""
+    C = table.length.shape[0]
+    A = doc_arena.shape[0]
+    S = stream_text.shape[0]
+    KR = table.rem_clients.shape[1]
+    KK = table.props.shape[1]
+    dev = table.length.device
+    min_seq = torch.as_tensor(min_seq, dtype=I32, device=dev)
+    idx = torch.arange(C, dtype=I32, device=dev)
+    live = idx < table.n_rows
+    removed = table.rem_seq != NOT_REMOVED
+
+    # ---- 1. tombstone drop
+    keep = live & ~(removed & (table.rem_seq <= min_seq))
+    n_keep = torch.sum(keep, dtype=I32)
+    packed = pack_partition(~keep, torch.cat([
+        torch.stack([table.buf_start, table.length, table.ins_seq,
+                     table.ins_client, table.rem_seq]),
+        table.rem_clients.t(), table.props.t(),
+    ]))
+    buf, length, iseq, iclient, rseq = packed[:5]
+    rcl = packed[5:5 + KR]
+    props = packed[5 + KR:]
+    valid = idx < n_keep
+    length = torch.where(valid, length, 0)
+
+    # ---- 2. text move
+    new_off = torch.cumsum(length, 0, dtype=I32) - length
+    total = torch.sum(length, dtype=I32)
+
+    def sweep_region(region_len: int, base: int, arena_vals: torch.Tensor,
+                     out: torch.Tensor) -> None:
+        dead = A + region_len + 2
+        in_region = valid & (buf >= base) & (buf < base + region_len)
+        rbuf = buf - base
+        delta = new_off - rbuf
+        n_ev = region_len + 2
+
+        def event_index(at: torch.Tensor) -> torch.Tensor:
+            # JAX mode="drop": out-of-range indices land on the spare
+            # slot n_ev, which is cut off below.
+            at = torch.where(in_region, at, region_len + 1)
+            ok = (at >= 0) & (at < n_ev)
+            return torch.where(ok, at, n_ev).to(torch.int64)
+
+        ev = torch.zeros(n_ev + 1, dtype=I32, device=dev)
+        ev.index_add_(0, event_index(rbuf), delta - dead)
+        ev.index_add_(0, event_index(rbuf + length), dead - delta)
+        per_elem = dead + torch.cumsum(ev[:n_ev], 0, dtype=I32)[:region_len]
+        dest = torch.arange(region_len, dtype=I32, device=dev) + per_elem
+        ok = (dest >= 0) & (dest < A)
+        out.index_copy_(0, torch.where(ok, dest, A).to(torch.int64),
+                        arena_vals)
+
+    new_arena = torch.zeros(A + 1, dtype=I32, device=dev)
+    sweep_region(A, 0, doc_arena, new_arena)
+    sweep_region(S, STREAM_BASE, stream_text, new_arena)
+    new_arena = new_arena[:A]
+    buf = new_off
+
+    # ---- 3. maximal coalescing
+    settled = valid & (rseq == NOT_REMOVED) & (iseq <= min_seq)
+    prev_settled = torch.cat([settled.new_zeros(1), settled[:-1]])
+    same_props = torch.cat([
+        settled.new_zeros(1), (props[:, 1:] == props[:, :-1]).all(0)])
+    start = valid & ~(settled & prev_settled & same_props)
+    m = torch.sum(start, dtype=I32)
+    packed2 = pack_partition(~start, torch.cat([
+        torch.stack([buf, iseq, iclient, rseq]), rcl, props,
+        new_off[None]]))
+    fbuf, fiseq, ficlient, frseq = packed2[:4]
+    frcl = packed2[4:4 + KR]
+    fprops = packed2[4 + KR:4 + KR + KK]
+    f_off = packed2[-1]
+    final_valid = idx < m
+    next_off = torch.cat([f_off[1:], f_off.new_zeros(1)])
+    next_off = torch.where(idx == m - 1, total, next_off)
+    run_len = torch.where(final_valid, next_off - f_off, 0)
+
+    out = SegmentTable(
+        n_rows=m,
+        buf_start=torch.where(final_valid, fbuf, 0),
+        length=run_len,
+        ins_seq=torch.where(final_valid, fiseq, 0),
+        ins_client=torch.where(final_valid, ficlient, NO_CLIENT),
+        rem_seq=torch.where(final_valid, frseq, NOT_REMOVED),
+        rem_clients=torch.where(
+            final_valid[:, None], frcl.t(), NO_CLIENT).contiguous(),
+        props=torch.where(
+            final_valid[:, None], fprops.t(), PROP_ABSENT).contiguous(),
+        error=table.error,
+    )
+    return out, new_arena

@@ -19,8 +19,11 @@ import torch
 
 import fluidframework_tpu_torch
 from fluidframework_tpu_torch import interop
+from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
 from fluidframework_tpu_torch.core.overlay_replay import OverlayDeviceReplica
+from fluidframework_tpu_torch.ops import mergetree_chunk as tmc
 from fluidframework_tpu_torch.ops import overlay as tov
+from fluidframework_tpu_torch.ops.mergetree_kernel import make_table
 from fluidframework_tpu_torch.testing.synthetic import generate_stream
 from fluidframework_tpu_torch.utils.devices import resolve_device
 
@@ -114,3 +117,35 @@ def test_no_silent_cpu_fallback(monkeypatch):
     assert tov.overlay_chunk_kernel.launches == 0
     with pytest.raises(AssertionError, match="the plain version ran"):
         tov.overlay_apply_chunk(table, ops)
+
+
+def test_row_model_no_silent_cpu_fallback(monkeypatch):
+    """The row-model path: entry points given no device raise without
+    CUDA; `apply_chunk` sends a CPU table only to the plain version and
+    any other table never reaches it."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    stream = generate_stream(64, n_clients=4, seed=1, initial_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ColumnarReplica(stream, initial_len=8, capacity=1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_table(1024, 4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.segment_table_from_numpy(
+            interop.segment_table_to_numpy(make_table(1024, 4, 8, "cpu")))
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    table = make_table(1024, 4, 8, device="cpu")
+    rep = ColumnarReplica(stream, initial_len=8, capacity=1024,
+                          chunk_size=64, device="cpu")
+    ops = rep.op_segment(0, len(stream)).slice(0, 64)
+    monkeypatch.setattr(tmc, "apply_chunk_ref", boom)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmc.apply_chunk(table.to("meta"), ops.to("meta"))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tmc.mergetree_chunk_kernel(table, ops)
+    assert tmc.mergetree_chunk_kernel.launches == 0
+    with pytest.raises(AssertionError, match="the plain version ran"):
+        tmc.apply_chunk(table, ops)

@@ -1,16 +1,28 @@
 #!/usr/bin/env python3
-"""Where the port's overlay replay spends device time (one GPU).
+"""Where the port's replay spends device time (one GPU).
 
-    python3 tools/torch_replay_profile.py [--ops N]
+    python3 tools/torch_replay_profile.py [--engine overlay|row] [--ops N]
 
-Replays N ops (default 1000000, the headline) of the seed-7 lagged stream at
-the bench geometry through `fluidframework_tpu_torch`'s
-`OverlayDeviceReplica(device="cuda")` under `torch.profiler`, and
-prints: the card's name and power limit, host wall time of the replay, device time per kernel name
-(summed over the run), the device-busy share of the replay window
-(union of all device activity over the window from first to last
-device event) and the idle share. Writes the JSON summary to
-``chiprun_out/torch_replay_profile.json``. Imports nothing of JAX.
+Replays the first N ops (default 1000000, the headline) of the seed-7
+lagged 1M-op stream at the bench geometry through
+`fluidframework_tpu_torch` under `torch.profiler`:
+
+- ``overlay`` (default): `OverlayDeviceReplica(device="cuda")`, window
+  2048 (the ``bench.py`` main path);
+- ``row``: `ColumnarReplica(device="cuda")`, capacity 131072, sync
+  every 4 chunks (``bench.py`` with ``BENCH_ENGINE=pallas``). The
+  replay runs in stages of 100000 ops (rounded up to whole chunks)
+  and prints, per stage, the host wall time (profiler on), the
+  stage's ops/s and the live rows at its end: the cost curve as the
+  document grows. When N is a GOLDEN.json stage, the final digest is
+  checked against it.
+
+Prints the card's name and power limit, host wall time of the replay,
+device time per kernel name (summed over the run), the device-busy
+share of the replay window (union of all device activity from first to
+last device event) and the idle share. Writes the JSON summary as
+``torch_replay_profile_<engine>.json`` into the run-output directory
+(see ``out_dir``). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,11 +36,15 @@ import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_GOLDEN = 1_000_000
+CHUNK = 256
+STAGE_OPS = 100_000  # the GOLDEN stage size
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ops", type=int, default=1_000_000)
+    ap.add_argument("--engine", choices=("overlay", "row"), default="overlay")
+    ap.add_argument("--ops", type=int, default=N_GOLDEN)
     args = ap.parse_args()
 
     import torch
@@ -38,31 +54,61 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
     from fluidframework_tpu_torch.core.overlay_replay import (
         OverlayDeviceReplica,
     )
-    from fluidframework_tpu_torch.testing.synthetic import (
-        generate_lagged_stream,
+    from fluidframework_tpu_torch.testing.digest import state_digest
+    from fluidframework_tpu_torch.testing.golden import (
+        golden_digest, headline_stream, load_golden, stream_prefix,
     )
 
-    stream = generate_lagged_stream(args.ops, n_clients=1024, seed=7,
-                                    window=1024, initial_len=64)
+    golden = load_golden()
+    stream = stream_prefix(headline_stream(golden), args.ops)
 
     def replica():
-        return OverlayDeviceReplica(stream, initial_len=64, chunk_size=256,
+        if args.engine == "row":
+            return ColumnarReplica(stream, initial_len=64, chunk_size=CHUNK,
+                                   capacity=131072, n_removers=24,
+                                   n_prop_keys=8, sync_interval=4,
+                                   device="cuda")
+        return OverlayDeviceReplica(stream, initial_len=64, chunk_size=CHUNK,
                                     window=2048, n_removers=24,
                                     n_prop_keys=8, device="cuda")
 
     warm = replica()
     warm.replay(limit_chunks=8)  # build + first launches outside the window
     rep = replica()
-    rep.prepare()
+    if args.engine == "overlay":
+        rep.prepare()
     torch.cuda.synchronize()
+    stages = []
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        rep.replay()
+        if args.engine == "row":
+            per = -(-STAGE_OPS // CHUNK)
+            while rep.chunks_done < rep.n_chunks:
+                ts = time.perf_counter()
+                c0 = rep.chunks_done
+                rep.replay(limit_chunks=c0 + per)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - ts
+                ops = min(rep.chunks_done * CHUNK, args.ops) - c0 * CHUNK
+                stages.append({
+                    "ops_done": min(rep.chunks_done * CHUNK, args.ops),
+                    "stage_s": dt, "stage_ops_per_s": ops / dt,
+                    "ms_per_chunk": dt * 1e3 / (rep.chunks_done - c0),
+                    "rows": int(rep.table.n_rows),
+                    "capacity": rep.capacity})
+                st = stages[-1]
+                print(f"  stage to {st['ops_done']:>8} ops: "
+                      f"{dt:8.3f} s, {st['stage_ops_per_s']:10.1f} ops/s, "
+                      f"{st['ms_per_chunk']:8.3f} ms/chunk, rows "
+                      f"{st['rows']} of {st['capacity']}", flush=True)
+        else:
+            rep.replay()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rep.check_errors()
@@ -83,8 +129,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
-    summary = {"gpu": gpu, "nvidia_smi": smi, "ops": args.ops,
-               "chunks": rep.n_chunks, "wall_s": wall}
+    summary = {"gpu": gpu, "nvidia_smi": smi, "engine": args.engine,
+               "ops": args.ops, "chunks": rep.n_chunks, "wall_s": wall,
+               "stages": stages}
     if not spans:
         print("torch.profiler recorded no device time on this machine")
         summary["device_events"] = 0
@@ -107,18 +154,26 @@ def main() -> int:
             "kernels": [{"name": n[:120], "total_ms": t / 1e3, "count": c}
                         for n, (t, c) in top[:15]],
         })
-        print(f"{gpu}: {args.ops} ops, {rep.n_chunks} chunks, replay wall "
-              f"{wall:.3f}s (profiled)")
+        print(f"{gpu}: {args.engine} engine, {args.ops} ops, {rep.n_chunks} "
+              f"chunks, replay wall {wall:.3f}s (profiled)")
         print(f"device window {window / 1e3:.1f} ms, busy {busy / 1e3:.1f} "
               f"ms, idle share {1 - busy / window:.4f}")
         for n, (t, c) in top[:15]:
             print(f"  {t / 1e3:10.2f} ms  {c:7d}x  {n[:100]}")
+    want = golden_digest(golden, args.ops)
+    if want is not None:
+        digest = state_digest(rep.annotated_spans())
+        summary["digest_matches_golden"] = digest == want
+        print(f"digest {digest}: "
+              f"{'matches' if digest == want else 'DIFFERS FROM'} GOLDEN.json "
+              f"at {args.ops} ops")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "torch_replay_profile.json"), "w") as f:
+    path = os.path.join(out_dir, f"torch_replay_profile_{args.engine}.json")
+    with open(path, "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary))
-    return 0
+    return 0 if summary.get("digest_matches_golden", True) else 1
 
 
 if __name__ == "__main__":
