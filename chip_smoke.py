@@ -32,8 +32,12 @@ Phases, in order; any failure exits non-zero:
    error and rows [:n_rows]: the first 16 chunks of the same stream
    with `compact_gather_text` every 4 chunks as the replica runs it, a
    full-table chunk (ERR_CAPACITY, the insert at the document's end
-   included) and a chunk with positions past the document
-   (ERR_BAD_POS);
+   included), a chunk with positions past the document (ERR_BAD_POS),
+   and the block-edge chunks of `testing/block_edges.py` for the
+   kernel's grid (G blocks of R rows from `kernel_geometry`: splits at
+   rows R-1 and R, landings at row R and at row n = 2R, a shift from row
+   2R, removed rows across an edge, an insert at row 0, tables of C-1
+   and C rows);
 6. the row-model path: `ColumnarReplica(device="cuda")` at the same
    geometry (sync every 4 chunks) replays the first ROW_OPS ops (or
    --ops, if fewer) with the kernel launch count reset just before; it
@@ -51,7 +55,9 @@ Phases, in order; any failure exits non-zero:
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant).
 
-Prints the kernels line (JSON), the nvidia-smi line, and last the
+Prints the kernel B grid line (G, R, shared bytes per block, grid
+barriers per op), the kernels line (JSON), the nvidia-smi line, and
+last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
 """
@@ -75,8 +81,8 @@ CHECK_CHUNKS = 16  # stream chunks held against the plain version
 # Row-model geometry (bench.py with BENCH_ENGINE=pallas).
 ROW_CAPACITY, ROW_SYNC = 131072, 4
 # Row-model replay depth: all 1M ops, since an H100 (700 W) replays
-# them in 238.7 s, under the 300 s this phase may take
-# (tools/torch_replay_profile.py --engine row; PERF.md section 5).
+# them in 19.7 s, well under the 300 s this phase may take (PERF.md
+# section 5).
 ROW_OPS = 1_000_000
 DEEP_CHUNKS = 4  # at least this many last chunks of the row replay are
 # held against the plain version
@@ -139,8 +145,11 @@ def main() -> int:
     )
     from fluidframework_tpu_torch.native import load_hostmerge
     from fluidframework_tpu_torch.ops import _build
+    from fluidframework_tpu_torch.interop import (
+        opbatch_from_numpy, segment_table_from_numpy,
+    )
     from fluidframework_tpu_torch.ops.mergetree_chunk import (
-        apply_chunk_ref, mergetree_chunk_kernel,
+        apply_chunk_ref, kernel_geometry, mergetree_chunk_kernel,
     )
     from fluidframework_tpu_torch.ops.mergetree_kernel import (
         ERR_BAD_POS, ERR_CAPACITY, NO_CLIENT, NO_KEY, NOT_REMOVED,
@@ -152,6 +161,7 @@ def main() -> int:
         overlay_chunk_kernel,
     )
     from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
+    from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
     from fluidframework_tpu_torch.testing.digest import state_digest
     from fluidframework_tpu_torch.testing.golden import (
         golden_digest, headline_stream, load_golden, stream_prefix,
@@ -471,6 +481,27 @@ def main() -> int:
         raise AssertionError("row bad-position chunk did not raise ERR_BAD_POS")
     log(f"row kernel == plain on the bad-position chunk (error {e})")
 
+    # The block edges of the kernel's grid at the bench geometry.
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid_g, grid_r, grid_smem = kernel_geometry(
+        C, N_REMOVERS, N_PROP_KEYS, CHUNK, 1, n_sms)
+    edge_cases = block_edge_chunks(grid_r, C, N_REMOVERS, N_PROP_KEYS, 1,
+                                   CHUNK)
+    for case in edge_cases:
+        tin = segment_table_from_numpy(case["table"], dev)
+        ops = opbatch_from_numpy(case["ops"], dev)
+        _, n, e = compare_row(tin, ops, f"row block-edge chunk {case['name']}")
+        n_in = int(case["table"]["n_rows"])
+        if n_in >= C - 1:
+            if not e & ERR_CAPACITY:
+                raise AssertionError(
+                    f"block-edge chunk {case['name']}: no ERR_CAPACITY")
+        elif e or n <= n_in:
+            raise AssertionError(
+                f"block-edge chunk {case['name']}: error {e}, n_rows {n}")
+    log(f"row kernel == plain on the {len(edge_cases)} block-edge chunks "
+        f"(R = {grid_r})")
+
     # ---- 6. the row-model path ----------------------------------------
     rrep = row_replica()
     n_chunks_b = rrep.n_chunks
@@ -559,6 +590,15 @@ def main() -> int:
         f"{len(deep)} chunks (kernel, CUDA events; {early_ms_b:.4f} ms on "
         f"the first {len(early)}), plain {plain_ms_b:.2f} ms/chunk, bound "
         f"{bound_ms_b:.6f} ms ({bound_by_b})")
+
+    n_ins_d = sum(int((b.op_type == OP_INSERT).sum()) for _, b in deep)
+    n_rng_d = sum(int(((b.op_type == OP_REMOVE)
+                       | (b.op_type == OP_ANNOTATE)).sum()) for _, b in deep)
+    log(f"mergetree_chunk grid: G {grid_g} blocks x R {grid_r} rows "
+        f"({n_sms} SMs), {grid_smem} shared bytes per block, grid barriers "
+        f"per op 2 (insert) / 3 (remove, annotate): "
+        f"{(2 * n_ins_d + 3 * n_rng_d) / max(1, n_ins_d + n_rng_d):.3f} "
+        f"per op on the deep chunks")
 
     kernels = [{
         "name": overlay_chunk_kernel.name,

@@ -29,9 +29,9 @@ the Pallas kernel gives (the insert is not applied).
 
 Rows at and above ``n_rows`` of a result are scratch: the plain
 version rolls the whole capacity as the Pallas kernel does, the CUDA
-kernel leaves them alone, and nothing reads them (the compaction masks
-rows ``>= n_rows``). Compare results on ``n_rows``, ``error`` and rows
-``[:n_rows]``.
+kernel leaves the input's rows there, and nothing reads them (the
+compaction masks rows ``>= n_rows``). Compare results on ``n_rows``,
+``error`` and rows ``[:n_rows]``.
 """
 
 from __future__ import annotations
@@ -58,7 +58,52 @@ from .mergetree_kernel import (
 )
 
 I32 = torch.int32
-ROW_ALIGN = 1024  # the Pallas kernel's (8, 128) tiling; the CUDA kernel's int4 rows
+ROW_ALIGN = 1024  # the Pallas kernel's (8, 128) tiling
+
+# The CUDA kernel's grid (csrc/mergetree_chunk.cu): block b of G owns
+# table rows [b*R, min((b+1)*R, C)) and holds their hot columns in
+# shared memory. These constants must match the .cu file's.
+ROWS_PER_BLOCK = 1024  # the target R, a multiple of ROW_QUANTUM
+ROW_QUANTUM = 32
+MAX_ROWS_PER_BLOCK = 8192  # 8 rows per thread at 1024 threads
+HOT_COLS = 6  # buf_start, length, ins_seq, ins_client, rem_seq, slot
+OP_COLS = 8  # op_type, pos1, pos2, seq, ref_seq, client, buf, len
+SMEM_MISC = 1024  # bytes of per-block scan and broadcast scratch
+SMEM_OPTIN = 232448  # an H100 block's opt-in dynamic shared memory (227 KB)
+
+
+def kernel_geometry(capacity: int, KR: int, KK: int, B: int, PK: int,
+                    n_sms: int):
+    """The CUDA kernel's grid for a table of `capacity` rows and chunks
+    of B ops with PK prop slots, on a card with `n_sms` SMs: returns
+    (G blocks, R rows per block, dynamic shared bytes per block).
+
+    R starts at ROWS_PER_BLOCK and grows to ceil(C / n_sms), rounded up
+    to ROW_QUANTUM, when C / R would exceed the SM count, so that G <=
+    n_sms and all blocks can be co-resident. A block holds 24 bytes per
+    row (the six hot columns) plus the chunk's ops. Raises ValueError
+    above the ceiling: R <= MAX_ROWS_PER_BLOCK rows that fit the 227 KB
+    of opt-in shared memory, i.e. C <= 8192 * n_sms (1,081,344 rows on
+    an H100's 132 SMs at B 256, PK 1). KR and KK live in global memory
+    and do not bound the grid."""
+    if capacity <= 0 or KR < 1 or KK < 0 or B < 0 or PK < 0 or n_sms < 1:
+        raise ValueError("kernel_geometry: bad table or grid sizes")
+    R = ROWS_PER_BLOCK
+    if -(-capacity // R) > n_sms:
+        R = -(-capacity // n_sms)
+        R = -(-R // ROW_QUANTUM) * ROW_QUANTUM
+    G = -(-capacity // R)
+    ops_bytes = 4 * B * (OP_COLS + 2 * PK)
+    smem = 4 * HOT_COLS * R + ops_bytes + SMEM_MISC
+    fit = (SMEM_OPTIN - ops_bytes - SMEM_MISC) // (4 * HOT_COLS)
+    r_max = min(MAX_ROWS_PER_BLOCK, fit // ROW_QUANTUM * ROW_QUANTUM)
+    if R > r_max:
+        raise ValueError(
+            f"capacity {capacity} needs {R} rows per block on {n_sms} SMs; "
+            f"the ceiling is {r_max} rows per block (shared memory "
+            f"{SMEM_OPTIN} bytes, chunk of {B} ops x {PK} prop slots), "
+            f"i.e. capacity <= {r_max * n_sms}")
+    return G, R, smem
 
 
 def _check_geometry(table: SegmentTable, ops: OpBatch) -> None:
@@ -252,10 +297,16 @@ class MergetreeChunkKernel:
     (fluidframework_tpu/ops/mergetree_pallas.py:125). ``launches``
     counts the kernel launches this wrapper made; it is incremented
     where the kernel is launched and nowhere else. The wrapper checks
-    device, dtype, shape, contiguity and capacity, allocates the output
-    table, launches on PyTorch's current stream without synchronising,
-    and raises if the launch was refused. Rows ``>= n_rows`` of the
-    output are scratch (see the module docstring).
+    device, dtype, shape, contiguity and capacity, takes the grid from
+    `kernel_geometry` (G blocks of R rows, at most one block per SM),
+    allocates the output table, the cold-row heap and the grid's
+    scratch, launches the cooperative grid on PyTorch's current stream
+    without synchronising, and raises if the launch was refused
+    (including when the G blocks cannot all be resident at once): there
+    is no fallback. Capacity ceiling: R <= 8192 rows per block, i.e.
+    C <= 8192 x the SM count (1,081,344 rows on an H100); above it
+    `kernel_geometry` raises. The inputs are never written. Rows
+    ``>= n_rows`` of the output are scratch (see the module docstring).
     """
 
     name = "mergetree_chunk"
@@ -265,13 +316,14 @@ class MergetreeChunkKernel:
     def __init__(self) -> None:
         self.launches = 0
         self._fn = None
+        self._n_sms = {}
 
     def _entry(self):
         if self._fn is None:
             lib = _build.load(self.name)
             fn = lib.mergetree_chunk_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 7 + [
+            fn.argtypes = [ctypes.c_int] * 10 + [
                 ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
             self._fn = fn
         return self._fn
@@ -304,6 +356,13 @@ class MergetreeChunkKernel:
             if tuple(t.shape) != shape:
                 raise ValueError(f"mergetree kernel: shape {tuple(t.shape)} "
                                  f"where {shape} was expected")
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        if index not in self._n_sms:
+            self._n_sms[index] = torch.cuda.get_device_properties(
+                index).multi_processor_count
+        G, R, smem = kernel_geometry(C, KR, KK, B, PK, self._n_sms[index])
+        heap = torch.empty((C + 2 * B, KR + KK), dtype=I32, device=dev)
+        scratch = torch.empty(4 + 24 * G + 4 * C, dtype=I32, device=dev)
         out = SegmentTable(
             n_rows=torch.empty((), dtype=I32, device=dev),
             buf_start=torch.empty_like(ins[2]),
@@ -318,8 +377,9 @@ class MergetreeChunkKernel:
         outs = [out.buf_start, out.length, out.ins_seq, out.ins_client,
                 out.rem_seq, out.rem_clients, out.props, out.n_rows,
                 out.error]
-        _build.launch(self.name, self._entry(), dev, (C, KR, KK, B, PK),
-                      ins + outs)
+        _build.launch(self.name, self._entry(), dev,
+                      (C, KR, KK, B, PK, G, R, smem),
+                      ins + outs + [heap, scratch])
         self.launches += 1
         return out
 

@@ -15,7 +15,10 @@ PyTorch versions on the CPU. Tolerance 0: everything is int32.
 - the one intended difference: an insert at the end of a full table
   flags ERR_CAPACITY as the scan kernel `apply_op_batch_jit` does,
   where the Pallas kernel drops it silently; the table is the Pallas
-  kernel's.
+  kernel's;
+- the CUDA kernel's grid (`kernel_geometry`), and the chunks that put
+  its work on its blocks' edges (`testing/block_edges.py`, built for
+  blocks of 512 rows) against the Pallas kernel.
 """
 
 import jax.numpy as jnp
@@ -33,7 +36,13 @@ from fluidframework_tpu.testing.synthetic import (
     generate_stream,
 )
 from fluidframework_tpu_torch import interop
-from fluidframework_tpu_torch.ops.mergetree_chunk import apply_chunk_ref
+from fluidframework_tpu_torch.ops.mergetree_chunk import (
+    ROW_QUANTUM,
+    SMEM_MISC,
+    SMEM_OPTIN,
+    apply_chunk_ref,
+    kernel_geometry,
+)
 from fluidframework_tpu_torch.ops.mergetree_kernel import (
     ERR_BAD_POS,
     ERR_CAPACITY,
@@ -52,6 +61,7 @@ from fluidframework_tpu_torch.ops.zamboni import (
     STREAM_BASE,
     compact_gather_text,
 )
+from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
 
 TABLE_FIELDS = ("n_rows", "buf_start", "length", "ins_seq", "ins_client",
                 "rem_seq", "rem_clients", "props", "error")
@@ -321,6 +331,58 @@ def test_full_table_end_insert_flags_capacity(where):
     assert int(tt.error) == int(scan.error)
     j["error"] = np.int32(ERR_CAPACITY)
     _assert_rows_equal(j, tt, "full-table end insert")
+
+
+# ------------------------------------------------------- the kernel's grid
+
+@pytest.mark.parametrize("C,n_sms,G,R", [
+    (1024, 132, 1, 1024),
+    (131072, 132, 128, 1024),
+    (262144, 132, 131, 2016),  # R grows; the last block holds 64 rows
+    (2048, 1, 1, 2048),
+])
+def test_kernel_geometry(C, n_sms, G, R):
+    g, r, smem = kernel_geometry(C, 24, 8, 256, 1, n_sms)
+    assert (g, r) == (G, R)
+    assert r % ROW_QUANTUM == 0 and (g - 1) * r < C <= g * r <= C + r - 1
+    assert smem == 24 * r + 4 * 256 * 10 + SMEM_MISC <= SMEM_OPTIN
+
+
+def test_kernel_geometry_raises_above_the_ceiling():
+    g, r, _ = kernel_geometry(8192 * 132, 24, 8, 256, 1, 132)
+    assert (g, r) == (132, 8192)
+    with pytest.raises(ValueError, match="ceiling is 8192 rows per block"):
+        kernel_geometry(8192 * 132 + 1024, 24, 8, 256, 1, 132)
+    # a wide chunk leaves less shared memory for rows
+    with pytest.raises(ValueError, match="ceiling"):
+        kernel_geometry(131072, 24, 8, 4096, 8, 16)
+
+
+EDGE_R, EDGE_C = 512, 2048  # the c2048-kr24-kk8-pk1 shape above: no new compile
+EDGE_CASES = block_edge_chunks(EDGE_R, EDGE_C, 24, 8, 1, B)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c["name"] for c in EDGE_CASES])
+def test_block_edge_chunk_matches_pallas(case):
+    """The chunks that put a split, a landing or a shift on a block edge
+    of the CUDA kernel's grid (built for R = 512), plain version vs the
+    Pallas kernel. The full-table end insert differs only in the flag
+    (see test_full_table_end_insert_flags_capacity)."""
+    table, ops = case["table"], case["ops"]
+    j = _np(jmp.apply_chunk(_jt(table), _jops(ops), interpret=True))
+    tt = apply_chunk_ref(interop.segment_table_from_numpy(table, "cpu"),
+                         interop.opbatch_from_numpy(ops, "cpu"))
+    if case["pallas_drops"]:
+        assert int(j["error"]) & ERR_CAPACITY == 0
+        assert int(tt.error) & ERR_CAPACITY
+        j["error"] = np.int32(int(j["error"]) | ERR_CAPACITY)
+    _assert_rows_equal(j, tt, case["name"])
+    n_in = int(table["n_rows"])
+    if n_in >= EDGE_C - 1:
+        assert int(tt.error) & ERR_CAPACITY, "the table must overflow"
+    else:
+        assert int(tt.error) == 0
+        assert int(tt.n_rows) > n_in
 
 
 # ------------------------------------------------------------- compaction
