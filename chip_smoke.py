@@ -17,9 +17,13 @@ Phases, in order; any failure exits non-zero:
    the card at the bench geometry (window 2048, 24 remover slots, 8 prop
    keys, chunks of 256 ops): the first 16 chunks of the seed-7 lagged
    stream, a chunk that overflows the window (ERR_CAPACITY) and a chunk
-   with positions past the document (ERR_BAD_POS); the comparison is
-   exact (int32, tolerance 0) on n_rows, error and rows [:n_rows];
-   then times both on the checked chunks;
+   with positions past the document (ERR_BAD_POS), and the edge chunks
+   of `testing/overlay_edges.py` (split inserts at row 0 and at the
+   window's top, long and overflowing gap loops, diverging split
+   halves, a full remover row, more than a window of rows created and
+   dropped); the comparison is exact (int32, tolerance 0) on n_rows,
+   error and rows [:n_rows]; then times the kernel and the plain version
+   on the checked chunks;
 4. the main path: `OverlayDeviceReplica(device="cuda")` replays the
    seed-7 lagged stream (1024 clients, collab window 1024, initial
    length 64; 1M ops by default) with the kernel launch count reset
@@ -55,9 +59,10 @@ Phases, in order; any failure exits non-zero:
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant).
 
-Prints the kernel B grid line (G, R, shared bytes per block, grid
-barriers per op), the kernels line (JSON), the nvidia-smi line, and
-last the
+Prints the kernel A geometry line (threads, rows per thread, shared
+bytes, heap rows), the kernel B grid line (G, R, shared bytes per
+block, grid barriers per op), the kernels line (JSON), the nvidia-smi
+line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
 """
@@ -146,7 +151,7 @@ def main() -> int:
     from fluidframework_tpu_torch.native import load_hostmerge
     from fluidframework_tpu_torch.ops import _build
     from fluidframework_tpu_torch.interop import (
-        opbatch_from_numpy, segment_table_from_numpy,
+        opbatch_from_numpy, segment_table_from_numpy, table_from_numpy,
     )
     from fluidframework_tpu_torch.ops.mergetree_chunk import (
         apply_chunk_ref, kernel_geometry, mergetree_chunk_kernel,
@@ -157,12 +162,15 @@ def main() -> int:
         SegmentTable,
     )
     from fluidframework_tpu_torch.ops.overlay import (
-        OverlayTable, fold_device, overlay_apply_chunk_ref,
+        KERNEL_THREADS, OverlayTable, fold_device, overlay_apply_chunk_ref,
         overlay_chunk_kernel,
     )
     from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
     from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
     from fluidframework_tpu_torch.testing.digest import state_digest
+    from fluidframework_tpu_torch.testing.overlay_edges import (
+        overlay_edge_chunks,
+    )
     from fluidframework_tpu_torch.testing.golden import (
         golden_digest, headline_stream, load_golden, stream_prefix,
     )
@@ -308,7 +316,20 @@ def main() -> int:
         raise AssertionError("bad-position chunk did not raise ERR_BAD_POS")
     log(f"kernel == plain on the bad-position chunk (error {e})")
 
+    # The slot heap's edges: shifts at row 0 and at the window's top,
+    # gap loops, split halves, rows created and dropped.
+    edges = overlay_edge_chunks(W, N_REMOVERS, N_PROP_KEYS, 1, CHUNK)
+    for case in edges:
+        tin = table_from_numpy(case["table"], dev)
+        ops = opbatch_from_numpy(case["ops"], dev)
+        compare(tin, ops, f"edge chunk {case['name']}")
+    log(f"kernel == plain on the {len(edges)} edge chunks")
+
     # Time the kernel and the plain version on the checked chunks.
+    R, krp, smem = overlay_chunk_kernel.geometry(W, N_REMOVERS, N_PROP_KEYS,
+                                                 CHUNK, 1)
+    log(f"overlay_chunk geometry: {KERNEL_THREADS} threads x {R} rows, "
+        f"{smem} shared bytes, heap {W} rows x {krp} ints")
     reps = 20
     for tin, batch in checked:  # warm-up
         overlay_chunk_kernel(tin, batch)

@@ -6,49 +6,67 @@
 // insert/remove/annotate ops, one after another, to the overlay table
 // of unsettled rows, with exactly the semantics of
 // `ops/overlay_ref.OverlayDoc.apply`; its plain PyTorch version is
-// `ops/overlay.overlay_apply_chunk_ref`, which it must equal on rows
-// [:n_rows] bit for bit.
+// `ops/overlay.overlay_apply_chunk_ref`, which it must equal on
+// n_rows, error and rows [:n_rows] bit for bit.
 //
-// Design. One document's ops are serial, so one thread block of 1024
-// threads owns one document and loops over the chunk's ops; the op
-// scalars are block-uniform, so each `pl.when` of the Pallas kernel is
-// a block-uniform branch here. Thread t owns the R contiguous rows
-// [t*R, t*R+R) of a window W = 1024*R (R = 1, 2, 4).
+// Design. One document's ops are serial, so one persistent thread block
+// of NT = 1024 threads owns one document on one SM and loops over the
+// chunk's ops; the op scalars are block-uniform, so each `pl.when` of
+// the Pallas kernel is a block-uniform branch. Thread t owns the R
+// contiguous rows [t*R, t*R+R) of a window W = NT*R (1024, 2048 or
+// 4096). 512 threads x 2R rows was measured slower (PERF.md).
 //
-// - The hot columns (anchor, buf, len, ins_seq, ins_client, rem_seq
-//   and the pre/vis scratch) live in dynamic shared memory:
-//   8 x W int32 = 64 KiB at W = 2048. The Pallas scratch also holds
-//   the KR remover slots and KK prop columns (40 x W int32 = 320 KiB at
-//   the bench geometry), more than the 227 KB a block may use, so
-//   rem_clients[W, KR] and props[W, KK] stay in global memory (L2
-//   resident; 256 KiB at the bench geometry), row-major as the torch
-//   tensors are. They are read by the visibility pass only for removed
-//   rows, and written only by shifts, new rows, removal and annotate.
+// - Hot columns in shared memory: anchor, buf, len, ins_seq, ins_client,
+//   rem_seq, the pre/vis scratch of the perspective pass, and `slot`:
+//   9 x W int32 (72 KiB at W = 2048, 144 KiB at 4096), with the chunk's
+//   ops beside them.
+// - Cold columns behind the slot. The Pallas table also holds KR
+//   remover slots and KK props per row (128 bytes a row at the bench
+//   geometry), too many for the SM. They live in a heap of W rows of
+//   KRP = KR + KK rounded up to 4 ints in global memory, whose rows never
+//   move: row j's cold data is heap[slot[j]]. The kernel fills the heap
+//   from the input's live rows (the input is never written) and at the
+//   end gathers it back in row order for rows < n_rows.
+// - A shift moves the 9 hot words of a row in shared memory and nothing
+//   in global memory: each thread loads its rows' sources into
+//   registers, one barrier, and stores. The split insert's two rolls,
+//   and a range op's two rolls, are one such pass in which row j takes
+//   row j - k, k in {0, 1, 2}, from the composed map. The slots stay a
+//   permutation of the W heap rows: the rows a shift pushes off the top
+//   free exactly as many slots as the rows it duplicates (the split
+//   tails, the new row), and each duplicate takes one of them, with a
+//   16-byte-wide copy of its source's heap row unless it is a new row
+//   that is filled anyway. So the heap never runs out, whatever the
+//   chunk (rows falling off at W - 1 included).
 // - The perspective pass's prefix sum (an f32 MXU matmul in Pallas) is
 //   a block-wide int32 exclusive scan: warp shuffles plus per-warp
 //   totals in shared memory. `first_idx` is a block min-reduction.
-//   Reductions use two alternating shared buffers, so each costs one
-//   __syncthreads.
-// - `roll_from(thr)` (row j takes row j-1 for j >= thr) loads the
-//   source rows to registers, synchronises and stores; the global
-//   columns move as a top-down tiled memmove. Rows at or beyond the
-//   live count after the shift are scratch and are not moved.
-// - One-row fixups (split heads/tails, the new row) are done by
+//   Reductions alternate two shared buffers, so each costs one barrier.
+//   The remover slots of a removed row (visibility, first free slot)
+//   are read with 16-byte loads and no early exit.
+// - Gap materialization stays stepwise, as in Pallas: the count is
+//   taken once, each step finds the first gap of the shifted table and
+//   reads its bounds through the Pallas staging's clamped tile index.
+// - One-row fixups (split heads and tails, the new row) are done by
 //   thread 0 between barriers; writes to rows >= W are dropped, as the
 //   one-hot writes of the Pallas kernel are, and the ERR_* flags are
 //   raised the same way.
 //
-// What bounds it: the serial chain of ~14 __syncthreads per op on one
-// SM and the shifts' global traffic, not the card's bandwidth or
+// What bounds it: the serial chain of block barriers per op on one SM
+// (~6 for an insert, more for a range op with gaps) and the L2 round
+// trips of the removed rows' remover slots; not the card's bandwidth or
 // arithmetic (PERF.md works the bound out). Many documents would be
 // many blocks: the docs stride is in the signature already.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 1024;  // threads per block
+constexpr int NT = 1024;       // threads per block
+constexpr int NHOT = 9;        // hot columns in shared memory
+constexpr int OPC = 8;         // op columns
 constexpr int LANES = 128;
 constexpr int NOT_REMOVED = 2147483647;
 constexpr int NO_CLIENT = -3;
@@ -62,10 +80,12 @@ constexpr int ERR_BAD_POS = 2;
 constexpr int ERR_REMOVERS = 4;
 constexpr int SETTLED_BASE = 1 << 30;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int N_PTRS = 31;
+constexpr int N_PTRS = 32;
+
+enum { A_ = 0, B_, L_, IS_, IC_, RS_, PRE_, VIS_, SL_ };
 
 struct Args {
-    int KR, KK, B, PK;
+    int KR, KK, KRP, B, PK;
     // inputs: per document
     const int* n_rows_in;   // [D]
     const int* err_in;      // [D]
@@ -73,7 +93,7 @@ struct Args {
     const int* col_in[6];   // [D, W] anchor, buf, len, ins_seq, ins_client, rem_seq
     const int* rcl_in;      // [D, W, KR]
     const int* props_in;    // [D, W, KK]
-    const int* op[8];       // [D, B] type, pos1, pos2, seq, ref_seq, client, buf, len
+    const int* op[OPC];     // [D, B] type, pos1, pos2, seq, ref_seq, client, buf, len
     const int* prop_keys;   // [D, B, PK]
     const int* prop_vals;   // [D, B, PK]
     // outputs
@@ -82,12 +102,46 @@ struct Args {
     int* props_out;         // [D, W, KK]
     int* n_rows_out;        // [D]
     int* err_out;           // [D]
+    int* heap;              // [D, W, KRP] cold rows behind the slots
 };
 
-// Shared-memory view of one document's hot columns.
-struct Hot {
-    int *A, *Bf, *L, *IS, *IC, *RS, *PRE, *VIS;
+// The freed slots and the duplicated rows of one shift.
+struct Lists {
+    int nlost, ndup;
+    int lost[4];     // slots of the rows pushed off the top
+    int dup_row[4];  // rows that duplicate the row below them
+    int dup_src[4];  // the heap row each duplicate copies
 };
+constexpr int LISTS_INTS = sizeof(Lists) / sizeof(int);
+
+// One or two composed `roll_from`s: rows j in [lo2, lim2) take j - 1,
+// then rows in [lo1, lim1) of that take j - 1 (a range is empty when
+// lo >= lim, and lo >= 1: row 0 never takes a row).
+struct Shift {
+    int lo1, lim1, lo2, lim2;
+};
+
+__device__ __forceinline__ Shift roll(int thr, int lim) {
+    Shift s;
+    s.lo1 = max(thr, 1);
+    s.lim1 = lim;
+    if (s.lo1 >= s.lim1) s.lo1 = s.lim1 = 0;
+    s.lo2 = s.lim2 = 0;
+    return s;
+}
+
+__device__ __forceinline__ Shift then_roll(Shift s, int thr, int lim) {
+    s.lo2 = max(thr, 1);
+    s.lim2 = lim;
+    if (s.lo2 >= s.lim2) s.lo2 = s.lim2 = 0;
+    return s;
+}
+
+// The row that row j takes after the shift: j, j - 1 or j - 2.
+__device__ __forceinline__ int shift_src(const Shift& s, int j) {
+    const int r = (j >= s.lo2 && j < s.lim2) ? j - 1 : j;
+    return (r >= s.lo1 && r < s.lim1) ? r - 1 : r;
+}
 
 __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
 #pragma unroll
@@ -102,6 +156,7 @@ __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
 // thread order). Returns the grand total. One __syncthreads.
 template <int R>
 __device__ int block_excl_scan(const int (&d)[R], int (&ex)[R], int* buf) {
+    constexpr int NW = NT / 32;
     const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
     int s = 0;
 #pragma unroll
@@ -109,7 +164,7 @@ __device__ int block_excl_scan(const int (&d)[R], int (&ex)[R], int* buf) {
     int inc = warp_incl_scan(s, lane);
     if (lane == 31) buf[wid] = inc;
     __syncthreads();
-    int wt = buf[lane];  // NT / 32 == 32 warps
+    int wt = lane < NW ? buf[lane] : 0;
     int winc = warp_incl_scan(wt, lane);
     int wbase = __shfl_sync(FULL, winc - wt, wid);
     int total = __shfl_sync(FULL, winc, 31);
@@ -126,6 +181,7 @@ __device__ int block_excl_scan(const int (&d)[R], int (&ex)[R], int* buf) {
 // results. One __syncthreads.
 template <int N>
 __device__ void block_min(int (&v)[N], int* buf) {
+    constexpr int NW = NT / 32;
     const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 #pragma unroll
     for (int k = 0; k < N; ++k) {
@@ -134,152 +190,195 @@ __device__ void block_min(int (&v)[N], int* buf) {
     }
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = __reduce_min_sync(FULL, buf[k * 32 + lane]);
+    for (int k = 0; k < N; ++k)
+        v[k] = __reduce_min_sync(FULL, lane < NW ? buf[k * 32 + lane] : INT_MAX);
 }
 
 __device__ int block_sum(int v, int* buf) {
+    constexpr int NW = NT / 32;
     const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
     int s = __reduce_add_sync(FULL, v);
     if (lane == 0) buf[wid] = s;
     __syncthreads();
-    return __reduce_add_sync(FULL, buf[lane]);
+    return __reduce_add_sync(FULL, lane < NW ? buf[lane] : 0);
 }
 
-// Global-memory shift of rows [lo-1, lim-1) to [lo, lim) of a
-// row-major [W, K] array: a memmove by K ints, done in tiles from the
-// top down. A tile's reads lie below every earlier tile's writes, and
-// its writes follow a barrier after which every earlier read is done,
-// so one __syncthreads per tile suffices.
-__device__ void gmem_shift(int* base, int K, int lo, int lim) {
-    if (K == 0) return;
-    const int TILE = NT * 4;
-    const int d0 = lo * K, d1 = lim * K;
-    for (int top = d1; top > d0; top -= TILE) {
-        const int bot = max(top - TILE, d0);
-        int v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            int i = bot + q * NT + threadIdx.x;
-            if (i < top) v[q] = base[i - K];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            int i = bot + q * NT + threadIdx.x;
-            if (i < top) base[i] = v[q];
-        }
-    }
-}
-
-// Row j takes row j-1 for j in [max(thr, 1), lim), in every column.
-// Block-uniform arguments; ends with a barrier when it moves anything.
+// Apply `s` to the hot columns (hot[c * W + j]). Rows outside [bot,
+// top) do not move. Slot bookkeeping: a row whose source equals the
+// source of the row below it is a duplicate; the slots of the rows no
+// row takes any more (pushed off the top) are freed; each duplicate
+// takes a freed slot (there are as many of each: the slots are a
+// permutation before and after) and a copy of its source's heap row,
+// unless it is `new_row`, which the caller fills. Block-uniform
+// arguments; ends with a barrier when it moves anything. `par`
+// alternates the two Lists, so that one shift zeroes the lists of the
+// next without a barrier of its own.
 template <int R>
-__device__ void roll_from(const Hot& h, int* rcl, int* props, int KR, int KK,
-                          int thr, int lim) {
-    const int lo = max(thr, 1);
-    if (lo >= lim) return;
-    int v[8][R];
-    const int row0 = threadIdx.x * R;
+__device__ void shift_rows(int* hot, int* heap, int KRP, const Shift& s,
+                           int new_row, Lists* ls, int& par) {
+    constexpr int W = NT * R;
+    const bool e1 = s.lo1 < s.lim1, e2 = s.lo2 < s.lim2;
+    if (!e1 && !e2) return;
+    const int bot = min(e1 ? s.lo1 : W, e2 ? s.lo2 : W);
+    const int top = max(s.lim1, s.lim2);
+    Lists* L = ls + par;
+    Lists* next = ls + (par ^ 1);
+    par ^= 1;
+    const int* slot = hot + SL_ * W;
+    const int tid = threadIdx.x, row0 = tid * R;
+    int v[NHOT][R];
+    int sp = shift_src(s, row0 - 1);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         const int j = row0 + r;
-        if (j >= lo && j < lim) {
-            v[0][r] = h.A[j - 1];
-            v[1][r] = h.Bf[j - 1];
-            v[2][r] = h.L[j - 1];
-            v[3][r] = h.IS[j - 1];
-            v[4][r] = h.IC[j - 1];
-            v[5][r] = h.RS[j - 1];
-            v[6][r] = h.PRE[j - 1];
-            v[7][r] = h.VIS[j - 1];
+        const int sj = shift_src(s, j);
+        if (j >= bot && j < top) {
+#pragma unroll
+            for (int c = 0; c < NHOT; ++c) v[c][r] = hot[c * W + sj];
+            if (sj == sp) {
+                const int k = atomicAdd(&L->ndup, 1);
+                L->dup_row[k] = j;
+                L->dup_src[k] = slot[sj];
+            }
         }
+        if (j > bot && j <= top) {
+            for (int q = sp + 1; q < sj; ++q) L->lost[atomicAdd(&L->nlost, 1)] = slot[q];
+        }
+        sp = sj;
+    }
+    if (top == W && tid == NT - 1) {
+        for (int q = sp + 1; q < W; ++q) L->lost[atomicAdd(&L->nlost, 1)] = slot[q];
     }
     __syncthreads();
+    if (tid == 0) {
+        next->nlost = 0;
+        next->ndup = 0;
+    }
+    const int nd = L->ndup;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         const int j = row0 + r;
-        if (j >= lo && j < lim) {
-            h.A[j] = v[0][r];
-            h.Bf[j] = v[1][r];
-            h.L[j] = v[2][r];
-            h.IS[j] = v[3][r];
-            h.IC[j] = v[4][r];
-            h.RS[j] = v[5][r];
-            h.PRE[j] = v[6][r];
-            h.VIS[j] = v[7][r];
+        if (j >= bot && j < top) {
+#pragma unroll
+            for (int c = 0; c < SL_; ++c) hot[c * W + j] = v[c][r];
+            int sl = v[SL_][r];
+            for (int k = 0; k < nd; ++k)
+                if (L->dup_row[k] == j) sl = L->lost[k];
+            hot[SL_ * W + j] = sl;
         }
     }
-    gmem_shift(rcl, KR, lo, lim);
-    gmem_shift(props, KK, lo, lim);
+    const int q4 = KRP / 4;
+    if (tid < nd * q4) {
+        const int k = tid / q4, q = tid - k * q4;
+        if (L->dup_row[k] != new_row) {
+            int4* h4 = reinterpret_cast<int4*>(heap);
+            h4[(size_t)L->lost[k] * q4 + q] = h4[(size_t)L->dup_src[k] * q4 + q];
+        }
+    }
     __syncthreads();
 }
 
 // The gap before row j (overlay_ref "gap materialization"): settled
 // coordinates [lo, hi) the range [c1, c2) covers there.
-__device__ __forceinline__ bool gap_at(const Hot& h, int j, int nl, int S,
-                                       int c1, int c2, int& lo, int& hi,
-                                       int& ghi) {
+__device__ __forceinline__ bool gap_at(const int* hot, int W, int j, int nl,
+                                       int S, int c1, int c2, int& lo,
+                                       int& hi, int& ghi) {
     const bool live = j < nl;
     int glo = 0;
     bool prev_live = true;
     if (j > 0) {
         const int p = j - 1;
         prev_live = p < nl;
-        const int cons = (prev_live && h.Bf[p] >= SETTLED_BASE) ? h.L[p] : 0;
-        glo = h.A[p] + cons;
+        const int cons =
+            (prev_live && hot[B_ * W + p] >= SETTLED_BASE) ? hot[L_ * W + p] : 0;
+        glo = hot[A_ * W + p] + cons;
     }
-    ghi = live ? h.A[j] : S;
+    ghi = live ? hot[A_ * W + j] : S;
     lo = max(glo, c1);
     hi = min(ghi, c2);
     return (live || prev_live) && lo < hi;
 }
 
-// Fill row j (< W) of every column with a fresh row's values; thread 0
-// writes the hot columns, threads < KR / < KK the global ones.
-__device__ __forceinline__ void clear_new_row_globals(int* rcl, int* props,
-                                                      int KR, int KK, int j) {
-    if ((int)threadIdx.x < KR) rcl[(size_t)j * KR + threadIdx.x] = NO_CLIENT;
-    if ((int)threadIdx.x < KK) props[(size_t)j * KK + threadIdx.x] = PROP_ABSENT;
+// Heap row of a fresh row (threads < KRP): no removers, the given props
+// (`pk`/`pv`, PK of them; none when PK == 0), zero padding.
+__device__ __forceinline__ void fill_new_cold(int* row, int KR, int KK,
+                                              int KRP, const int* pk,
+                                              const int* pv, int PK) {
+    const int t = threadIdx.x;
+    if (t >= KRP) return;
+    int v = 0;
+    if (t < KR) {
+        v = NO_CLIENT;
+    } else if (t < KR + KK) {
+        v = PROP_ABSENT;
+        for (int p = 0; p < PK; ++p)
+            if (pk[p] == t - KR) v = (pv[p] == PROP_DELETE) ? PROP_ABSENT : pv[p];
+    }
+    row[t] = v;
 }
 
 template <int R>
 __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
-    extern __shared__ int sm[];
+    extern __shared__ __align__(16) int sm[];
     constexpr int W = NT * R;
-    Hot h;
-    h.A = sm;
-    h.Bf = h.A + W;
-    h.L = h.Bf + W;
-    h.IS = h.L + W;
-    h.IC = h.IS + W;
-    h.RS = h.IC + W;
-    h.PRE = h.RS + W;
-    h.VIS = h.PRE + W;
-    int* red = h.VIS + W;     // 2 x 128 reduction buffers
-    int* s_err = red + 256;   // per-row error flags (atomicOr)
+    int* hot = sm;  // [NHOT][W]
+    int* const A = hot + A_ * W;
+    int* const Bf = hot + B_ * W;
+    int* const Ln = hot + L_ * W;
+    int* const IS = hot + IS_ * W;
+    int* const IC = hot + IC_ * W;
+    int* const RS = hot + RS_ * W;
+    int* const PRE = hot + PRE_ * W;
+    int* const VIS = hot + VIS_ * W;
+    int* const SL = hot + SL_ * W;
+    int* red = hot + NHOT * W;  // 2 x 128 reduction buffers
+    int* s_err = red + 256;     // per-row error flags (atomicOr)
+    Lists* ls = reinterpret_cast<Lists*>(s_err + 1);
+    int* ops = s_err + 1 + 2 * LISTS_INTS;  // [OPC][B], keys [B][PK], vals [B][PK]
 
     const int d = blockIdx.x;
     const int tid = threadIdx.x;
-    const int KR = a.KR, KK = a.KK, B = a.B, PK = a.PK;
-    int* rcl = a.rcl_out + (size_t)d * W * KR;
-    int* props = a.props_out + (size_t)d * W * KK;
+    const int KR = a.KR, KK = a.KK, KRP = a.KRP, B = a.B, PK = a.PK;
+    const int KR4 = (KR + 3) / 4;
+    int* heap = a.heap + (size_t)d * W * KRP;
     const int* rcl_in = a.rcl_in + (size_t)d * W * KR;
     const int* props_in = a.props_in + (size_t)d * W * KK;
-    int* hot[6] = {h.A, h.Bf, h.L, h.IS, h.IC, h.RS};
+    int* cols[6] = {A, Bf, Ln, IS, IC, RS};
 
-    for (int j = tid; j < W; j += NT) {
-#pragma unroll
-        for (int c = 0; c < 6; ++c) hot[c][j] = a.col_in[c][(size_t)d * W + j];
-        h.PRE[j] = 0;
-        h.VIS[j] = 0;
-    }
-    for (int i = tid; i < W * KR; i += NT) rcl[i] = rcl_in[i];
-    for (int i = tid; i < W * KK; i += NT) props[i] = props_in[i];
-    if (tid == 0) *s_err = 0;
     int nl = a.n_rows_in[d];
     int err = a.err_in[d];
     const int S = a.settled_len[d];
-    int phase = 0;
+    for (int j = tid; j < W; j += NT) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c) cols[c][j] = a.col_in[c][(size_t)d * W + j];
+        PRE[j] = 0;
+        VIS[j] = 0;
+        SL[j] = j;
+    }
+    // Cold rows of the live rows into the heap (row j at heap row j);
+    // the rest are scratch until a new row fills them.
+    const int n_in = min(max(nl, 0), W);
+    for (int e = tid; e < n_in * KRP; e += NT) {
+        const int j = e / KRP, k = e - j * KRP;
+        int v = 0;
+        if (k < KR) v = rcl_in[(size_t)j * KR + k];
+        else if (k < KR + KK) v = props_in[(size_t)j * KK + k - KR];
+        heap[e] = v;
+    }
+    for (int e = tid; e < OPC * B; e += NT) {
+        const int c = e / B;
+        ops[e] = a.op[c][(size_t)d * B + e - c * B];
+    }
+    for (int e = tid; e < B * PK; e += NT) {
+        ops[OPC * B + e] = a.prop_keys[(size_t)d * B * PK + e];
+        ops[OPC * B + B * PK + e] = a.prop_vals[(size_t)d * B * PK + e];
+    }
+    if (tid == 0) {
+        *s_err = 0;
+        ls[0].nlost = ls[0].ndup = 0;
+        ls[1].nlost = ls[1].ndup = 0;
+    }
+    int phase = 0, lpar = 0;
     auto rbuf = [&]() {
         int* b = red + phase * 128;
         phase ^= 1;
@@ -289,19 +388,18 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
 
     const int row0 = tid * R;
     for (int i = 0; i < B; ++i) {
-        const size_t oi = (size_t)d * B + i;
-        const int otype = a.op[0][oi];
-        const int pos1 = a.op[1][oi];
-        const int pos2 = a.op[2][oi];
-        const int oseq = a.op[3][oi];
-        const int orefseq = a.op[4][oi];
-        const int oclient = a.op[5][oi];
-        const int obuf = a.op[6][oi];
-        const int oilen = a.op[7][oi];
-        const int* pk = a.prop_keys + oi * PK;
-        const int* pv = a.prop_vals + oi * PK;
+        const int otype = ops[i];
         if (otype != OP_INSERT && otype != OP_REMOVE && otype != OP_ANNOTATE)
             continue;
+        const int pos1 = ops[1 * B + i];
+        const int pos2 = ops[2 * B + i];
+        const int oseq = ops[3 * B + i];
+        const int orefseq = ops[4 * B + i];
+        const int oclient = ops[5 * B + i];
+        const int obuf = ops[6 * B + i];
+        const int oilen = ops[7 * B + i];
+        const int* pk = ops + OPC * B + i * PK;
+        const int* pv = pk + B * PK;
 
         // ---- the perspective pass: visibility at (ref_seq, client)
         // and the exclusive prefix sum of vis - consume.
@@ -311,21 +409,29 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
         for (int r = 0; r < R; ++r) {
             const int j = row0 + r;
             const bool live = j < nl;
-            const int rs = h.RS[j];
+            const int rs = RS[j];
             const bool removed = rs != NOT_REMOVED;
             const bool tomb = removed && rs <= orefseq;
-            const bool ins_vis = h.IC[j] == oclient || h.IS[j] <= orefseq;
+            const bool ins_vis = IC[j] == oclient || IS[j] <= orefseq;
             const bool sk = !live || tomb || (removed && !ins_vis);
             bool visible = !sk && ins_vis;
             if (visible && removed) {
-                const int* rc = rcl + (size_t)j * KR;
+                // Among the removers? Every slot loaded, 16 bytes at a time.
+                const int4* rc =
+                    reinterpret_cast<const int4*>(heap + (size_t)SL[j] * KRP);
                 bool among = false;
-                for (int k = 0; k < KR; ++k) among |= rc[k] == oclient;
+                for (int q = 0; q < KR4; ++q) {
+                    const int4 x = rc[q];
+                    const int k = 4 * q;
+                    among |= (x.x == oclient) | ((x.y == oclient) & (k + 1 < KR)) |
+                             ((x.z == oclient) & (k + 2 < KR)) |
+                             ((x.w == oclient) & (k + 3 < KR));
+                }
                 visible = !among;
             }
-            const int len = h.L[j];
+            const int len = Ln[j];
             vis[r] = visible ? len : 0;
-            const int consume = (live && h.Bf[j] >= SETTLED_BASE) ? len : 0;
+            const int consume = (live && Bf[j] >= SETTLED_BASE) ? len : 0;
             dlt[r] = vis[r] - consume;
             skip[r] = sk;
         }
@@ -333,9 +439,9 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
             const int j = row0 + r;
-            pre[r] = h.A[j] + ex[r];
-            h.PRE[j] = pre[r];
-            h.VIS[j] = vis[r];
+            pre[r] = A[j] + ex[r];
+            PRE[j] = pre[r];
+            VIS[j] = vis[r];
         }
         const int total = S + dsum;
 
@@ -348,14 +454,14 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
                 const bool land =
                     j < nl &&
                     (pre[r] > pos1 ||
-                     (pre[r] == pos1 && !skip[r] && (vis[r] > 0 || oseq > h.IS[j])));
+                     (pre[r] == pos1 && !skip[r] && (vis[r] > 0 || oseq > IS[j])));
                 if (inside || land) cand[0] = j;
             }
             block_min<1>(cand, rbuf());
             const int j0 = cand[0];
             const int jc = min(j0, W - 1);
-            const int preX = h.PRE[jc], visX = h.VIS[jc];
-            const int ancX = h.A[jc], bufX = h.Bf[jc];
+            const int preX = PRE[jc], visX = VIS[jc];
+            const int ancX = A[jc], bufX = Bf[jc];
             const bool has_split = j0 < W && preX < pos1 && preX + visX > pos1;
             const bool land_dead = j0 >= nl;
             const bool span_s = bufX >= SETTLED_BASE;
@@ -369,42 +475,37 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
             if (!has_split && land_dead && total < pos1) err |= ERR_BAD_POS;
             if (nl + n_new > W) err |= ERR_CAPACITY;
             __syncthreads();  // every scalar read above precedes any write
-            roll_from<R>(h, rcl, props, KR, KK, t1, min(nl + 1, W));
-            if (has_split) roll_from<R>(h, rcl, props, KR, KK, t1, min(nl + 2, W));
+            // The split insert's two rolls from t1 as one shift by 2.
+            Shift s = roll(t1, min(nl + 1, W));
+            if (has_split) s = then_roll(s, t1, min(nl + 2, W));
+            shift_rows<R>(hot, heap, KRP, s, t1, ls, lpar);
             if (tid == 0) {
                 if (has_split) {
                     const int hd = t1 - 1;
-                    h.L[hd] = off;
-                    h.VIS[hd] = off;
+                    Ln[hd] = off;
+                    VIS[hd] = off;
                     const int t = t1 + 1;  // tail: a raw copy of the split row
                     if (t < W) {
-                        h.Bf[t] += off;
-                        h.L[t] -= off;
-                        if (span_s) h.A[t] += off;
-                        h.PRE[t] = pos1;
-                        h.VIS[t] -= off;
+                        Bf[t] += off;
+                        Ln[t] -= off;
+                        if (span_s) A[t] += off;
+                        PRE[t] = pos1;
+                        VIS[t] -= off;
                     }
                 }
                 if (t1 < W) {
-                    h.A[t1] = aval;
-                    h.Bf[t1] = obuf;
-                    h.L[t1] = oilen;
-                    h.IS[t1] = oseq;
-                    h.IC[t1] = oclient;
-                    h.RS[t1] = NOT_REMOVED;
-                    h.PRE[t1] = pos1;
-                    h.VIS[t1] = oilen;
+                    A[t1] = aval;
+                    Bf[t1] = obuf;
+                    Ln[t1] = oilen;
+                    IS[t1] = oseq;
+                    IC[t1] = oclient;
+                    RS[t1] = NOT_REMOVED;
+                    PRE[t1] = pos1;
+                    VIS[t1] = oilen;
                 }
             }
-            if (t1 < W) {
-                clear_new_row_globals(rcl, props, KR, KK, t1);
-                if (tid < KK) {
-                    int v = PROP_ABSENT;
-                    for (int p = 0; p < PK; ++p)
-                        if (pk[p] == tid) v = (pv[p] == PROP_DELETE) ? PROP_ABSENT : pv[p];
-                    props[(size_t)t1 * KK + tid] = v;
-                }
-            }
+            // SL[t1] is final: the shift ended with a barrier.
+            if (t1 < W) fill_new_cold(heap + (size_t)SL[t1] * KRP, KR, KK, KRP, pk, pv, PK);
             nl += n_new;
             __syncthreads();
             continue;
@@ -427,51 +528,54 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
         const int j1 = c4[0], j2 = c4[1], jc1 = c4[2], jc2 = c4[3];
         const bool has1 = j1 < W, has2 = j2 < W;
         const int k1 = min(j1, W - 1), k2 = min(j2, W - 1);
-        const int pre1 = h.PRE[k1], anc1 = h.A[k1], buf1 = h.Bf[k1];
-        const int pre2 = h.PRE[k2], anc2 = h.A[k2], buf2 = h.Bf[k2];
+        const int pre1 = PRE[k1], anc1 = A[k1], buf1 = Bf[k1];
+        const int pre2 = PRE[k2], anc2 = A[k2], buf2 = Bf[k2];
         const int off1 = pos1 - pre1, off2 = pos2 - pre2;
         const bool span1 = buf1 >= SETTLED_BASE, span2 = buf2 >= SETTLED_BASE;
         int c1, c2;
         if (has1) c1 = anc1 + (span1 ? off1 : 0);
-        else if (jc1 < W) c1 = h.A[jc1] - (h.PRE[jc1] - pos1);
+        else if (jc1 < W) c1 = A[jc1] - (PRE[jc1] - pos1);
         else c1 = pos1 - dsum;
         if (has2) c2 = anc2 + (span2 ? off2 : 0);
-        else if (jc2 < W) c2 = h.A[jc2] - (h.PRE[jc2] - pos2);
+        else if (jc2 < W) c2 = A[jc2] - (PRE[jc2] - pos2);
         else c2 = pos2 - dsum;
         const int r1 = has1 ? j1 + 1 : (has2 ? j2 + 1 : W);
         const int nh = (int)has1 + (int)has2;
         if (nl + nh > W) err |= ERR_CAPACITY;
         __syncthreads();
-        if (has1 || has2) roll_from<R>(h, rcl, props, KR, KK, r1, min(nl + 1, W));
-        if (has1 && has2) roll_from<R>(h, rcl, props, KR, KK, j2 + 2, min(nl + 2, W));
+        // The rolls from r1 and from j2 + 2 as one shift.
+        Shift s = roll(W, W);
+        if (has1 || has2) s = roll(r1, min(nl + 1, W));
+        if (has1 && has2) s = then_roll(s, j2 + 2, min(nl + 2, W));
+        shift_rows<R>(hot, heap, KRP, s, -1, ls, lpar);
         if (tid == 0) {
             if (has1) {
-                h.L[j1] = off1;
-                h.VIS[j1] = off1;
+                Ln[j1] = off1;
+                VIS[j1] = off1;
                 const int t = j1 + 1;
                 if (t < W) {
-                    h.Bf[t] += off1;
-                    h.L[t] -= off1;
-                    if (span1) h.A[t] += off1;
-                    h.PRE[t] = pos1;
-                    h.VIS[t] -= off1;
+                    Bf[t] += off1;
+                    Ln[t] -= off1;
+                    if (span1) A[t] += off1;
+                    PRE[t] = pos1;
+                    VIS[t] -= off1;
                 }
             }
             if (has2) {
                 const int d2 = j2 + (int)has1;
                 const int base = (has1 && j1 == j2) ? off1 : 0;
                 if (d2 < W) {
-                    h.L[d2] = off2 - base;
-                    h.VIS[d2] = off2 - base;
+                    Ln[d2] = off2 - base;
+                    VIS[d2] = off2 - base;
                 }
                 // tail2 is a raw copy of the ORIGINAL row j2
                 const int t = d2 + 1;
                 if (t < W) {
-                    h.Bf[t] += off2;
-                    h.L[t] -= off2;
-                    if (span2) h.A[t] += off2;
-                    h.PRE[t] = pos2;
-                    h.VIS[t] -= off2;
+                    Bf[t] += off2;
+                    Ln[t] -= off2;
+                    if (span2) A[t] += off2;
+                    PRE[t] = pos2;
+                    VIS[t] -= off2;
                 }
             }
         }
@@ -484,7 +588,7 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
             int lo, hi, ghi;
-            cnt += gap_at(h, row0 + r, nl, S, c1, c2, lo, hi, ghi) ? 1 : 0;
+            cnt += gap_at(hot, W, row0 + r, nl, S, c1, c2, lo, hi, ghi) ? 1 : 0;
         }
         const int n_mat = block_sum(cnt, rbuf());
         for (int g = 0; g < n_mat; ++g) {
@@ -492,7 +596,7 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
 #pragma unroll
             for (int r = R - 1; r >= 0; --r) {
                 int lo, hi, ghi;
-                if (gap_at(h, row0 + r, nl, S, c1, c2, lo, hi, ghi)) cj[0] = row0 + r;
+                if (gap_at(hot, W, row0 + r, nl, S, c1, c2, lo, hi, ghi)) cj[0] = row0 + r;
             }
             block_min<1>(cj, rbuf());
             const int j = cj[0];
@@ -500,24 +604,23 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
             // and reads them back with a clamped tile index
             const int jg = min(j / LANES, W / LANES - 1) * LANES + j % LANES;
             int loJ, hiJ, ghiJ;
-            gap_at(h, jg, nl, S, c1, c2, loJ, hiJ, ghiJ);
-            const int pre_new =
-                (j < nl ? h.PRE[min(j, W - 1)] : S + dsum) - (ghiJ - loJ);
+            gap_at(hot, W, jg, nl, S, c1, c2, loJ, hiJ, ghiJ);
+            const int pre_new = (j < nl ? PRE[min(j, W - 1)] : S + dsum) - (ghiJ - loJ);
             if (nl + 1 > W) err |= ERR_CAPACITY;
             __syncthreads();
-            roll_from<R>(h, rcl, props, KR, KK, j, min(nl + 1, W));
+            shift_rows<R>(hot, heap, KRP, roll(j, min(nl + 1, W)), j, ls, lpar);
             if (j < W) {
                 if (tid == 0) {
-                    h.A[j] = loJ;
-                    h.Bf[j] = SETTLED_BASE + loJ;
-                    h.L[j] = hiJ - loJ;
-                    h.IS[j] = 0;
-                    h.IC[j] = NO_CLIENT;
-                    h.RS[j] = NOT_REMOVED;
-                    h.PRE[j] = pre_new;
-                    h.VIS[j] = hiJ - loJ;
+                    A[j] = loJ;
+                    Bf[j] = SETTLED_BASE + loJ;
+                    Ln[j] = hiJ - loJ;
+                    IS[j] = 0;
+                    IC[j] = NO_CLIENT;
+                    RS[j] = NOT_REMOVED;
+                    PRE[j] = pre_new;
+                    VIS[j] = hiJ - loJ;
                 }
-                clear_new_row_globals(rcl, props, KR, KK, j);
+                fill_new_cold(heap + (size_t)SL[j] * KRP, KR, KK, KRP, pk, pv, 0);
             }
             nl += 1;
             __syncthreads();
@@ -528,31 +631,39 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
             const int j = row0 + r;
-            const int pj = h.PRE[j], vj = h.VIS[j];
+            const int pj = PRE[j], vj = VIS[j];
             const bool covered = vj > 0 && pj >= pos1 && pj + vj <= pos2 && j < nl;
             if (!covered) continue;
+            int* cold = heap + (size_t)SL[j] * KRP;
             if (otype == OP_REMOVE) {
-                int* rc = rcl + (size_t)j * KR;
-                const bool already = h.RS[j] != NOT_REMOVED;
-                if (!already) h.RS[j] = oseq;
+                const bool already = RS[j] != NOT_REMOVED;
+                if (!already) RS[j] = oseq;
+                // The first free slot: every slot loaded, 16 bytes at a time.
+                const int4* rc = reinterpret_cast<const int4*>(cold);
                 int first_free = KR;
-                for (int k = KR - 1; k >= 0; --k)
-                    if (rc[k] == NO_CLIENT) first_free = k;
+                for (int q = KR4 - 1; q >= 0; --q) {
+                    const int4 x = rc[q];
+                    const int k = 4 * q;
+                    if (x.w == NO_CLIENT && k + 3 < KR) first_free = k + 3;
+                    if (x.z == NO_CLIENT && k + 2 < KR) first_free = k + 2;
+                    if (x.y == NO_CLIENT && k + 1 < KR) first_free = k + 1;
+                    if (x.x == NO_CLIENT) first_free = k;
+                }
                 const bool no_free = first_free == KR;
                 if (already && no_free) {
                     atomicOr(s_err, ERR_REMOVERS);
                 } else {
-                    rc[already ? first_free : 0] = oclient;
+                    cold[already ? first_free : 0] = oclient;
                 }
             } else {
                 // last writer wins; a delete tombstones on span rows but
                 // clears on text rows
-                const bool is_span = h.Bf[j] >= SETTLED_BASE;
+                const bool is_span = Bf[j] >= SETTLED_BASE;
                 for (int p = 0; p < PK; ++p) {
                     const int key = pk[p];
                     if (key < 0 || key >= KK) continue;
                     const int val = pv[p];
-                    props[(size_t)j * KK + key] =
+                    cold[KR + key] =
                         val == PROP_DELETE ? (is_span ? PROP_DELETE : PROP_ABSENT) : val;
                 }
             }
@@ -560,9 +671,22 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
         __syncthreads();
     }
 
+    // Hot columns of every row; cold columns gathered in row order for
+    // the live rows (rows >= n_rows are scratch).
     for (int j = tid; j < W; j += NT) {
 #pragma unroll
-        for (int c = 0; c < 6; ++c) a.col_out[c][(size_t)d * W + j] = hot[c][j];
+        for (int c = 0; c < 6; ++c) a.col_out[c][(size_t)d * W + j] = cols[c][j];
+    }
+    const int n_out = min(max(nl, 0), W);
+    int* rcl_out = a.rcl_out + (size_t)d * W * KR;
+    int* props_out = a.props_out + (size_t)d * W * KK;
+    for (int e = tid; e < n_out * KR; e += NT) {
+        const int j = e / KR;
+        rcl_out[e] = heap[(size_t)SL[j] * KRP + e - j * KR];
+    }
+    for (int e = tid; e < n_out * KK; e += NT) {
+        const int j = e / KK;
+        props_out[e] = heap[(size_t)SL[j] * KRP + KR + e - j * KK];
     }
     if (tid == 0) {
         a.n_rows_out[d] = nl;
@@ -570,12 +694,16 @@ __global__ void __launch_bounds__(NT, 1) overlay_chunk_kernel(Args a) {
     }
 }
 
+// Dynamic shared bytes of one block: the hot columns, the reduction
+// buffers and error word, the two shift lists, and the chunk's ops.
+int smem_bytes(int W, int B, int PK) {
+    return 4 * (NHOT * W + 256 + 1 + 2 * LISTS_INTS + B * (OPC + 2 * PK));
+}
+
 template <int R>
-cudaError_t launch(const Args& a, int n_docs, cudaStream_t stream) {
-    const size_t smem = (size_t)(8 * NT * R + 256 + 1) * sizeof(int);
+cudaError_t launch(const Args& a, int n_docs, int smem, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(
-        overlay_chunk_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        overlay_chunk_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     overlay_chunk_kernel<R><<<n_docs, NT, smem, stream>>>(a);
     return cudaGetLastError();
@@ -583,23 +711,36 @@ cudaError_t launch(const Args& a, int n_docs, cudaStream_t stream) {
 
 }  // namespace
 
+// The dynamic shared bytes a launch at window W with chunks of B ops x
+// PK prop slots asks for (the wrapper checks them against the card's
+// limit before the first launch of a shape).
+extern "C" int overlay_chunk_smem_bytes(int W, int B, int PK) {
+    return smem_bytes(W, B, PK);
+}
+
 // Plain C entry point (loaded with ctypes). `ptrs` holds, in order:
 // n_rows, error, settled_len, anchor, buf_start, length, ins_seq,
 // ins_client, rem_seq, rem_clients, props, op_type, pos1, pos2, seq,
 // ref_seq, client, buf_start, ins_len, prop_keys, prop_vals (inputs),
 // then anchor, buf_start, length, ins_seq, ins_client, rem_seq,
-// rem_clients, props, n_rows, error (outputs); each array holds
-// `n_docs` documents back to back. Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// rem_clients, props, n_rows, error (outputs), then the heap
+// [n_docs, W, KRP]; each array holds `n_docs` documents back to back.
+// A heap row of KRP ints holds KR + KK, is read 16 bytes at a time and
+// filled or copied one int per thread: KRP is a multiple of 4, at most
+// NT. Launches on `stream` and returns cudaGetLastError() (0 when the
+// launch was accepted).
 extern "C" int overlay_chunk_launch(int device, int n_docs, int W, int KR,
-                                    int KK, int B, int PK, int n_ptrs,
-                                    void** ptrs, void* stream) {
-    if (n_ptrs != N_PTRS) return (int)cudaErrorInvalidValue;
+                                    int KK, int KRP, int B, int PK,
+                                    int n_ptrs, void** ptrs, void* stream) {
+    if (n_ptrs != N_PTRS || n_docs < 1 || KR < 1 || KK < 0 || KRP % 4 != 0 ||
+        KRP < KR + KK || KRP > NT || B < 0 || PK < 0)
+        return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
     Args a;
     a.KR = KR;
     a.KK = KK;
+    a.KRP = KRP;
     a.B = B;
     a.PK = PK;
     int k = 0;
@@ -609,7 +750,7 @@ extern "C" int overlay_chunk_launch(int device, int n_docs, int W, int KR,
     for (int c = 0; c < 6; ++c) a.col_in[c] = (const int*)ptrs[k++];
     a.rcl_in = (const int*)ptrs[k++];
     a.props_in = (const int*)ptrs[k++];
-    for (int c = 0; c < 8; ++c) a.op[c] = (const int*)ptrs[k++];
+    for (int c = 0; c < OPC; ++c) a.op[c] = (const int*)ptrs[k++];
     a.prop_keys = (const int*)ptrs[k++];
     a.prop_vals = (const int*)ptrs[k++];
     for (int c = 0; c < 6; ++c) a.col_out[c] = (int*)ptrs[k++];
@@ -617,11 +758,13 @@ extern "C" int overlay_chunk_launch(int device, int n_docs, int W, int KR,
     a.props_out = (int*)ptrs[k++];
     a.n_rows_out = (int*)ptrs[k++];
     a.err_out = (int*)ptrs[k++];
+    a.heap = (int*)ptrs[k++];
+    const int smem = smem_bytes(W, B, PK);
     cudaStream_t s = (cudaStream_t)stream;
     switch (W) {
-        case NT * 1: e = launch<1>(a, n_docs, s); break;
-        case NT * 2: e = launch<2>(a, n_docs, s); break;
-        case NT * 4: e = launch<4>(a, n_docs, s); break;
+        case NT * 1: e = launch<1>(a, n_docs, smem, s); break;
+        case NT * 2: e = launch<2>(a, n_docs, smem, s); break;
+        case NT * 4: e = launch<4>(a, n_docs, smem, s); break;
         default: return (int)cudaErrorInvalidValue;
     }
     if (e != cudaSuccess) return (int)e;

@@ -418,6 +418,32 @@ def overlay_apply_chunk_ref(table: OverlayTable, ops: OpBatch) -> OverlayTable:
 # The CUDA kernel's wrapper.
 
 
+# The CUDA kernel's block (csrc/overlay_chunk.cu owns its shared-memory
+# layout): KERNEL_THREADS threads, each owning W / KERNEL_THREADS rows,
+# and a heap row of KR + KK ints rounded up to 4 for 16-byte loads.
+KERNEL_THREADS = 1024
+WINDOWS = (1024, 2048, 4096)  # 1, 2 or 4 rows per thread
+COLD_MAX = 64  # KR + KK at most: a heap row of <= 256 bytes
+SMEM_OPTIN = 232448  # opt-in shared bytes of one block on an H100
+
+
+def kernel_geometry(window: int, KR: int, KK: int) -> Tuple[int, int]:
+    """The CUDA kernel's rows per thread R and heap row ints KRP for a
+    window of W rows, KR remover slots and KK prop keys. Raises
+    ValueError on what the kernel does not take: a window outside
+    WINDOWS (its hot columns live in shared memory), KR < 1, or
+    KR + KK > COLD_MAX (the heap row layout)."""
+    if window not in WINDOWS:
+        raise ValueError(
+            f"the overlay CUDA kernel takes window in {WINDOWS} (its hot "
+            f"columns live in shared memory); got {window}")
+    if KR < 1 or KK < 0 or KR + KK > COLD_MAX:
+        raise ValueError(
+            f"the overlay CUDA kernel's heap rows take 1 <= n_removers and "
+            f"n_removers + n_prop_keys <= {COLD_MAX}; got {KR} + {KK}")
+    return window // KERNEL_THREADS, -(-(KR + KK) // 4) * 4
+
+
 class OverlayChunkKernel:
     """Launches ``csrc/overlay_chunk.cu`` for one chunk of ops.
 
@@ -425,29 +451,58 @@ class OverlayChunkKernel:
     (fluidframework_tpu/ops/overlay_pallas.py:118). ``launches`` counts
     the kernel launches this wrapper made; it is incremented where the
     kernel is launched and nowhere else. The wrapper checks device,
-    dtype, shape and contiguity, allocates the output table, launches
-    on PyTorch's current stream without synchronising, and raises if
-    the launch was refused.
+    dtype, shape and contiguity, takes the block from `geometry` (worked
+    out once per shape), allocates the output table and the cold-row
+    heap, launches on PyTorch's current stream without synchronising,
+    and raises if the launch was refused. The input table is never
+    written.
     """
 
     name = "overlay_chunk"
     source = "fluidframework_tpu_torch/csrc/overlay_chunk.cu"
     replaces = "fluidframework_tpu/ops/overlay_pallas.py:118"
-    WINDOWS = (1024, 2048, 4096)  # 1024 threads x 1, 2 or 4 rows
 
     def __init__(self) -> None:
         self.launches = 0
-        self._fn = None
+        self._lib = None
+        self._shapes = {}
 
     def _entry(self):
-        if self._fn is None:
+        if self._lib is None:
             lib = _build.load(self.name)
-            fn = lib.overlay_chunk_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 8 + [
+            lib.overlay_chunk_launch.restype = ctypes.c_int
+            lib.overlay_chunk_launch.argtypes = [ctypes.c_int] * 9 + [
                 ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
-            self._fn = fn
-        return self._fn
+            lib.overlay_chunk_smem_bytes.restype = ctypes.c_int
+            lib.overlay_chunk_smem_bytes.argtypes = [ctypes.c_int] * 3
+            self._lib = lib
+        return self._lib
+
+    def geometry(self, W: int, KR: int, KK: int, B: int, PK: int):
+        """(R rows per thread, KRP heap row ints, dynamic shared bytes)
+        of a launch at window W, KR remover slots, KK prop keys and
+        chunks of B ops x PK prop slots. Raises ValueError on a shape
+        the kernel does not take (see `kernel_geometry`) or whose hot
+        columns and ops do not fit one block's shared memory."""
+        return self._plan(W, KR, KK, B, PK)[:3]
+
+    def _plan(self, W, KR, KK, B, PK):
+        # The geometry and the shapes of the 18 array inputs, worked
+        # out once per shape.
+        key = (W, KR, KK, B, PK)
+        plan = self._shapes.get(key)
+        if plan is None:
+            R, KRP = kernel_geometry(W, KR, KK)
+            smem = self._entry().overlay_chunk_smem_bytes(W, B, PK)
+            if smem > SMEM_OPTIN:
+                raise ValueError(
+                    f"the overlay CUDA kernel needs {smem} shared bytes for "
+                    f"window {W} and a chunk of {B} ops x {PK} prop slots; "
+                    f"one block may use {SMEM_OPTIN}")
+            shapes = ([(W,)] * 6 + [(W, KR), (W, KK)] + [(B,)] * 8
+                      + [(B, PK)] * 2)
+            plan = self._shapes[key] = (R, KRP, smem, shapes)
+        return plan
 
     def __call__(self, table: OverlayTable, ops: OpBatch) -> OverlayTable:
         _check_geometry(table, ops)
@@ -456,13 +511,10 @@ class OverlayChunkKernel:
             raise ValueError(
                 f"the overlay CUDA kernel needs CUDA tensors, got {dev}")
         W = table.length.shape[0]
-        if W not in self.WINDOWS:
-            raise ValueError(
-                f"the overlay CUDA kernel takes window in {self.WINDOWS} "
-                f"(its hot columns live in shared memory); got {W}")
         KR = table.rem_clients.shape[1]
         KK = table.props.shape[1]
         B, PK = ops.prop_keys.shape
+        _, KRP, _, shapes = self._plan(W, KR, KK, B, PK)
         ins = [table.n_rows, table.error, table.settled_len,
                table.anchor, table.buf_start, table.length, table.ins_seq,
                table.ins_client, table.rem_seq, table.rem_clients,
@@ -476,11 +528,11 @@ class OverlayChunkKernel:
                     "overlay kernel inputs must be int32 tensors on "
                     f"{dev}; got {t.dtype} on {t.device}")
         ins = [t.contiguous() for t in ins]
-        for t, shape in zip(ins[3:], [(W,)] * 6 + [(W, KR), (W, KK)]
-                            + [(B,)] * 8 + [(B, PK)] * 2):
+        for t, shape in zip(ins[3:], shapes):
             if tuple(t.shape) != shape:
                 raise ValueError(f"overlay kernel: shape {tuple(t.shape)} "
                                  f"where {shape} was expected")
+        heap = torch.empty((W, KRP), dtype=I32, device=dev)
         out = OverlayTable(
             n_rows=torch.empty((), dtype=I32, device=dev),
             anchor=torch.empty_like(ins[3]),
@@ -497,8 +549,8 @@ class OverlayChunkKernel:
         outs = [out.anchor, out.buf_start, out.length, out.ins_seq,
                 out.ins_client, out.rem_seq, out.rem_clients, out.props,
                 out.n_rows, out.error]
-        _build.launch(self.name, self._entry(), dev, (1, W, KR, KK, B, PK),
-                      ins + outs)
+        _build.launch(self.name, self._entry().overlay_chunk_launch, dev,
+                      (1, W, KR, KK, KRP, B, PK), ins + outs + [heap])
         self.launches += 1
         return out
 

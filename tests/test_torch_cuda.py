@@ -21,6 +21,7 @@ from fluidframework_tpu_torch.ops.mergetree_kernel import make_table
 from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
 from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
 from fluidframework_tpu_torch.testing.digest import state_digest
+from fluidframework_tpu_torch.testing.overlay_edges import overlay_edge_chunks
 from fluidframework_tpu_torch.testing.synthetic import generate_lagged_stream
 from fluidframework_tpu_torch.utils.devices import cuda_skip_reason
 
@@ -40,6 +41,17 @@ def _stream():
                                   initial_len=64)
 
 
+OVERLAY_FIELDS = ("anchor", "buf_start", "length", "ins_seq", "ins_client",
+                  "rem_seq", "rem_clients", "props")
+
+
+def _assert_overlay_equal(got, want):
+    m = int(want.n_rows)
+    assert int(got.n_rows) == m and int(got.error) == int(want.error)
+    for f in OVERLAY_FIELDS:
+        assert torch.equal(getattr(got, f)[:m], getattr(want, f)[:m]), f
+
+
 @pytest.mark.parametrize("window,n_removers", [(1024, 8), (2048, 24),
                                                (4096, 4)])
 def test_kernel_matches_plain_per_chunk(cuda, window, n_removers):
@@ -51,13 +63,54 @@ def test_kernel_matches_plain_per_chunk(cuda, window, n_removers):
     for ci in range(rep.n_chunks):
         ops = rep._dev.slice(ci * 256, (ci + 1) * 256)
         got = tov.overlay_chunk_kernel(table, ops)
-        want = tov.overlay_apply_chunk_ref(table, ops)
-        m = int(want.n_rows)
-        assert int(got.n_rows) == m and int(got.error) == int(want.error)
-        for f in ("anchor", "buf_start", "length", "ins_seq", "ins_client",
-                  "rem_seq", "rem_clients", "props"):
-            assert torch.equal(getattr(got, f)[:m], getattr(want, f)[:m]), f
+        _assert_overlay_equal(got, tov.overlay_apply_chunk_ref(table, ops))
         table, _, _ = tov.fold_device(got, rep._msn_by_chunk[ci])
+
+
+def test_overlay_kernel_edge_chunks(cuda):
+    """The edge chunks of `testing/overlay_edges.py` at the bench
+    geometry (window 2048, 24 remover slots, 8 prop keys, chunks of
+    256): split inserts at row 0 and at the window's top, long and
+    overflowing gap loops, diverging split halves, a full remover row
+    and more than a window of rows created and dropped."""
+    for case in overlay_edge_chunks(2048, 24, 8, 1, 256):
+        table = interop.table_from_numpy(case["table"], cuda)
+        ops = interop.opbatch_from_numpy(case["ops"], cuda)
+        _assert_overlay_equal(tov.overlay_chunk_kernel(table, ops),
+                              tov.overlay_apply_chunk_ref(table, ops))
+
+
+def test_overlay_kernel_leaves_its_input(cuda):
+    """Two launches on one input table give the same output, and the
+    input is unchanged (the kernel edits a heap and the outputs only)."""
+    rep = OverlayDeviceReplica(_stream(), initial_len=64, chunk_size=256,
+                               window=2048, n_removers=24, device=cuda)
+    rep.prepare()
+    table = rep.table
+    for ci in range(3):
+        out = tov.overlay_chunk_kernel(
+            table, rep._dev.slice(ci * 256, (ci + 1) * 256))
+        table, _, _ = tov.fold_device(out, rep._msn_by_chunk[ci])
+    batch = rep._dev.slice(3 * 256, 4 * 256)
+    names = OVERLAY_FIELDS + ("n_rows", "error", "settled_len")
+    before = [getattr(table, f).clone() for f in names]
+    first = tov.overlay_chunk_kernel(table, batch)
+    second = tov.overlay_chunk_kernel(table, batch)
+    for f, b in zip(names, before):
+        assert torch.equal(getattr(table, f), b), f
+    _assert_overlay_equal(second, first)
+    _assert_overlay_equal(first, tov.overlay_apply_chunk_ref(table, batch))
+
+
+def test_overlay_kernel_geometry_on_the_card(cuda):
+    """The block at the bench geometry, with the shared bytes the
+    kernel's library works out, and a clear error rather than a refused
+    launch for a chunk whose ops do not fit beside the rows."""
+    kernel = tov.OverlayChunkKernel()
+    R, KRP, smem = kernel.geometry(2048, 24, 8, 256, 1)
+    assert (R, KRP) == (2, 32) and 9 * 2048 * 4 < smem <= tov.SMEM_OPTIN
+    with pytest.raises(ValueError, match="shared bytes"):
+        kernel.geometry(4096, 24, 8, 4096, 4)
 
 
 def test_cuda_replay_matches_cpu_replay(cuda):

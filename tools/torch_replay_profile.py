@@ -2,6 +2,7 @@
 """Where the port's replay spends device time (one GPU).
 
     python3 tools/torch_replay_profile.py [--engine overlay|row] [--ops N]
+                                          [--root DIR]
 
 Replays the first N ops (default 1000000, the headline) of the seed-7
 lagged 1M-op stream at the bench geometry through
@@ -17,6 +18,17 @@ lagged 1M-op stream at the bench geometry through
   document grows. When N is a GOLDEN.json stage, the final digest is
   checked against it.
 
+For the overlay engine it first times, without the profiler, the whole
+replay (ops/s) and the host's side of one chunk: the microseconds one
+call of the kernel's wrapper and one `fold_device` take on the host's
+clock (256 and 16 calls on the first chunk, queued without a
+synchronise: fewer launches than the device's queue holds), then the
+same two under the profiler.
+
+``--root DIR`` imports the port from the checkout at DIR (a `git
+archive` of another commit, say) instead of this one, so that one call
+can compare two trees with the same measurement.
+
 Prints the card's name and power limit, host wall time of the replay,
 device time per kernel name (summed over the run), the device-busy
 share of the replay window (union of all device activity from first to
@@ -28,6 +40,7 @@ last device event) and the idle share. Writes the JSON summary as
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -45,6 +58,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--engine", choices=("overlay", "row"), default="overlay")
     ap.add_argument("--ops", type=int, default=N_GOLDEN)
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose fluidframework_tpu_torch is measured")
     args = ap.parse_args()
 
     import torch
@@ -53,10 +68,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
     from fluidframework_tpu_torch.core.overlay_replay import (
         OverlayDeviceReplica,
+    )
+    from fluidframework_tpu_torch.ops.overlay import (
+        fold_device, overlay_chunk_kernel,
     )
     from fluidframework_tpu_torch.testing.digest import state_digest
     from fluidframework_tpu_torch.testing.golden import (
@@ -78,13 +96,48 @@ def main() -> int:
 
     warm = replica()
     warm.replay(limit_chunks=8)  # build + first launches outside the window
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    host = {}
+    if args.engine == "overlay":
+        timed = replica()
+        timed.prepare()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed.replay()
+        torch.cuda.synchronize()
+        host["replay_s"] = time.perf_counter() - t0
+        host["replay_ops_per_s"] = args.ops / host["replay_s"]
+        table, batch = warm.table, warm._dev.slice(0, CHUNK)
+        out = overlay_chunk_kernel(table, batch)
+        msn = warm._msn_by_chunk[0]
+
+        def per_call_us(fn, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            return dt * 1e6 / n
+
+        for tag in ("", "_profiled"):
+            with (torch.profiler.profile(activities=acts) if tag
+                  else contextlib.nullcontext()):
+                host["wrapper_us" + tag] = per_call_us(
+                    lambda: overlay_chunk_kernel(table, batch), 256)
+                host["fold_us" + tag] = per_call_us(
+                    lambda: fold_device(out, msn), 16)
+        print(f"replay without the profiler: {host['replay_s']:.3f} s = "
+              f"{host['replay_ops_per_s']:,.0f} ops/s; host us per call: "
+              f"wrapper {host['wrapper_us']:.1f} ({host['wrapper_us_profiled']:.1f} "
+              f"profiled), fold {host['fold_us']:.1f} "
+              f"({host['fold_us_profiled']:.1f} profiled)", flush=True)
     rep = replica()
     if args.engine == "overlay":
         rep.prepare()
     torch.cuda.synchronize()
     stages = []
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         if args.engine == "row":
@@ -130,8 +183,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
     summary = {"gpu": gpu, "nvidia_smi": smi, "engine": args.engine,
-               "ops": args.ops, "chunks": rep.n_chunks, "wall_s": wall,
-               "stages": stages}
+               "root": os.path.abspath(args.root), "ops": args.ops,
+               "chunks": rep.n_chunks, "wall_s": wall, "stages": stages,
+               **host}
     if not spans:
         print("torch.profiler recorded no device time on this machine")
         summary["device_events"] = 0
@@ -169,7 +223,10 @@ def main() -> int:
               f"at {args.ops} ops")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"torch_replay_profile_{args.engine}.json")
+    tag = "" if args.root == ROOT else "_" + os.path.basename(
+        os.path.abspath(args.root))
+    path = os.path.join(out_dir,
+                        f"torch_replay_profile_{args.engine}{tag}.json")
     with open(path, "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary))
