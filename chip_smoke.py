@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--ops N]
 
-Drives the port's two replay paths on the card, through
+Drives the port's replay paths on the card, through
 ``fluidframework_tpu_torch`` only -- it imports nothing of JAX or of
 ``fluidframework_tpu``: the overlay merge-tree replay that ``bench.py``
 measures on the JAX package, and the row-model replay
@@ -56,13 +56,49 @@ Phases, in order; any failure exits non-zero:
    (tens of thousands of rows), kernel against plain version again,
    exactly; both are timed there.
 
-ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
-replays in at most 300 s; it is 1M (see the constant).
+8. (in the background, from here on) lagged streams of 100k ops for
+   many documents: the DOC_SEEDS of `testing/golden.py` with the
+   headline's generator parameters, in worker processes;
+9. kernel A's two layouts (the launcher picks the shared one when the
+   hot columns and the chunk's ops fit a block's shared memory, else
+   the global one) against the plain version, exactly, on the first
+   stream chunks (prop slots widened to PK) and the edge chunks at each
+   of LAYOUT_SHAPES, in the launcher's layout and, where the launcher
+   takes it, the other one; on the 16 bench chunks again at window
+   8192 (global layout); each layout's ms per chunk by CUDA events;
+   then both layouts on the same chunks (stream chunks with few live
+   rows, and a crowded window) at every R = W / 1024 the shared layout
+   takes, exactly and timed;
+10. `OverlayDeviceReplica` at its defaults (window 8192, chunk 2048: the
+   global layout) with the bench's 24 remover slots and 8 prop keys on
+   the 100k headline prefix, gated on GOLDEN.json's stage digest;
+11. many documents (`replay_docs`: one kernel launch per chunk for all
+   of them) at the bench geometry, 100k ops each: doc 0 is the headline
+   prefix, the others the 31 streams of phase 8, tiled (32 distinct
+   streams); each distinct stream first replays alone; at D = 132 the
+   docs path's stacked launches are held against the plain version per
+   document, exactly (all 132 on the first chunk, 8 on the last, and
+   each document on the chunk where its error word first turns
+   non-zero, with the seed named); then D = 1, 8, 32 and 132 documents
+   replay together, with the launches equal to the chunk count, the
+   error bits equal to the OR of the single replays', and at D = 132
+   every document's digest and error word equal to its single replay's
+   (doc 0's at the smaller D); aggregate ops/s and ms per chunk at each
+   D;
+12. `replay_streaming` in 8 host segments on the 100k prefix, gated on
+   GOLDEN.json.
 
-Prints the kernel A geometry line (threads, rows per thread, shared
-bytes, heap rows), the kernel B grid line (G, R, shared bytes per
-block, grid barriers per op), the kernels line (JSON), the nvidia-smi
-line, and last the
+ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
+replays in at most 300 s; it is 1M (see the constant). Every path
+(phases 4, 6, 10, 11 and 12) is driven with kernel launch counts set to
+0 just before it and read just after.
+
+Prints the kernel A geometry line (layout, threads, rows per thread,
+shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
+block, grid barriers per op), the kernels line (JSON; kernel A's entry
+also lists every layout it checked, the two layouts' times on the same
+chunks, and the launches of each path), the
+nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
 """
@@ -72,6 +108,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -91,6 +128,30 @@ ROW_CAPACITY, ROW_SYNC = 131072, 4
 ROW_OPS = 1_000_000
 DEEP_CHUNKS = 4  # at least this many last chunks of the row replay are
 # held against the plain version
+# Kernel A's layouts: (W, B, KR, KK, PK) of the overlay fold's grown
+# window (3072, chunks of 128 x 4 prop slots), the widest shared layout
+# (6144, R 6), the global layout at 6144 (its ops overflow the shared
+# bytes) and at the replica's default 8192 / 2048, and a heap row wider
+# than 64 ints (KR + KK = 72).
+LAYOUT_SHAPES = ((3072, 128, 4, 8, 4), (6144, 128, 24, 8, 4),
+                 (6144, 256, 24, 8, 1), (8192, 2048, 24, 8, 1),
+                 (2048, 256, 64, 8, 1))
+GLOBAL_W = 8192  # the bench chunks again in the global layout (W 8192)
+# Both layouts on the same chunks at each R = W / 1024 of LAYOUT_SWEEP_R
+# that the shared layout takes: SWEEP_CHUNKS stream chunks and one
+# crowded window, chunks of SWEEP_B ops.
+LAYOUT_SWEEP_R = range(1, 7)
+SWEEP_B, SWEEP_CHUNKS = 128, 4
+# The replica's defaults (core/overlay_replay.py, as in the reference).
+DEFAULT_WINDOW, DEFAULT_CHUNK = 8192, 2048
+# Many documents: each replays DOC_OPS ops at the bench geometry; doc 0
+# is the headline prefix, the others lagged streams of the DOC_SEEDS of
+# testing/golden.py (the headline's generator parameters), tiled to the
+# largest count.
+DOC_OPS = 100_000
+DOC_COUNTS = (1, 8, 32, 132)
+LATE_DOCS = 8  # documents (distinct streams) held to plain on the last chunk
+STREAM_STEPS = 8  # segments of the streaming replay
 
 # H100 SXM peaks: the HBM3 rate from NVIDIA's data sheet, and the int32
 # issue rate (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost clock),
@@ -114,6 +175,28 @@ PASSES_INSERT_B, PASSES_RANGE_B = 2, 3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def doc_readout(stream, geometry: dict, table: dict, log, counts):
+    """(digest, error word) of one document's replay outputs: the host
+    readout of `restore_shard`, on the CPU (run in a worker process)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+
+    from fluidframework_tpu_torch.core.overlay_replay import (
+        OverlayDeviceReplica, restore_shard,
+    )
+    from fluidframework_tpu_torch.interop import table_from_numpy
+    from fluidframework_tpu_torch.ops.overlay import stack_tables
+    from fluidframework_tpu_torch.testing.digest import state_digest
+
+    rep = OverlayDeviceReplica(stream, device="cpu", **geometry)
+    rep = restore_shard(
+        rep, stack_tables([table_from_numpy(table, "cpu")]),
+        torch.from_numpy(log)[None], torch.from_numpy(counts)[None],
+        torch.tensor([len(log)], dtype=torch.int32), 0)
+    return state_digest(rep.annotated_spans()), int(rep.table.error)
 
 
 def smi_line() -> str:
@@ -146,12 +229,13 @@ def main() -> int:
 
     from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
     from fluidframework_tpu_torch.core.overlay_replay import (
-        OverlayDeviceReplica,
+        OverlayDeviceReplica, replay_docs, restore_shard, stack_replicas,
     )
     from fluidframework_tpu_torch.native import load_hostmerge
     from fluidframework_tpu_torch.ops import _build
     from fluidframework_tpu_torch.interop import (
         opbatch_from_numpy, segment_table_from_numpy, table_from_numpy,
+        table_to_numpy as interop_table,
     )
     from fluidframework_tpu_torch.ops.mergetree_chunk import (
         apply_chunk_ref, kernel_geometry, mergetree_chunk_kernel,
@@ -162,17 +246,19 @@ def main() -> int:
         SegmentTable,
     )
     from fluidframework_tpu_torch.ops.overlay import (
-        KERNEL_THREADS, OverlayTable, fold_device, overlay_apply_chunk_ref,
+        KERNEL_THREADS, OverlayTable, fold_device, make_overlay_table,
+        ops_at, overlay_apply_chunk, overlay_apply_chunk_ref,
         overlay_chunk_kernel,
     )
     from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
     from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
     from fluidframework_tpu_torch.testing.digest import state_digest
     from fluidframework_tpu_torch.testing.overlay_edges import (
-        overlay_edge_chunks,
+        overlay_edge_chunks, widen_prop_slots,
     )
     from fluidframework_tpu_torch.testing.golden import (
-        golden_digest, headline_stream, load_golden, stream_prefix,
+        DOC_SEEDS, golden_digest, headline_stream, lagged_stream, load_golden,
+        stream_prefix,
     )
 
     # ---- 1. device ---------------------------------------------------
@@ -226,9 +312,17 @@ def main() -> int:
     # ---- 3. kernel vs its plain version ------------------------------
     max_err = 0
 
-    def compare(tin: OverlayTable, ops: OpBatch, label: str):
+    def compare(tin: OverlayTable, ops: OpBatch, label: str,
+                layout: str = None):
+        """Kernel A (in the launcher's layout, or the one asked for) on
+        one document against its plain version, exactly."""
+        return hold(overlay_chunk_kernel(tin, ops, layout), tin, ops, label)
+
+    def hold(out_k: OverlayTable, tin: OverlayTable, ops: OpBatch,
+             label: str):
+        """One document's kernel output `out_k` against the plain
+        version on the same inputs: n_rows, error and rows [:n_rows]."""
         nonlocal max_err
-        out_k = overlay_chunk_kernel(tin, ops)
         out_r = overlay_apply_chunk_ref(tin, ops)
         torch.cuda.synchronize()
         n_k, n_r = int(out_k.n_rows), int(out_r.n_rows)
@@ -237,7 +331,7 @@ def main() -> int:
             raise AssertionError(
                 f"{label}: kernel n_rows/error {n_k}/{e_k} != plain "
                 f"{n_r}/{e_r}")
-        m = min(n_r, WINDOW)
+        m = min(n_r, tin.length.shape[-1])
         for name in ("anchor", "buf_start", "length", "ins_seq",
                      "ins_client", "rem_seq", "rem_clients", "props"):
             a = getattr(out_k, name)[:m].to(torch.int64)
@@ -265,36 +359,43 @@ def main() -> int:
     log(f"kernel == plain on {len(checked)} stream chunks "
         f"(rows up to {max(int(t.n_rows) for t, _ in checked)} in)")
 
+    def crowded_chunk(W: int, base: int, B: int, KR: int, KK: int):
+        """`base` one-character text rows in a window of W, and a chunk
+        of B ops: three inserts to one remove at random positions, each
+        op seeing the ones before it."""
+        g = torch.Generator().manual_seed(SEED)
+        cols = dict(
+            anchor=torch.zeros(W, dtype=torch.int32),
+            buf_start=torch.arange(W, dtype=torch.int32),
+            length=torch.ones(W, dtype=torch.int32),
+            ins_seq=torch.arange(1, W + 1, dtype=torch.int32),
+            ins_client=torch.ones(W, dtype=torch.int32),
+            rem_seq=torch.full((W,), NOT_REMOVED, dtype=torch.int32),
+        )
+        table = OverlayTable(
+            n_rows=torch.tensor(base, dtype=torch.int32),
+            rem_clients=torch.full((W, KR), -3, dtype=torch.int32),
+            props=torch.full((W, KK), -1, dtype=torch.int32),
+            settled_len=torch.tensor(0, dtype=torch.int32),
+            error=torch.tensor(0, dtype=torch.int32), **cols,
+        ).to(dev)
+        i = torch.arange(B, dtype=torch.int32)
+        kinds = torch.where(i % 4 == 3, OP_REMOVE, OP_INSERT).to(torch.int32)
+        pos = (torch.rand(B, generator=g) * base).to(torch.int32)
+        ops = OpBatch(
+            op_type=kinds, pos1=pos, pos2=pos + 2,
+            seq=base + 1 + i, ref_seq=base + i, client=2 + i % 3,
+            buf_start=torch.zeros(B, dtype=torch.int32),
+            ins_len=torch.ones(B, dtype=torch.int32),
+            prop_keys=torch.full((B, 1), -1, dtype=torch.int32),
+            prop_vals=torch.full((B, 1), -1, dtype=torch.int32),
+        ).to(dev)
+        return table, ops
+
     # A window that overflows: W-8 text rows, then inserts and removes.
     W = WINDOW
-    base = WINDOW - 8
-    g = torch.Generator().manual_seed(SEED)
-    cols = dict(
-        anchor=torch.zeros(W, dtype=torch.int32),
-        buf_start=torch.arange(W, dtype=torch.int32),
-        length=torch.ones(W, dtype=torch.int32),
-        ins_seq=torch.arange(1, W + 1, dtype=torch.int32),
-        ins_client=torch.ones(W, dtype=torch.int32),
-        rem_seq=torch.full((W,), NOT_REMOVED, dtype=torch.int32),
-    )
-    over_table = OverlayTable(
-        n_rows=torch.tensor(base, dtype=torch.int32),
-        rem_clients=torch.full((W, N_REMOVERS), -3, dtype=torch.int32),
-        props=torch.full((W, N_PROP_KEYS), -1, dtype=torch.int32),
-        settled_len=torch.tensor(0, dtype=torch.int32),
-        error=torch.tensor(0, dtype=torch.int32), **cols,
-    ).to(dev)
-    i = torch.arange(CHUNK, dtype=torch.int32)
-    kinds = torch.where(i % 4 == 3, OP_REMOVE, OP_INSERT).to(torch.int32)
-    pos = (torch.rand(CHUNK, generator=g) * base).to(torch.int32)
-    over_ops = OpBatch(
-        op_type=kinds, pos1=pos, pos2=pos + 2,
-        seq=base + 1 + i, ref_seq=base + i, client=2 + i % 3,
-        buf_start=torch.zeros(CHUNK, dtype=torch.int32),
-        ins_len=torch.ones(CHUNK, dtype=torch.int32),
-        prop_keys=torch.full((CHUNK, 1), -1, dtype=torch.int32),
-        prop_vals=torch.full((CHUNK, 1), -1, dtype=torch.int32),
-    ).to(dev)
+    over_table, over_ops = crowded_chunk(W, W - 8, CHUNK, N_REMOVERS,
+                                         N_PROP_KEYS)
     _, n, e = compare(over_table, over_ops, "capacity chunk")
     if not e & ERR_CAPACITY:
         raise AssertionError("capacity chunk did not raise ERR_CAPACITY")
@@ -326,23 +427,28 @@ def main() -> int:
     log(f"kernel == plain on the {len(edges)} edge chunks")
 
     # Time the kernel and the plain version on the checked chunks.
-    R, krp, smem = overlay_chunk_kernel.geometry(W, N_REMOVERS, N_PROP_KEYS,
-                                                 CHUNK, 1)
-    log(f"overlay_chunk geometry: {KERNEL_THREADS} threads x {R} rows, "
-        f"{smem} shared bytes, heap {W} rows x {krp} ints")
-    reps = 20
-    for tin, batch in checked:  # warm-up
-        overlay_chunk_kernel(tin, batch)
-    torch.cuda.synchronize()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    for _ in range(reps):
-        for tin, batch in checked:
-            overlay_chunk_kernel(tin, batch)
-    ev1.record()
-    torch.cuda.synchronize()
-    kernel_ms = ev0.elapsed_time(ev1) / (reps * len(checked))
+    plan = overlay_chunk_kernel.plan(W, N_REMOVERS, N_PROP_KEYS, CHUNK, 1)
+    log(f"overlay_chunk geometry: {plan.layout} layout, {KERNEL_THREADS} "
+        f"threads x {plan.rows_per_thread} rows, {plan.smem_bytes} shared "
+        f"bytes, heap {W} rows x {plan.heap_ints} ints")
+
+    def time_overlay(pairs, reps: int, layout: str = None) -> float:
+        """Kernel A's mean ms per launch over `pairs`, CUDA events (in
+        the launcher's layout, or the one asked for)."""
+        for tin, batch in pairs:  # warm-up
+            overlay_chunk_kernel(tin, batch, layout)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(reps):
+            for tin, batch in pairs:
+                overlay_chunk_kernel(tin, batch, layout)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / (reps * len(pairs))
+
+    kernel_ms = time_overlay(checked, 20)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for tin, batch in checked[:4]:
@@ -621,6 +727,336 @@ def main() -> int:
         f"{(2 * n_ins_d + 3 * n_rng_d) / max(1, n_ins_d + n_rng_d):.3f} "
         f"per op on the deep chunks")
 
+    # ---- 8. many documents' streams, generated in the background -----
+    params = golden["params"]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    f_docs = [pool.submit(lagged_stream, seed, DOC_OPS, params)
+              for seed in DOC_SEEDS]
+    t_gen = time.perf_counter()
+
+    # ---- 9. kernel A's layouts vs its plain version -------------------
+    layouts = []
+
+    def layouts_at(W, B, KR, KK, PK):
+        """The launcher's layout at this shape first, then the other one
+        where the launcher takes it (the shared layout only fits up to
+        R_SHARED_MAX rows a thread and the block's shared bytes)."""
+        chosen = overlay_chunk_kernel.plan(W, KR, KK, B, PK).layout
+        other = "global" if chosen == "shared" else "shared"
+        try:
+            overlay_chunk_kernel.plan(W, KR, KK, B, PK, layout=other)
+        except RuntimeError:
+            return [chosen]
+        return [chosen, other]
+
+    def check_layout(W, B, KR, KK, PK, n_check):
+        """The first stream chunks (prop slots widened to PK) and the
+        edge chunks, kernel vs plain, exactly, in every layout the
+        launcher takes at this shape; then each layout's time on the
+        same stream chunks."""
+        rep = OverlayDeviceReplica(
+            stream_prefix(full, n_check * B), initial_len=initial_len,
+            chunk_size=B, window=W, n_removers=KR, n_prop_keys=KK,
+            device=dev)
+        rep.prepare()
+        which = layouts_at(W, B, KR, KK, PK)
+        pairs, tin = [], rep.table
+        for ci in range(rep.n_chunks):
+            ops = widen_prop_slots(rep._dev.slice(ci * B, (ci + 1) * B), PK)
+            for lay in which:
+                out, _, _ = compare(tin, ops, f"W {W} B {B} chunk {ci} {lay}",
+                                    lay)
+            pairs.append((tin, ops))
+            tin, _, _ = fold_device(out, rep._msn_by_chunk[ci])
+        edges = overlay_edge_chunks(W, KR, KK, PK, B)
+        for case in edges:
+            for lay in which:
+                compare(table_from_numpy(case["table"], dev),
+                        opbatch_from_numpy(case["ops"], dev),
+                        f"W {W} B {B} edge chunk {case['name']} {lay}", lay)
+        for lay in which:
+            plan = overlay_chunk_kernel.plan(W, KR, KK, B, PK, layout=lay)
+            ms = time_overlay(pairs, 5, lay)
+            layouts.append(dict(W=W, B=B, KR=KR, KK=KK, PK=PK,
+                                layout=lay, chosen=lay == which[0],
+                                smem_bytes=plan.smem_bytes,
+                                ms=ms, us_per_op=1e3 * ms / B,
+                                checked_chunks=len(pairs) + len(edges)))
+            log(f"overlay_chunk W {W} B {B} KR {KR} KK {KK} PK {PK}: "
+                f"{lay} layout{' (chosen)' if lay == which[0] else ''} "
+                f"({plan.smem_bytes} shared bytes), kernel == plain on "
+                f"{len(pairs)} stream + {len(edges)} edge chunks; "
+                f"{ms:.4f} ms/chunk = {1e3 * ms / B:.3f} us/op (CUDA events)")
+
+    for W_, B_, KR_, KK_, PK_ in LAYOUT_SHAPES:
+        check_layout(W_, B_, KR_, KK_, PK_, max(2, min(4, 4096 // B_)))
+
+    # Both layouts on the same chunks at every R = W / 1024 the shared
+    # layout takes: the first stream chunks (few live rows) and a window
+    # filled to W - 2B rows, exactly and timed.
+    sweep = []
+    for R in LAYOUT_SWEEP_R:
+        W_ = 1024 * R
+        if layouts_at(W_, SWEEP_B, N_REMOVERS, N_PROP_KEYS, 1) != [
+                "shared", "global"]:
+            continue
+        rep_s = OverlayDeviceReplica(
+            stream_prefix(full, SWEEP_CHUNKS * SWEEP_B),
+            initial_len=initial_len, chunk_size=SWEEP_B, window=W_,
+            n_removers=N_REMOVERS, n_prop_keys=N_PROP_KEYS, device=dev)
+        rep_s.prepare()
+        few, tin = [], rep_s.table
+        for ci in range(rep_s.n_chunks):
+            ops = rep_s._dev.slice(ci * SWEEP_B, (ci + 1) * SWEEP_B)
+            for lay in ("shared", "global"):
+                out, _, _ = compare(tin, ops, f"sweep W {W_} chunk {ci} {lay}",
+                                    lay)
+            few.append((tin, ops))
+            tin, _, _ = fold_device(out, rep_s._msn_by_chunk[ci])
+        crowd = [crowded_chunk(W_, W_ - 2 * SWEEP_B, SWEEP_B, N_REMOVERS,
+                               N_PROP_KEYS)]
+        for lay in ("shared", "global"):
+            _, _, e = compare(*crowd[0], f"sweep W {W_} crowded {lay}", lay)
+            if e:
+                raise AssertionError(f"sweep W {W_} crowded chunk: error {e}")
+        row = dict(W=W_, R=R, B=SWEEP_B, live_rows_few=max(
+            int(t.n_rows) for t, _ in few), live_rows_crowded=W_ - 2 * SWEEP_B)
+        for lay in ("shared", "global"):
+            row[f"{lay}_ms_few"] = time_overlay(few, 5, lay)
+            row[f"{lay}_ms_crowded"] = time_overlay(crowd, 20, lay)
+        sweep.append(row)
+        log(f"layouts at W {W_} (R {R}), B {SWEEP_B}, same chunks: "
+            f"{len(few)} stream chunks (up to {row['live_rows_few']} rows) "
+            f"shared {row['shared_ms_few']:.4f} / global "
+            f"{row['global_ms_few']:.4f} ms/chunk; crowded ({W_ - 2 * SWEEP_B}"
+            f" rows) shared {row['shared_ms_crowded']:.4f} / global "
+            f"{row['global_ms_crowded']:.4f} ms/chunk (CUDA events)")
+
+    # The bench chunks again with the hot columns in the global layout
+    # (W 8192 at chunks of 256 does not fit a block's shared memory):
+    # the same ops over the same live rows as `kernel_ms`.
+    glob_pairs = []
+    tin = make_overlay_table(GLOBAL_W, N_REMOVERS, N_PROP_KEYS,
+                             settled_len=initial_len, device=dev)
+    for ci, (_, batch) in enumerate(checked):
+        out, _, _ = compare(tin, batch, f"global bench chunk {ci}")
+        glob_pairs.append((tin, batch))
+        tin, _, _ = fold_device(out, rep._msn_by_chunk[ci])
+    glob_plan = overlay_chunk_kernel.plan(GLOBAL_W, N_REMOVERS, N_PROP_KEYS,
+                                          CHUNK, 1)
+    glob_ms = time_overlay(glob_pairs, 20)
+    layouts.append(dict(W=GLOBAL_W, B=CHUNK, KR=N_REMOVERS, KK=N_PROP_KEYS,
+                        PK=1, layout=glob_plan.layout,
+                        smem_bytes=glob_plan.smem_bytes, ms=glob_ms,
+                        us_per_op=1e3 * glob_ms / CHUNK,
+                        checked_chunks=len(glob_pairs)))
+    log(f"overlay_chunk on the {len(checked)} bench chunks: shared layout "
+        f"(W {WINDOW}) {kernel_ms:.4f} ms/chunk, {glob_plan.layout} layout "
+        f"(W {GLOBAL_W}) {glob_ms:.4f} ms/chunk = {glob_ms / kernel_ms:.2f}x")
+
+    # ---- 10. the replica at its default window and chunk ---------------
+    golden_100k = golden_digest(golden, DOC_OPS)
+    head = stream_prefix(full, DOC_OPS)
+    drep = OverlayDeviceReplica(
+        head, initial_len=initial_len, chunk_size=DEFAULT_CHUNK,
+        window=DEFAULT_WINDOW, n_removers=N_REMOVERS,
+        n_prop_keys=N_PROP_KEYS, device=dev)
+    drep.prepare()
+    torch.cuda.synchronize()
+    overlay_chunk_kernel.launches = 0
+    t0 = time.perf_counter()
+    drep.replay()
+    torch.cuda.synchronize()
+    t_def = time.perf_counter() - t0
+    launches_def = overlay_chunk_kernel.launches
+    if launches_def != drep.n_chunks:
+        raise AssertionError(
+            f"default replica: launches {launches_def} != chunks "
+            f"{drep.n_chunks}")
+    drep.check_errors()
+    digest = state_digest(drep.annotated_spans())
+    if digest != golden_100k:
+        raise AssertionError(
+            f"default replica digest {digest} != GOLDEN.json {golden_100k}")
+    log(f"default replica (window {DEFAULT_WINDOW}, chunk {DEFAULT_CHUNK}, "
+        f"{overlay_chunk_kernel.plan(DEFAULT_WINDOW, N_REMOVERS, N_PROP_KEYS, DEFAULT_CHUNK, 1).layout} "
+        f"layout): {DOC_OPS} ops in {t_def:.3f}s = {DOC_OPS / t_def:,.0f} "
+        f"ops/s, {t_def * 1e3 / drep.n_chunks:.4f} ms/chunk (kernel "
+        f"launches {launches_def}); digest matches GOLDEN.json at {DOC_OPS}")
+
+    # ---- 11. many documents, one launch per chunk ----------------------
+    t0 = time.perf_counter()
+    distinct = [head] + [f.result() for f in f_docs]
+    log(f"docs: {len(distinct) - 1} lagged streams of {DOC_OPS} ops "
+        f"(seeds {DOC_SEEDS[0]}..{DOC_SEEDS[-1]}) generated in "
+        f"{time.perf_counter() - t_gen:.2f}s ({time.perf_counter() - t0:.2f}s "
+        f"waited); {len(distinct)} distinct streams tiled over "
+        f"{max(DOC_COUNTS)} documents")
+
+    def doc_replica(s) -> OverlayDeviceReplica:
+        return OverlayDeviceReplica(
+            s, initial_len=initial_len, chunk_size=CHUNK, window=WINDOW,
+            n_removers=N_REMOVERS, n_prop_keys=N_PROP_KEYS, device=dev)
+
+    # Each distinct stream's single-document replay: (digest, error
+    # word). A stream may have a row removed by more clients than the 24
+    # remover slots hold (seed 124's does, from its chunk 3); the replay
+    # flags ERR_REMOVERS there as the JAX replica does
+    # (tests/test_torch_overlay_removers.py), and the docs replay must
+    # flag it alike.
+    single = []
+    for s_ in distinct:
+        r = doc_replica(s_)
+        r.replay()
+        single.append((state_digest(r.annotated_spans()), int(r.table.error)))
+    if single[0] != (golden_100k, 0):
+        raise AssertionError(f"doc 0 single replay (digest, error) "
+                             f"{single[0]} != GOLDEN.json {golden_100k}")
+    n_flagged = sum(1 for _, e in single if e)
+    log(f"single-document replays of the {len(single)} distinct streams: "
+        f"{n_flagged} flag ERR_REMOVERS (more removers of a row than "
+        f"{N_REMOVERS} slots); doc 0 has no error and matches GOLDEN.json")
+
+    def hold_stacked(reps_d):
+        """The docs path's own launches (one per chunk, all documents,
+        as `replay_chunk_step`'s docs form makes them) held against the
+        plain version per document, exactly: every document on the
+        first chunk, LATE_DOCS distinct streams on the last chunk, and
+        each document on the chunk where its error word first turns
+        non-zero. Returns {stream index: (first error chunk, error)}."""
+        tables, ops_st, _, _, msns = stack_replicas(reps_d)
+        D, n_ch = len(reps_d), reps_d[0].n_chunks
+        tin, flagged, held = tables, {}, 0
+        err_seen = torch.zeros(D, dtype=torch.int32, device=dev)
+        for ci in range(n_ch):
+            chunk = ops_at(ops_st, ci)
+            out = overlay_apply_chunk(tin, chunk)
+            new = torch.nonzero((out.error != 0) & (err_seen == 0))
+            new = new.flatten().tolist()
+            for d in new:
+                flagged.setdefault(d % len(distinct), (ci, int(out.error[d])))
+            docs = set(new)
+            if ci == 0:
+                docs |= set(range(D))
+            elif ci == n_ch - 1:
+                docs |= set(range(min(LATE_DOCS, D)))
+            for d in sorted(docs):
+                hold(out.doc(d), tin.doc(d), ops_at(chunk, d),
+                     f"docs D {D}: doc {d} chunk {ci}")
+                held += 1
+            err_seen = err_seen | out.error
+            tin, _, _ = fold_device(out, msns[ci])
+        log(f"docs D {D}: the stacked launch == plain on {held} "
+            f"(document, chunk) pairs: all {D} documents on chunk 0, "
+            f"{min(LATE_DOCS, D)} on chunk {n_ch - 1}, and each document "
+            f"where its error first shows")
+        return flagged
+
+    docs_runs = []
+    for D in DOC_COUNTS:
+        reps_d = [doc_replica(distinct[d % len(distinct)]) for d in range(D)]
+        for r in reps_d:
+            r.prepare()
+        if D == max(DOC_COUNTS):
+            flagged = hold_stacked(reps_d)
+            for k, (ci, e) in sorted(flagged.items()):
+                seed = "7 (headline)" if k == 0 else DOC_SEEDS[k - 1]
+                log(f"docs: the stream of seed {seed} first flags error "
+                    f"{e} at chunk {ci} (ops {ci * CHUNK}..{(ci + 1) * CHUNK - 1})")
+            if set(flagged) != {k for k, (_, e) in enumerate(single) if e}:
+                raise AssertionError(
+                    f"docs D {D}: the streams that flag errors {flagged} "
+                    f"differ from the single replays'")
+        torch.cuda.synchronize()
+        overlay_chunk_kernel.launches = 0
+        t0 = time.perf_counter()
+        out = replay_docs(reps_d)
+        torch.cuda.synchronize()
+        t_docs = time.perf_counter() - t0
+        launches_docs = overlay_chunk_kernel.launches
+        n_ch = reps_d[0].n_chunks
+        if launches_docs != n_ch:
+            raise AssertionError(
+                f"docs replay D {D}: launches {launches_docs} != chunks {n_ch}")
+        want_err = 0
+        for d in range(D):
+            want_err |= single[d % len(distinct)][1]
+        if int(out[5]) != want_err:
+            raise AssertionError(f"docs replay D {D}: error bits "
+                                 f"{int(out[5])} != {want_err}")
+        if int(out[4]) != min(int(r._msn_by_chunk[-1]) for r in reps_d):
+            raise AssertionError(f"docs replay D {D}: gmsn {int(out[4])}")
+        # Every document's digest at the largest D (read out in the
+        # worker processes); doc 0's at the others.
+        t0 = time.perf_counter()
+        if D == max(DOC_COUNTS):
+            tables, logs, counts, cursors = out[:4]
+            host_tables = interop_table(tables)
+            geometry = dict(initial_len=initial_len, chunk_size=CHUNK,
+                            window=WINDOW, n_removers=N_REMOVERS,
+                            n_prop_keys=N_PROP_KEYS,
+                            log_cap=reps_d[0].log_cap)
+            got_all = list(pool.map(doc_readout, *zip(*(
+                (distinct[d % len(distinct)], geometry,
+                 {k: v[d] for k, v in host_tables.items()},
+                 logs[d, :int(cursors[d])].cpu().numpy(),
+                 counts[d].cpu().numpy()) for d in range(D)))))
+        else:
+            r = restore_shard(reps_d[0], *out[:4], 0)
+            got_all = [(state_digest(r.annotated_spans()),
+                        int(r.table.error))]
+        for d, got in enumerate(got_all):
+            if got != single[d % len(distinct)]:
+                raise AssertionError(
+                    f"docs replay D {D}: doc {d} (digest, error) {got} != "
+                    f"its single-document replay {single[d % len(distinct)]}")
+        t_read = time.perf_counter() - t0
+        # Documents whose stream flags an error replay into an error
+        # state; the aggregate of the others is given beside the whole.
+        n_clean = sum(1 for d in range(D) if not single[d % len(distinct)][1])
+        docs_runs.append(dict(D=D, seconds=t_docs, launches=launches_docs,
+                              ops_per_s=D * DOC_OPS / t_docs,
+                              clean_docs=n_clean,
+                              clean_ops_per_s=n_clean * DOC_OPS / t_docs,
+                              ms_per_chunk=t_docs * 1e3 / n_ch))
+        log(f"docs replay D {D}: {D} x {DOC_OPS} ops in {t_docs:.3f}s = "
+            f"{D * DOC_OPS / t_docs:,.0f} ops/s aggregate "
+            f"({n_clean * DOC_OPS / t_docs:,.0f} over the {n_clean} documents "
+            f"with no error), "
+            f"{t_docs * 1e3 / n_ch:.4f} ms/chunk (kernel launches "
+            f"{launches_docs}, one per chunk; error bits {int(out[5])}); "
+            f"{'every' if D == max(DOC_COUNTS) else 'doc 0'} digest and "
+            f"error word equal its single-document replay's (doc 0 = "
+            f"GOLDEN.json at {DOC_OPS}); readout {t_read:.2f}s")
+        del reps_d, out
+
+    pool.shutdown()
+
+    # ---- 12. streaming replay -------------------------------------------
+    srep = doc_replica(head)
+    srep.prepare_host()
+    torch.cuda.synchronize()
+    overlay_chunk_kernel.launches = 0
+    t0 = time.perf_counter()
+    srep.replay_streaming(STREAM_STEPS)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    launches_stream = overlay_chunk_kernel.launches
+    if launches_stream != srep.n_chunks:
+        raise AssertionError(
+            f"streaming: launches {launches_stream} != chunks {srep.n_chunks}")
+    srep.check_errors()
+    digest = state_digest(srep.annotated_spans())
+    if digest != golden_100k:
+        raise AssertionError(
+            f"streaming digest {digest} != GOLDEN.json {golden_100k}")
+    log(f"streaming replay: {DOC_OPS} ops in {STREAM_STEPS} host segments "
+        f"in {t_stream:.3f}s = {DOC_OPS / t_stream:,.0f} ops/s (copies "
+        f"included; kernel launches {launches_stream}); digest matches "
+        f"GOLDEN.json at {DOC_OPS}")
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -634,6 +1070,14 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "check": "exact",
+        "layouts": layouts,
+        "layout_sweep": sweep,
+        "path_launches": {
+            "overlay_replay": launches,
+            "default_window_replica": launches_def,
+            "docs_replay": {str(r["D"]): r["launches"] for r in docs_runs},
+            "streaming_replay": launches_stream,
+        },
     }, {
         "name": mergetree_chunk_kernel.name,
         "route": "cuda",

@@ -13,13 +13,20 @@ source module) and reads it out through the numpy spec's
 
 A ``device=`` argument takes the place of the JAX version's
 ``interpret=``: ``cuda`` (the default) launches the CUDA kernel,
-``"cpu"`` runs its plain PyTorch version. `replay_streaming`,
-`stack_replicas`, `restore_shard` and `OverlayKernelMessageReplica`
-are not ported yet.
+``"cpu"`` runs its plain PyTorch version.
+
+`replay_streaming` feeds the stream from host segments, each copied to
+the device while the previous one replays. `stack_replicas`,
+`restore_shard` and `replay_docs` replay many documents together: one
+kernel launch (one block per document) and one fold per chunk for all
+of them, the one-card counterpart of
+`parallel.mesh.sharded_overlay_replay_multi`.
+`OverlayKernelMessageReplica` is not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import fields
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -38,9 +45,12 @@ from ..ops.overlay import (
     REC_NONE,
     REC_SETTLE_SPAN,
     REC_SETTLE_TEXT,
+    OverlayTable,
+    kernel_geometry,
     make_overlay_table,
     replay_chunk_step,
     replay_fused,
+    stack_tables,
 )
 from ..ops.overlay_ref import (
     SETTLED_BASE,
@@ -166,6 +176,7 @@ class OverlayDeviceReplica:
         log_cap: Optional[int] = None,
     ):
         self.device = resolve_device(device)
+        kernel_geometry(window, n_removers, n_prop_keys)
         self.stream = stream
         self.chunk_size = chunk_size
         self.window = window
@@ -193,6 +204,7 @@ class OverlayDeviceReplica:
         self.chunks_done = 0
         self._doc: Optional[OverlayDoc] = None
         self._dev: Optional[OpBatch] = None
+        self._host: Optional[OpBatch] = None
 
     # -------------------------------------------------------------- replay
 
@@ -202,17 +214,29 @@ class OverlayDeviceReplica:
         replay region."""
         if self._dev is not None:
             return
+        self.prepare_host()
+        self._dev = OpBatch(*(
+            torch.from_numpy(getattr(self._host, f.name)).to(self.device)
+            for f in fields(OpBatch)))
+        self._msn_by_chunk = torch.from_numpy(self._host_msn).to(self.device)
+
+    def prepare_host(self) -> None:
+        """Decode the stream into padded HOST arrays only (numpy, in an
+        `OpBatch`): the load phase of `replay_streaming`, which touches
+        no device."""
+        if self._host is not None:
+            return
         s = self.stream
         n = len(s)
         B = self.chunk_size
         pad = self.n_chunks * B
 
-        def up(a: np.ndarray, fill: int = 0) -> torch.Tensor:
+        def up(a: np.ndarray, fill: int = 0) -> np.ndarray:
             out = np.full(pad, fill, np.int32)
             out[:n] = a
-            return torch.from_numpy(out).to(self.device)
+            return out
 
-        self._dev = OpBatch(
+        self._host = OpBatch(
             op_type=up(s.op_type, OP_NOOP),
             pos1=up(s.pos1), pos2=up(s.pos2),
             seq=up(s.seq), ref_seq=up(s.ref_seq),
@@ -223,8 +247,70 @@ class OverlayDeviceReplica:
         )
         # Applied MSN at each chunk's end (the fold perspective).
         ends = np.minimum(np.arange(1, self.n_chunks + 1) * B, n) - 1
-        self._msn_by_chunk = torch.from_numpy(
-            s.min_seq[ends].astype(np.int32)).to(self.device)
+        self._host_msn = s.min_seq[ends].astype(np.int32)
+
+    def replay_streaming(self, n_segments: int = 8) -> None:
+        """Replay with the ingest in the loop: the op stream stays on
+        the host and feeds the device segment by segment, each
+        segment's copy overlapping the previous segment's replay (the
+        JAX `replay_streaming`). On CUDA a segment is packed into one
+        pinned host buffer and copied on a side stream; the replay's
+        stream waits on the copy's event before that segment, so
+        segment k+1 is copied while segment k replays. On the CPU the
+        same segments are copied one after another. Same result as
+        `replay`."""
+        self.prepare_host()
+        if not self.n_chunks:
+            return
+        n_segments = max(1, min(n_segments, self.n_chunks))
+        seg_chunks = -(-self.n_chunks // n_segments)
+        n_live = -(-self.n_chunks // seg_chunks)
+        B = self.chunk_size
+        host = [getattr(self._host, f.name) for f in fields(OpBatch)]
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+
+        def stage(si: int):
+            lo_c = si * seg_chunks
+            hi_c = min(lo_c + seg_chunks, self.n_chunks)
+            lo, hi = lo_c * B, hi_c * B
+            packed = torch.from_numpy(np.concatenate(
+                [a[lo:hi].reshape(-1) for a in host]
+                + [self._host_msn[lo_c:hi_c]]))
+            if not cuda:
+                return lo_c, hi - lo, hi_c - lo_c, packed.clone(), None, None
+            packed = packed.pin_memory()
+            with torch.cuda.stream(side):
+                buf = packed.to(self.device, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(side)
+            return lo_c, hi - lo, hi_c - lo_c, buf, copied, packed
+
+        def unpack(buf: torch.Tensor, n_ops: int, n_ch: int):
+            out, off = [], 0
+            for a in host:
+                width = a.shape[1] if a.ndim > 1 else 1
+                f = buf[off:off + n_ops * width]
+                out.append(f.view(n_ops, width) if a.ndim > 1 else f)
+                off += n_ops * width
+            return OpBatch(*out), buf[off:off + n_ch]
+
+        nxt = stage(0)
+        for si in range(n_live):
+            lo_c, n_ops, n_ch, buf, copied, _pinned = nxt
+            if si + 1 < n_live:
+                nxt = stage(si + 1)  # its copy overlaps this replay
+            if copied is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(copied)
+                buf.record_stream(compute)
+            ops, msns = unpack(buf, n_ops, n_ch)
+            self.table, self.log, self.counts, self.cursor = replay_fused(
+                self.table, ops, self.log, self.counts, msns,
+                self.chunk_size, epoch0=lo_c,
+            )
+        self.chunks_done = self.n_chunks
+        self._doc = None
 
     def replay(self, limit_chunks: Optional[int] = None) -> None:
         """Replay the stream. Full replays run `replay_fused` (one
@@ -326,3 +412,77 @@ class OverlayDeviceReplica:
 
     def verify_invariants(self) -> None:
         self._materialize().verify_invariants()
+
+
+def stack_replicas(reps: List[OverlayDeviceReplica]):
+    """Stack replicas into the docs form of `replay_fused`:
+    ``(tables, ops, logs, counts, msn_by_chunk)`` with tables and logs
+    ``[D, ...]``, counts ``[D, n_chunks]``, and ops ``[n_chunks, D, B]``
+    and msn_by_chunk ``[n_chunks, D]``, so that each chunk of every
+    document is one contiguous slice (the JAX version stacks the ops
+    and MSNs docs-first, for `lax.map`). Prepares each replica. The
+    documents must share window, chunk size, remover slots, prop keys,
+    chunk count, log rows and device, as `jnp.stack` requires of the
+    reference's; a mismatch raises ValueError."""
+    if not reps:
+        raise ValueError("stack_replicas: no replicas")
+    for name in ("window", "chunk_size", "n_removers", "n_prop_keys",
+                 "n_chunks", "log_cap", "device"):
+        got = {getattr(r, name) for r in reps}
+        if len(got) > 1:
+            raise ValueError(
+                f"stack_replicas: the documents differ in {name}: "
+                f"{sorted(map(str, got))}")
+    for r in reps:
+        r.prepare()
+    n_chunks, B = reps[0].n_chunks, reps[0].chunk_size
+
+    def chunked(a: torch.Tensor) -> torch.Tensor:
+        return a.view(n_chunks, B, *a.shape[1:])
+
+    ops = OpBatch(*(
+        torch.stack([chunked(getattr(r._dev, f.name)) for r in reps], 1)
+        for f in fields(OpBatch)))
+    return (
+        stack_tables([r.table for r in reps]),
+        ops,
+        torch.stack([r.log for r in reps]),
+        torch.stack([r.counts for r in reps]),
+        torch.stack([r._msn_by_chunk for r in reps], 1),
+    )
+
+
+def restore_shard(
+    rep: OverlayDeviceReplica, out_tables: OverlayTable, out_logs,
+    out_counts, cursors, d: int,
+) -> OverlayDeviceReplica:
+    """Load document `d`'s outputs of a docs replay (`replay_docs`) into
+    `rep`, so that its host-side readout (get_text / annotated_spans /
+    check_errors) reflects that run."""
+    rep.table = out_tables.doc(d)
+    rep.log = out_logs[d]
+    rep.counts = out_counts[d]
+    rep.cursor = cursors[d]
+    rep.chunks_done = rep.n_chunks
+    rep._doc = None
+    return rep
+
+
+def replay_docs(reps: List[OverlayDeviceReplica]):
+    """Replay many documents at once on one device: the one-card
+    counterpart of `parallel.mesh.sharded_overlay_replay_multi`. The
+    replicas are stacked (`stack_replicas`) and every chunk of all of
+    them is one kernel launch (one block per document) and one fold.
+
+    Returns ``(tables, logs, counts, cursors, gmsn, gerr)`` as the
+    reference does: the stacked outputs, the smallest final applied
+    MSN over the documents, and the OR of their error bits. No host
+    sync; `restore_shard` gives a replica its document's outputs."""
+    tables, ops, logs, counts, msns = stack_replicas(reps)
+    tables, logs, counts, cursors = replay_fused(
+        tables, ops, logs, counts, msns, reps[0].chunk_size)
+    gmsn = torch.min(msns[-1])
+    bits = torch.arange(31, dtype=torch.int32, device=msns.device)
+    err = torch.amax((tables.error[:, None] >> bits) & 1, 0)
+    gerr = torch.sum(err << bits, dtype=torch.int32)
+    return tables, logs, counts, cursors, gmsn, gerr

@@ -23,13 +23,19 @@ Per chunk of B sequenced ops:
 Names, column layout (``[W]`` columns, ``rem_clients[W, KR]``,
 ``props[W, KK]``) and sentinels are those of the JAX package, so the
 tests compare the two like with like. All state is int32.
+
+Each step also takes many documents at once (the docs form, the
+one-card counterpart of `parallel.mesh.sharded_overlay_replay_multi`):
+every table field with a leading ``[D]`` axis and ops of ``[D, B]``.
+A chunk of all D documents is one kernel launch (one block per
+document) and one fold.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, fields
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,6 +93,25 @@ class OverlayTable:
             *(getattr(self, f.name).to(device) for f in fields(self))
         )
 
+    def doc(self, d: int) -> "OverlayTable":
+        """Document `d` of a stacked table (views)."""
+        return OverlayTable(*(getattr(self, f.name)[d] for f in fields(self)))
+
+
+def stack_tables(tables: List[OverlayTable]) -> OverlayTable:
+    """Documents' tables of one shape stacked on a leading ``[D]`` axis
+    (the docs form of `OverlayChunkKernel`, `fold_device` and
+    `replay_fused`)."""
+    return OverlayTable(*(
+        torch.stack([getattr(t, f.name) for t in tables])
+        for f in fields(OverlayTable)))
+
+
+def ops_at(ops: OpBatch, i: int) -> OpBatch:
+    """Entry `i` of every field's leading axis (views): document i of a
+    stacked chunk of ops, or chunk i of a docs-form stream."""
+    return OpBatch(*(getattr(ops, f.name)[i] for f in fields(ops)))
+
 
 def make_overlay_table(
     window: int, n_removers: int = 4, n_prop_keys: int = 8,
@@ -113,11 +138,11 @@ def make_overlay_table(
 
 
 def _check_geometry(table: OverlayTable, ops: OpBatch) -> None:
-    window = table.length.shape[0]
+    window = table.length.shape[-1]
     if window % (8 * LANES):
         raise ValueError("window must be a multiple of 1024")
-    if ops.prop_keys.shape[0] != ops.pos1.shape[0]:
-        raise ValueError("prop_keys must be [B, PK]")
+    if ops.prop_keys.shape[:-1] != ops.pos1.shape:
+        raise ValueError("prop_keys must be [B, PK] ([D, B, PK] stacked)")
 
 
 def _i32(x: int) -> int:
@@ -418,44 +443,77 @@ def overlay_apply_chunk_ref(table: OverlayTable, ops: OpBatch) -> OverlayTable:
 # The CUDA kernel's wrapper.
 
 
-# The CUDA kernel's block (csrc/overlay_chunk.cu owns its shared-memory
-# layout): KERNEL_THREADS threads, each owning W / KERNEL_THREADS rows,
-# and a heap row of KR + KK ints rounded up to 4 for 16-byte loads.
+# The CUDA kernel's block: KERNEL_THREADS threads, and a heap row of
+# KR + KK ints rounded up to 4 for 16-byte loads, filled one int per
+# thread. Where the hot columns live (shared memory or a scratch in
+# device memory) is the launcher's choice: `OverlayChunkKernel.plan`
+# reads it from csrc/overlay_chunk.cu.
 KERNEL_THREADS = 1024
-WINDOWS = (1024, 2048, 4096)  # 1, 2 or 4 rows per thread
-COLD_MAX = 64  # KR + KK at most: a heap row of <= 256 bytes
-SMEM_OPTIN = 232448  # opt-in shared bytes of one block on an H100
+LAYOUTS = ("shared", "global")
+
+
+class KernelPlan(NamedTuple):
+    """A launch's geometry: the layout of the hot columns, rows per
+    thread R (W / KERNEL_THREADS: one block of R-row threads in the
+    shared layout, R segments of one row per thread in the global one),
+    heap row ints KRP, dynamic shared bytes of a block, and the
+    hot-scratch ints a document needs (0 in the shared layout)."""
+
+    layout: str
+    rows_per_thread: int
+    heap_ints: int
+    smem_bytes: int
+    scratch_ints: int
 
 
 def kernel_geometry(window: int, KR: int, KK: int) -> Tuple[int, int]:
     """The CUDA kernel's rows per thread R and heap row ints KRP for a
     window of W rows, KR remover slots and KK prop keys. Raises
-    ValueError on what the kernel does not take: a window outside
-    WINDOWS (its hot columns live in shared memory), KR < 1, or
-    KR + KK > COLD_MAX (the heap row layout)."""
-    if window not in WINDOWS:
+    ValueError on what the reference refuses too (a window that is not
+    a positive multiple of 1024, KR < 1) and on a heap row wider than
+    the block (KR + KK > KERNEL_THREADS). Any chunk size is taken."""
+    if window <= 0 or window % KERNEL_THREADS:
         raise ValueError(
-            f"the overlay CUDA kernel takes window in {WINDOWS} (its hot "
-            f"columns live in shared memory); got {window}")
-    if KR < 1 or KK < 0 or KR + KK > COLD_MAX:
+            f"the overlay window must be a positive multiple of "
+            f"{KERNEL_THREADS}; got {window}")
+    if KR < 1 or KK < 0 or KR + KK > KERNEL_THREADS:
         raise ValueError(
-            f"the overlay CUDA kernel's heap rows take 1 <= n_removers and "
-            f"n_removers + n_prop_keys <= {COLD_MAX}; got {KR} + {KK}")
+            f"the overlay kernel's heap rows take 1 <= n_removers and "
+            f"n_removers + n_prop_keys <= {KERNEL_THREADS}; got {KR} + {KK}")
     return window // KERNEL_THREADS, -(-(KR + KK) // 4) * 4
+
+
+def _force(layout: Optional[str]) -> int:
+    """The launcher's `force` argument: -1 (its own choice) for None,
+    else the index of `layout` in LAYOUTS."""
+    if layout is None:
+        return -1
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}; got {layout!r}")
+    return LAYOUTS.index(layout)
+
+
+def _doc_shape(table: OverlayTable) -> Tuple[int, ...]:
+    """() for one document's table, (D,) for a stack of D documents."""
+    return tuple(table.length.shape[:-1])
 
 
 class OverlayChunkKernel:
     """Launches ``csrc/overlay_chunk.cu`` for one chunk of ops.
 
     Replaces the Pallas `_overlay_chunk_kernel`
-    (fluidframework_tpu/ops/overlay_pallas.py:118). ``launches`` counts
-    the kernel launches this wrapper made; it is incremented where the
-    kernel is launched and nowhere else. The wrapper checks device,
-    dtype, shape and contiguity, takes the block from `geometry` (worked
-    out once per shape), allocates the output table and the cold-row
-    heap, launches on PyTorch's current stream without synchronising,
-    and raises if the launch was refused. The input table is never
-    written.
+    (fluidframework_tpu/ops/overlay_pallas.py:118). Takes one document
+    (a table of ``[W]`` columns, ops of ``[B]``) or a stack of D
+    documents (a leading ``[D]`` axis on every table field, n_rows,
+    error and settled_len included, and ops of ``[D, B]``): either is
+    ONE launch, one block per document. ``launches`` counts the kernel
+    launches this wrapper made, not documents; it is incremented where
+    the kernel is launched and nowhere else. The wrapper checks device,
+    dtype, shape and contiguity, reads the launch's `plan` (worked out
+    once per shape), allocates the output table, the cold-row heap and
+    the hot scratch the plan asks for, launches on PyTorch's current
+    stream without synchronising, and raises if the launch was refused.
+    The input table is never written.
     """
 
     name = "overlay_chunk"
@@ -465,56 +523,65 @@ class OverlayChunkKernel:
     def __init__(self) -> None:
         self.launches = 0
         self._lib = None
-        self._shapes = {}
+        self._plans = {}
 
     def _entry(self):
         if self._lib is None:
             lib = _build.load(self.name)
             lib.overlay_chunk_launch.restype = ctypes.c_int
-            lib.overlay_chunk_launch.argtypes = [ctypes.c_int] * 9 + [
+            lib.overlay_chunk_launch.argtypes = [ctypes.c_int] * 10 + [
                 ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
-            lib.overlay_chunk_smem_bytes.restype = ctypes.c_int
-            lib.overlay_chunk_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.overlay_chunk_plan.restype = ctypes.c_int
+            lib.overlay_chunk_plan.argtypes = [ctypes.c_int] * 8 + [
+                ctypes.POINTER(ctypes.c_int)]
             self._lib = lib
         return self._lib
 
-    def geometry(self, W: int, KR: int, KK: int, B: int, PK: int):
-        """(R rows per thread, KRP heap row ints, dynamic shared bytes)
-        of a launch at window W, KR remover slots, KK prop keys and
-        chunks of B ops x PK prop slots. Raises ValueError on a shape
-        the kernel does not take (see `kernel_geometry`) or whose hot
-        columns and ops do not fit one block's shared memory."""
-        return self._plan(W, KR, KK, B, PK)[:3]
-
-    def _plan(self, W, KR, KK, B, PK):
-        # The geometry and the shapes of the 18 array inputs, worked
-        # out once per shape.
-        key = (W, KR, KK, B, PK)
-        plan = self._shapes.get(key)
+    def plan(self, W: int, KR: int, KK: int, B: int, PK: int,
+             device: DeviceLike = None,
+             layout: Optional[str] = None) -> KernelPlan:
+        """The launch's `KernelPlan` at window W, KR remover slots, KK
+        prop keys and chunks of B ops x PK prop slots on `device` (the
+        current CUDA device by default), as the kernel's library decides
+        it. `layout` ("shared" or "global") asks the library for that
+        layout instead of its choice, to hold both layouts against the
+        plain version or time them on the same chunks; no replay path
+        passes it. Raises ValueError on a shape `kernel_geometry`
+        refuses, and RuntimeError where the library refuses the plan (a
+        shared layout that does not fit)."""
+        dev = torch.device("cuda" if device is None else device)
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        key = (index, W, KR, KK, B, PK, layout)
+        plan = self._plans.get(key)
         if plan is None:
             R, KRP = kernel_geometry(W, KR, KK)
-            smem = self._entry().overlay_chunk_smem_bytes(W, B, PK)
-            if smem > SMEM_OPTIN:
-                raise ValueError(
-                    f"the overlay CUDA kernel needs {smem} shared bytes for "
-                    f"window {W} and a chunk of {B} ops x {PK} prop slots; "
-                    f"one block may use {SMEM_OPTIN}")
-            shapes = ([(W,)] * 6 + [(W, KR), (W, KK)] + [(B,)] * 8
-                      + [(B, PK)] * 2)
-            plan = self._shapes[key] = (R, KRP, smem, shapes)
+            out = (ctypes.c_int * 3)()
+            rc = self._entry().overlay_chunk_plan(
+                index, W, KR, KK, KRP, B, PK, _force(layout), out)
+            if rc != 0:
+                raise RuntimeError(
+                    f"overlay_chunk_plan refused the {layout or 'chosen'} "
+                    f"layout at W {W}, B {B}, PK {PK} (CUDA error {rc})")
+            plan = self._plans[key] = KernelPlan(
+                LAYOUTS[out[0]], R, KRP, out[1], out[2])
         return plan
 
-    def __call__(self, table: OverlayTable, ops: OpBatch) -> OverlayTable:
+    def __call__(self, table: OverlayTable, ops: OpBatch,
+                 layout: Optional[str] = None) -> OverlayTable:
+        """One launch for the chunk `ops` on `table` (one document or a
+        stack). `layout` forces a layout as in `plan`."""
         _check_geometry(table, ops)
         dev = table.length.device
         if dev.type != "cuda":
             raise ValueError(
                 f"the overlay CUDA kernel needs CUDA tensors, got {dev}")
-        W = table.length.shape[0]
-        KR = table.rem_clients.shape[1]
-        KK = table.props.shape[1]
-        B, PK = ops.prop_keys.shape
-        _, KRP, _, shapes = self._plan(W, KR, KK, B, PK)
+        lead = _doc_shape(table)
+        D = lead[0] if lead else 1
+        W = table.length.shape[-1]
+        KR = table.rem_clients.shape[-1]
+        KK = table.props.shape[-1]
+        B, PK = ops.prop_keys.shape[-2:]
+        plan = self.plan(W, KR, KK, B, PK, dev, layout)
         ins = [table.n_rows, table.error, table.settled_len,
                table.anchor, table.buf_start, table.length, table.ins_seq,
                table.ins_client, table.rem_seq, table.rem_clients,
@@ -522,19 +589,22 @@ class OverlayChunkKernel:
                ops.op_type, ops.pos1, ops.pos2, ops.seq, ops.ref_seq,
                ops.client, ops.buf_start, ops.ins_len, ops.prop_keys,
                ops.prop_vals]
-        for t in ins:
+        shapes = ([lead] * 3 + [lead + (W,)] * 6
+                  + [lead + (W, KR), lead + (W, KK)] + [lead + (B,)] * 8
+                  + [lead + (B, PK)] * 2)
+        for t, shape in zip(ins, shapes):
             if t.device != dev or t.dtype != I32:
                 raise ValueError(
                     "overlay kernel inputs must be int32 tensors on "
                     f"{dev}; got {t.dtype} on {t.device}")
-        ins = [t.contiguous() for t in ins]
-        for t, shape in zip(ins[3:], shapes):
             if tuple(t.shape) != shape:
                 raise ValueError(f"overlay kernel: shape {tuple(t.shape)} "
                                  f"where {shape} was expected")
-        heap = torch.empty((W, KRP), dtype=I32, device=dev)
+        ins = [t.contiguous() for t in ins]
+        heap = torch.empty(lead + (W, plan.heap_ints), dtype=I32, device=dev)
+        hot = torch.empty((D, plan.scratch_ints), dtype=I32, device=dev)
         out = OverlayTable(
-            n_rows=torch.empty((), dtype=I32, device=dev),
+            n_rows=torch.empty(lead, dtype=I32, device=dev),
             anchor=torch.empty_like(ins[3]),
             buf_start=torch.empty_like(ins[4]),
             length=torch.empty_like(ins[5]),
@@ -544,13 +614,14 @@ class OverlayChunkKernel:
             rem_clients=torch.empty_like(ins[9]),
             props=torch.empty_like(ins[10]),
             settled_len=table.settled_len,
-            error=torch.empty((), dtype=I32, device=dev),
+            error=torch.empty(lead, dtype=I32, device=dev),
         )
         outs = [out.anchor, out.buf_start, out.length, out.ins_seq,
                 out.ins_client, out.rem_seq, out.rem_clients, out.props,
                 out.n_rows, out.error]
         _build.launch(self.name, self._entry().overlay_chunk_launch, dev,
-                      (1, W, KR, KK, KRP, B, PK), ins + outs + [heap])
+                      (D, W, KR, KK, plan.heap_ints, B, PK, _force(layout)),
+                      ins + outs + [heap, hot])
         self.launches += 1
         return out
 
@@ -560,14 +631,20 @@ overlay_chunk_kernel = OverlayChunkKernel()
 
 def overlay_apply_chunk(table: OverlayTable, ops: OpBatch) -> OverlayTable:
     """Apply a chunk of sequenced ops (ascending seq order) to the
-    overlay. A CUDA table goes to the hand-written kernel (or raises);
-    a CPU table to the plain version. Bit-identical on rows
-    ``[:n_rows]`` to the JAX `overlay_apply_chunk`."""
+    overlay: one document, or a stack of D (leading ``[D]`` axis, ops
+    ``[D, B]``). A CUDA table goes to the hand-written kernel (or
+    raises), one launch for all documents; a CPU table to the plain
+    version, document by document. Bit-identical on rows ``[:n_rows]``
+    to the JAX `overlay_apply_chunk` of each document."""
     kind = table.length.device.type
     if kind == "cuda":
         return overlay_chunk_kernel(table, ops)
     if kind == "cpu":
-        return overlay_apply_chunk_ref(table, ops)
+        if not _doc_shape(table):
+            return overlay_apply_chunk_ref(table, ops)
+        return stack_tables([
+            overlay_apply_chunk_ref(table.doc(d), ops_at(ops, d))
+            for d in range(table.length.shape[0])])
     raise ValueError(f"overlay_apply_chunk: unsupported device {kind}")
 
 
@@ -585,14 +662,19 @@ def fold_device(table: OverlayTable, msn) -> Tuple[
     the back, which then rotate to the front of the ``(W, 5+KK)``
     record block ``[anchor, code, buf, len, ins_seq, props...]``
     (pre-fold anchors; ``code == REC_NONE`` rows reconstruct to
-    nothing). Same result as the JAX `fold_device`."""
-    W = table.length.shape[0]
-    KR = table.rem_clients.shape[1]
-    KK = table.props.shape[1]
+    nothing). Same result as the JAX `fold_device`.
+
+    Docs form: a stacked table (leading ``[D]`` axis) and `msn` of
+    ``[D]`` fold every document in the same tensor ops (scans along
+    the rows, a batched partition and rotate), so the launches do not
+    grow with D; records are then ``[D, W, 5+KK]`` and n_rec ``[D]``."""
+    W = table.length.shape[-1]
+    KR = table.rem_clients.shape[-1]
+    KK = table.props.shape[-1]
     dev = table.length.device
-    msn = torch.as_tensor(msn, dtype=I32, device=dev)
+    msn = torch.as_tensor(msn, dtype=I32, device=dev)[..., None]
     idx = torch.arange(W, dtype=I32, device=dev)
-    live = idx < table.n_rows
+    live = idx < table.n_rows[..., None]
     is_span = live & (table.buf_start >= SETTLED_BASE)
     removed = live & (table.rem_seq != NOT_REMOVED)
     drop = removed & (table.rem_seq <= msn)
@@ -602,15 +684,15 @@ def fold_device(table: OverlayTable, msn) -> Tuple[
 
     exc = torch.where(drop & is_span, table.length, 0)
     ins = torch.where(settle_text, table.length, 0)
-    exc_b = torch.cumsum(exc, 0, dtype=I32) - exc
-    ins_b = torch.cumsum(ins, 0, dtype=I32) - ins
+    exc_b = torch.cumsum(exc, -1, dtype=I32) - exc
+    ins_b = torch.cumsum(ins, -1, dtype=I32) - ins
     new_anchor = table.anchor - exc_b + ins_b
-    new_s = (table.settled_len + torch.sum(ins, dtype=I32)
-             - torch.sum(exc, dtype=I32))
+    new_s = (table.settled_len + torch.sum(ins, -1, dtype=I32)
+             - torch.sum(exc, -1, dtype=I32))
 
     keep = live & ~folding
-    n_new = torch.sum(keep, dtype=I32)
-    n_rec = torch.sum(folding, dtype=I32)
+    n_new = torch.sum(keep, -1, dtype=I32)
+    n_rec = torch.sum(folding, -1, dtype=I32)
     new_buf = torch.where(is_span, SETTLED_BASE + new_anchor, table.buf_start)
     code = torch.where(
         settle_text, REC_SETTLE_TEXT,
@@ -619,41 +701,52 @@ def fold_device(table: OverlayTable, msn) -> Tuple[
     ).to(I32)
     stack = torch.cat([
         torch.stack([new_anchor, new_buf, table.length, table.ins_seq,
-                     table.ins_client, table.rem_seq]),
-        table.rem_clients.t(), table.props.t(),
-        torch.stack([table.anchor, code]),
-    ])
+                     table.ins_client, table.rem_seq], -2),
+        table.rem_clients.transpose(-1, -2), table.props.transpose(-1, -2),
+        torch.stack([table.anchor, code], -2),
+    ], -2)
     packed = pack_partition(~keep, stack)
-    valid = idx < n_new
+    valid = idx < n_new[..., None]
 
-    def fill(a, f):
-        return torch.where(valid, a, f)
+    def fill(c, f):
+        return torch.where(valid, packed[..., c, :], f)
+
+    def fill_rows(lo, hi, f):
+        return torch.where(valid[..., None], packed[..., lo:hi, :]
+                           .transpose(-1, -2), f).contiguous()
 
     out = OverlayTable(
         n_rows=n_new,
-        anchor=fill(packed[0], 0),
-        buf_start=fill(packed[1], 0),
-        length=fill(packed[2], 0),
-        ins_seq=fill(packed[3], 0),
-        ins_client=fill(packed[4], NO_CLIENT),
-        rem_seq=fill(packed[5], NOT_REMOVED),
-        rem_clients=torch.where(
-            valid[:, None], packed[6:6 + KR].t(), NO_CLIENT).contiguous(),
-        props=torch.where(
-            valid[:, None], packed[6 + KR:6 + KR + KK].t(),
-            PROP_ABSENT).contiguous(),
+        anchor=fill(0, 0),
+        buf_start=fill(1, 0),
+        length=fill(2, 0),
+        ins_seq=fill(3, 0),
+        ins_client=fill(4, NO_CLIENT),
+        rem_seq=fill(5, NOT_REMOVED),
+        rem_clients=fill_rows(6, 6 + KR, NO_CLIENT),
+        props=fill_rows(6 + KR, 6 + KR + KK, PROP_ABSENT),
         settled_len=new_s.to(I32),
         error=table.error,
     )
     # The back of the partition holds the folding rows in storage
     # order, then dead rows; rotate them to the front of the block.
     rec = torch.cat([
-        packed[6 + KR + KK:6 + KR + KK + 2], packed[1:4],
-        packed[6 + KR:6 + KR + KK],
-    ]).t()
-    rot = torch.remainder(idx.to(torch.int64) + n_new, W)
-    records = torch.index_select(rec, 0, rot)
+        packed[..., 6 + KR + KK:6 + KR + KK + 2, :], packed[..., 1:4, :],
+        packed[..., 6 + KR:6 + KR + KK, :],
+    ], -2).transpose(-1, -2)
+    rot = torch.remainder(idx.to(torch.int64) + n_new[..., None], W)
+    records = torch.gather(rec, -2, rot[..., None].expand(rec.shape))
     return out, records, n_rec
+
+
+def _chunk_ops(table: OverlayTable, stream_ops: OpBatch, lo: int,
+               chunk: int) -> OpBatch:
+    """Ops ``[lo, lo+chunk)`` of the stream (views). Docs form (a
+    stacked table): the stream's fields are ``[n_chunks, D, B]``, so a
+    chunk is one contiguous ``[D, B]`` slice."""
+    if _doc_shape(table):
+        return ops_at(stream_ops, lo // chunk)
+    return stream_ops.slice(lo, lo + chunk)
 
 
 def replay_chunk_step(
@@ -667,17 +760,22 @@ def replay_chunk_step(
     PLACE (the JAX version donates them). No host sync.
 
     Returns ``(table', log, counts, cursor')``; ``counts[epoch]`` holds
-    this epoch's record count."""
-    table = overlay_apply_chunk(table, stream_ops.slice(lo, lo + chunk))
+    this epoch's record count. Docs form: a stacked table, stream ops
+    ``[n_chunks, D, B]`` (`lo` a multiple of `chunk`), `msn` ``[D]``,
+    log ``[D, cap, 5+KK]``, counts ``[D, n_chunks]`` and cursor
+    ``[D]``: one kernel launch and one fold for all documents."""
+    table = overlay_apply_chunk(table, _chunk_ops(table, stream_ops, lo,
+                                                  chunk))
     table, records, n_rec = fold_device(table, msn)
-    W = records.shape[0]
-    if log.shape[0] < W:
-        raise ValueError(f"fold log of {log.shape[0]} rows < window {W}")
+    W = records.shape[-2]
+    if log.shape[-2] < W:
+        raise ValueError(f"fold log of {log.shape[-2]} rows < window {W}")
     # lax.dynamic_update_slice clamps the start so the block fits.
-    start = torch.clamp(cursor, 0, log.shape[0] - W).to(torch.int64)
-    rows = start + torch.arange(W, dtype=torch.int64, device=log.device)
-    log.index_copy_(0, rows, records)
-    counts.select(0, epoch).copy_(n_rec)
+    start = torch.clamp(cursor, 0, log.shape[-2] - W).to(torch.int64)
+    rows = start[..., None] + torch.arange(W, dtype=torch.int64,
+                                           device=log.device)
+    log.scatter_(-2, rows[..., None].expand(records.shape), records)
+    counts.select(-1, epoch).copy_(n_rec)
     return table, log, counts, cursor + n_rec
 
 
@@ -693,9 +791,10 @@ def replay_fused(
     `msn_by_chunk[ci]` is the applied MSN at chunk ci's end. `epoch0`
     numbers the first chunk globally, and the log cursor resumes where
     ``counts[:epoch0]`` left it. Returns ``(table, log, counts,
-    cursor)``."""
+    cursor)``. Docs form (see `replay_chunk_step`): `msn_by_chunk` is
+    ``[n_chunks, D]`` and every document advances in the same launches."""
     n_chunks = msn_by_chunk.shape[0]
-    cursor = torch.sum(counts[:epoch0], dtype=I32)
+    cursor = torch.sum(counts[..., :epoch0], -1, dtype=I32)
     for ci in range(n_chunks):
         table, log, counts, cursor = replay_chunk_step(
             table, stream_ops, ci * chunk, chunk, msn_by_chunk[ci], log,

@@ -5,7 +5,8 @@ Counterparts in fluidframework_tpu/ops/zamboni.py:
 - `pack_partition` of `_pack_partition` (line 129). The JAX version is
   built from log-shift masked rolls because a gather is slow on the
   TPU; here the destination of every row comes straight from two int32
-  prefix sums and one scatter moves all columns. The result is
+  prefix sums and one scatter moves all columns (of every document,
+  given a leading docs axis). The result is
   bit-identical: both place kept rows at the front and dropped rows at
   the back, each group in its original order. It is also exactly the
   JAX `_pack_sort` (line 123) on a 0/1 key, which is how
@@ -34,18 +35,23 @@ def pack_partition(
     """Stable binary partition of ``cols`` (a [C, W] stack, or C
     tensors of [W]) by the bool mask ``drop``: rows with drop False
     pack to the front, dropped rows to the back, both in order.
-    Returns the packed [C, W] stack. No host sync."""
+    Returns the packed [C, W] stack. No host sync. With a leading docs
+    axis (``drop`` [D, W], ``cols`` [D, C, W] or C tensors of [D, W])
+    each document is partitioned on its own, in the same launches."""
     stack = cols if isinstance(cols, torch.Tensor) else torch.stack(
-        list(cols), 0
+        list(cols), -2
     )
     di = drop.to(torch.int32)
     keep = 1 - di
-    keep_rank = torch.cumsum(keep, 0, dtype=torch.int32) - keep
-    drop_rank = torch.cumsum(di, 0, dtype=torch.int32) - di
-    n_keep = torch.sum(keep, dtype=torch.int32)
-    dest = torch.where(drop, n_keep + drop_rank, keep_rank)
+    keep_rank = torch.cumsum(keep, -1, dtype=torch.int32) - keep
+    drop_rank = torch.cumsum(di, -1, dtype=torch.int32) - di
+    n_keep = torch.sum(keep, -1, keepdim=True, dtype=torch.int32)
+    dest = torch.where(drop, n_keep + drop_rank, keep_rank).to(torch.int64)
     out = torch.empty_like(stack)
-    out.index_copy_(1, dest.to(torch.int64), stack)
+    if stack.dim() == 2:
+        out.index_copy_(1, dest, stack)
+    else:  # index_copy_ takes one index for all rows: scatter per document
+        out.scatter_(-1, dest[..., None, :].expand(stack.shape), stack)
     return out
 
 

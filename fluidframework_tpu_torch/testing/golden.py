@@ -8,6 +8,11 @@ the generator draws whole arrays, so a shorter generated stream is not
 a prefix of a longer one. `headline_stream` generates the full stream
 once, `stream_prefix` cuts a stage from it, and `golden_digest` gives
 the digest a replay of that prefix must reach.
+
+A replay of many documents (`chip_smoke.py`, `tools/torch_replay_profile.py
+--docs`) takes the headline prefix as document 0 and, as the others,
+`lagged_stream` of the `DOC_SEEDS`: 32 distinct streams, tiled over
+more documents.
 """
 
 from __future__ import annotations
@@ -23,6 +28,10 @@ GOLDEN_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "GOLDEN.json",
 )
+
+
+# The other documents' seeds: 31 streams + the headline, 32 distinct.
+DOC_SEEDS = tuple(range(101, 132))
 
 
 def load_golden() -> dict:
@@ -54,3 +63,12 @@ def stream_prefix(stream: ColumnarStream, n_ops: int) -> ColumnarStream:
         else getattr(stream, f.name)[:n_ops]
         for f in fields(stream)
     })
+
+
+def lagged_stream(seed: int, n_ops: int, params: dict) -> ColumnarStream:
+    """A lagged stream of `n_ops` ops with the headline's generator
+    `params` (GOLDEN.json's) and another seed. Module-level, so that a
+    spawn worker process can run it."""
+    return generate_lagged_stream(
+        n_ops, n_clients=params["n_clients"], seed=seed,
+        window=params["window"], initial_len=params["initial_len"])

@@ -5,11 +5,13 @@ slots and props in a heap behind a ``slot`` column: a shift moves the
 slots, a split tail takes a fresh heap row copied from its split row, a
 new row or gap row takes a fresh one, and the rows pushed off the top of
 the window give theirs back. These chunks drive each of those paths to
-its edge: split inserts at row 0 and at the top of a nearly full
-window, a gap loop of many steps and one that overflows the window
-mid-loop, split halves whose removers and props then diverge, a removed
-row with every remover slot taken, and a chunk that creates and drops
-more than a window of rows. Each case is a table and a chunk of ops as
+its edge: split inserts at row 0, at row 1023 (the edge of the global
+layout's first segment) and at the top of a nearly full window, a gap
+loop of many steps and one that overflows the window mid-loop, split
+halves whose removers and props then diverge, ops whose every prop
+slot is filled (a key repeated, deletes among sets, keys out of range),
+a removed row with every remover slot taken, and a chunk that creates
+and drops more than a window of rows. Each case is a table and a chunk of ops as
 dicts of int32 numpy arrays (the `OverlayTable` / `OpBatch` fields), so
 the CPU tests can give them to the JAX package too.
 """
@@ -19,14 +21,18 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 from ..ops.mergetree_kernel import (
     NO_CLIENT,
+    NO_KEY,
     NOT_REMOVED,
     OP_ANNOTATE,
     OP_INSERT,
     OP_REMOVE,
     PROP_ABSENT,
+    PROP_DELETE,
+    OpBatch,
 )
 from .block_edges import edge_ops
 
@@ -106,6 +112,17 @@ def overlay_edge_chunks(W: int, KR: int, KK: int, PK: int, B: int,
         (OP_REMOVE, 2 * (W - 3) + 1, 2 * (W - 1), 6, 1, []),
     ])
 
+    # A split at row 1023 (at the window's top when W is 1024): its new
+    # row and tail open the next block of 1024 rows, where the kernel's
+    # global layout starts a new segment, and a remove spans the edge.
+    r = min(1023, W - 3)
+    add("split_insert_row_1023", text(min(W - 2, r + 40), 2), [
+        (OP_INSERT, 2 * r + 1, 0, 4, -1, [(0, 5)]),
+        (OP_INSERT, 2 * r + 3, 0, 5, 0, []),
+        (OP_REMOVE, 2 * r - 3, 2 * r + 9, 6, 1, []),
+        (OP_ANNOTATE, 2 * r, 2 * r + 4, 4, 2, [(1, 2)]),
+    ])
+
     # Settled text with unsettled rows anchored apart: each range over
     # them materializes the gaps between them as span rows.
     n = 12
@@ -145,6 +162,33 @@ def overlay_edge_chunks(W: int, KR: int, KK: int, PK: int, B: int,
         (OP_REMOVE, 31, 33, 4, 3, []),        # only row 8's head
     ])
 
+    # Every prop slot of an op filled: a key repeated within one op (the
+    # later slot wins), a delete before and after a set of the same key,
+    # keys out of range, on inserts and on annotates over text rows and
+    # materialized span rows (a delete clears a text row's prop and
+    # tombstones a span row's). With PK slots only the first PK apply.
+    n = 8
+    slots = overlay_table(W, KR, KK, [20 * (j + 1) for j in range(n)],
+                          [2] * n, 200)
+    slots["props"][:n, 0] = 3
+    add("prop_slots_full", slots, [
+        (OP_INSERT, 150, 0, 4, -1,
+         [(0, 11), (1, 12), (0, 13), (2, PROP_DELETE)]),
+        (OP_ANNOTATE, 1, 70, 5, 0,
+         [(1, 21), (2, PROP_DELETE), (1, 22), (0, 23)]),
+        (OP_ANNOTATE, 30, 90, 6, 1,
+         [(2, PROP_DELETE), (2, 5), (NO_KEY, 9), (KK + 1, 7)]),
+        (OP_ANNOTATE, 10, 50, 4, 2,
+         [(0, 31), (0, PROP_DELETE), (1, PROP_DELETE), (1, 32)]),
+        (OP_INSERT, 45, 0, 5, 3,
+         [(2, 41), (2, PROP_DELETE), (1, 42), (1, 43)]),
+        (OP_REMOVE, 60, 66, 6, 4, [(0, 51), (1, 52), (2, 53), (0, 54)]),
+        (OP_ANNOTATE, 0, 120, 7, 5,
+         [(KK + 3, 1), (2, 61), (0, 62), (0, PROP_DELETE)]),
+        (OP_ANNOTATE, 100, 140, 4, 6,
+         [(1, PROP_DELETE), (1, 71), (1, 72), (1, PROP_DELETE)]),
+    ])
+
     full = text(10, 2)
     full["rem_seq"][3] = 11
     full["rem_clients"][3, :] = 100 + np.arange(KR)
@@ -171,3 +215,20 @@ def overlay_edge_chunks(W: int, KR: int, KK: int, PK: int, B: int,
                       [(k % KK, k)]))
     add("recycle_more_than_W", crowd, specs)
     return cases
+
+
+def widen_prop_slots(ops: OpBatch, PK: int) -> OpBatch:
+    """A chunk of ops with one prop slot per op (as a stream's chunks
+    are) given PK prop slots: the extra slots are empty (NO_KEY,
+    PROP_ABSENT), so the chunk means the same."""
+    B = ops.prop_keys.shape[0]
+    extra = PK - ops.prop_keys.shape[1]
+
+    def widen(a, fill):
+        pad = torch.full((B, extra), fill, dtype=a.dtype, device=a.device)
+        return torch.cat([a, pad], 1)
+
+    return OpBatch(
+        ops.op_type, ops.pos1, ops.pos2, ops.seq, ops.ref_seq, ops.client,
+        ops.buf_start, ops.ins_len, widen(ops.prop_keys, NO_KEY),
+        widen(ops.prop_vals, PROP_ABSENT))

@@ -14,14 +14,20 @@ import torch
 
 from fluidframework_tpu_torch import interop
 from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
-from fluidframework_tpu_torch.core.overlay_replay import OverlayDeviceReplica
+from fluidframework_tpu_torch.core.overlay_replay import (
+    OverlayDeviceReplica,
+    replay_docs,
+)
 from fluidframework_tpu_torch.ops import mergetree_chunk as tmc
 from fluidframework_tpu_torch.ops import overlay as tov
-from fluidframework_tpu_torch.ops.mergetree_kernel import make_table
+from fluidframework_tpu_torch.ops.mergetree_kernel import OpBatch, make_table
 from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
 from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
 from fluidframework_tpu_torch.testing.digest import state_digest
-from fluidframework_tpu_torch.testing.overlay_edges import overlay_edge_chunks
+from fluidframework_tpu_torch.testing.overlay_edges import (
+    overlay_edge_chunks,
+    widen_prop_slots,
+)
 from fluidframework_tpu_torch.testing.synthetic import generate_lagged_stream
 from fluidframework_tpu_torch.utils.devices import cuda_skip_reason
 
@@ -103,14 +109,147 @@ def test_overlay_kernel_leaves_its_input(cuda):
 
 
 def test_overlay_kernel_geometry_on_the_card(cuda):
-    """The block at the bench geometry, with the shared bytes the
-    kernel's library works out, and a clear error rather than a refused
-    launch for a chunk whose ops do not fit beside the rows."""
+    """The launcher's plan: the shared layout while the hot columns and
+    the chunk's ops fit a block's shared memory, the global layout (a
+    hot scratch of 9 x W ints per document) otherwise, whatever W."""
     kernel = tov.OverlayChunkKernel()
-    R, KRP, smem = kernel.geometry(2048, 24, 8, 256, 1)
-    assert (R, KRP) == (2, 32) and 9 * 2048 * 4 < smem <= tov.SMEM_OPTIN
-    with pytest.raises(ValueError, match="shared bytes"):
-        kernel.geometry(4096, 24, 8, 4096, 4)
+    plan = kernel.plan(2048, 24, 8, 256, 1)
+    assert plan == ("shared", 2, 32, 4 * (9 * 2048 + 285 + 256 * 10), 0)
+    assert kernel.plan(6144, 24, 8, 128, 4).layout == "shared"
+    assert kernel.plan(4096, 24, 8, 2048, 1).layout == "shared"
+    for shape in ((6144, 24, 8, 256, 1), (4096, 24, 8, 4096, 4),
+                  (8192, 24, 8, 2048, 1), (7168, 4, 8, 128, 4)):
+        plan = kernel.plan(*shape)
+        assert plan.layout == "global" and plan.scratch_ints == 9 * shape[0]
+    with pytest.raises(ValueError):
+        kernel.plan(1536, 24, 8, 256, 1)
+
+
+def test_overlay_kernel_forced_layout_plan(cuda):
+    """A caller may ask for either layout: the global one at any shape,
+    the shared one only where it fits (else the launcher refuses)."""
+    kernel = tov.OverlayChunkKernel()
+    plan = kernel.plan(2048, 24, 8, 256, 1, layout="global")
+    assert plan.layout == "global" and plan.scratch_ints == 9 * 2048
+    assert kernel.plan(2048, 24, 8, 256, 1, layout="shared") == kernel.plan(
+        2048, 24, 8, 256, 1)
+    with pytest.raises(RuntimeError):
+        kernel.plan(8192, 24, 8, 2048, 1, layout="shared")
+    with pytest.raises(ValueError):
+        kernel.plan(2048, 24, 8, 256, 1, layout="texture")
+
+
+def _layouts(W, B, KR, KK, PK):
+    """The layouts the launcher takes at this shape."""
+    out = ["global"]
+    try:
+        tov.overlay_chunk_kernel.plan(W, KR, KK, B, PK, layout="shared")
+        out.append("shared")
+    except RuntimeError:
+        pass
+    return out
+
+
+# The shapes of chip_smoke.py's layout phase, (W, B, KR, KK, PK), and
+# the widest heap row the kernel takes (KR + KK = 1024).
+LAYOUT_SHAPES = [(3072, 128, 4, 8, 4), (6144, 128, 24, 8, 4),
+                 (6144, 256, 24, 8, 1), (8192, 2048, 24, 8, 1),
+                 (2048, 256, 64, 8, 1), (1024, 64, 1000, 24, 2)]
+
+
+@pytest.mark.parametrize("W,B,KR,KK,PK", LAYOUT_SHAPES)
+def test_kernel_layouts_match_plain(cuda, W, B, KR, KK, PK):
+    """Every layout the launcher takes at the windows and chunks of the
+    smoke's layout phase: the first stream chunks (ops widened to PK
+    prop slots) and the edge chunks (the one that fills every prop slot
+    included), exactly."""
+    rep = OverlayDeviceReplica(_stream(), initial_len=64, chunk_size=B,
+                               window=W, n_removers=KR, n_prop_keys=KK,
+                               device=cuda)
+    rep.prepare()
+    table = rep.table
+    layouts = _layouts(W, B, KR, KK, PK)
+    for ci in range(min(2, rep.n_chunks)):
+        ops = widen_prop_slots(rep._dev.slice(ci * B, (ci + 1) * B), PK)
+        want = tov.overlay_apply_chunk_ref(table, ops)
+        for layout in layouts:
+            got = tov.overlay_chunk_kernel(table, ops, layout)
+            _assert_overlay_equal(got, want)
+        table, _, _ = tov.fold_device(got, rep._msn_by_chunk[ci])
+    for case in overlay_edge_chunks(W, KR, KK, PK, B):
+        table = interop.table_from_numpy(case["table"], cuda)
+        ops = interop.opbatch_from_numpy(case["ops"], cuda)
+        want = tov.overlay_apply_chunk_ref(table, ops)
+        for layout in layouts:
+            _assert_overlay_equal(
+                tov.overlay_chunk_kernel(table, ops, layout), want)
+
+
+@pytest.mark.parametrize("W,B", [(2048, 256), (8192, 2048)])
+def test_kernel_stacked_documents_match_plain(cuda, W, B):
+    """Three documents of different streams in one launch (one block
+    each), in each layout, against the plain version per document."""
+    reps = [OverlayDeviceReplica(
+        generate_lagged_stream(2 * B, n_clients=64, seed=seed, window=512,
+                               initial_len=64),
+        initial_len=64, chunk_size=B, window=W, n_removers=24, device=cuda)
+        for seed in (5, 6, 7)]
+    for r in reps:
+        r.prepare()
+    tables = [r.table for r in reps]
+    for ci in range(2):
+        chunks = [r._dev.slice(ci * B, (ci + 1) * B) for r in reps]
+        stacked = OpBatch(*(torch.stack([getattr(c, f) for c in chunks])
+                            for f in chunks[0].__dataclass_fields__))
+        wants = [tov.overlay_apply_chunk_ref(t, c)
+                 for t, c in zip(tables, chunks)]
+        for layout in _layouts(W, B, 24, 8, 1):
+            before = tov.overlay_chunk_kernel.launches
+            got = tov.overlay_chunk_kernel(tov.stack_tables(tables), stacked,
+                                           layout)
+            assert tov.overlay_chunk_kernel.launches - before == 1
+            for d, want in enumerate(wants):
+                _assert_overlay_equal(got.doc(d), want)
+        tables = [tov.fold_device(got.doc(d), r._msn_by_chunk[ci])[0]
+                  for d, r in enumerate(reps)]
+
+
+def test_cuda_docs_replay_matches_cpu_docs_replay(cuda):
+    streams = [generate_lagged_stream(1500, n_clients=64, seed=seed,
+                                      window=512, initial_len=64)
+               for seed in (5, 6, 7)]
+    kw = dict(initial_len=64, chunk_size=256, window=2048, n_removers=24)
+    gpu = [OverlayDeviceReplica(s, device=cuda, **kw) for s in streams]
+    before = tov.overlay_chunk_kernel.launches
+    g_out = replay_docs(gpu)
+    assert tov.overlay_chunk_kernel.launches - before == gpu[0].n_chunks
+    c_out = replay_docs([OverlayDeviceReplica(s, device="cpu", **kw)
+                         for s in streams])
+    (gt, glog, gcnt, gcur, gmsn, gerr) = g_out
+    (ct, clog, ccnt, ccur, cmsn, cerr) = c_out
+    assert torch.equal(gcur.cpu(), ccur) and torch.equal(gcnt.cpu(), ccnt)
+    assert int(gmsn) == int(cmsn) and int(gerr) == int(cerr) == 0
+    for d in range(3):
+        c = int(ccur[d])
+        assert torch.equal(glog[d, :c].cpu(), clog[d, :c])
+        _assert_overlay_equal(gt.doc(d).to("cpu"), ct.doc(d))
+
+
+def test_cuda_streaming_matches_prestaged(cuda):
+    stream = _stream()
+    kw = dict(initial_len=64, chunk_size=256, window=2048, n_removers=24)
+    pre = OverlayDeviceReplica(stream, device=cuda, **kw)
+    pre.replay()
+    for n_segments in (1, 3, 8):
+        rep = OverlayDeviceReplica(stream, device=cuda, **kw)
+        before = tov.overlay_chunk_kernel.launches
+        rep.replay_streaming(n_segments)
+        assert tov.overlay_chunk_kernel.launches - before == rep.n_chunks
+        c = int(pre.cursor)
+        assert int(rep.cursor) == c
+        assert torch.equal(rep.counts, pre.counts)
+        assert torch.equal(rep.log[:c], pre.log[:c])
+        _assert_overlay_equal(rep.table, pre.table)
 
 
 def test_cuda_replay_matches_cpu_replay(cuda):

@@ -4,8 +4,9 @@ Each chunk of `testing/overlay_edges.py` (split inserts at row 0 and at
 the top of the window, gap loops of many steps and one that overflows
 the window mid-loop, split halves whose removers and props diverge,
 every remover slot taken, more than a window of rows created and
-dropped) goes through `overlay_pallas.overlay_apply_chunk` in interpret
-mode and through `overlay_apply_chunk_ref` on the CPU. Tolerance 0 on
+dropped, ops that fill every prop slot) goes through
+`overlay_pallas.overlay_apply_chunk` in interpret mode and through
+`overlay_apply_chunk_ref` on the CPU. Tolerance 0 on
 n_rows, error and rows [:n_rows] of every column: everything is int32.
 The CUDA kernel is held to the plain version on the same chunks in
 tests/test_torch_cuda.py and chip_smoke.py.
@@ -23,6 +24,7 @@ from fluidframework_tpu_torch.ops import overlay as tov
 from fluidframework_tpu_torch.ops.mergetree_kernel import (
     ERR_CAPACITY,
     ERR_REMOVERS,
+    PROP_DELETE,
 )
 from fluidframework_tpu_torch.testing.overlay_edges import overlay_edge_chunks
 
@@ -80,12 +82,33 @@ def test_edge_chunks_reach_their_edges():
     assert out["recycle_more_than_W"][2] & ERR_CAPACITY
     assert out["removers_full"][2] == ERR_REMOVERS
     for name in ("split_insert_row0", "gap_loop_13_steps",
-                 "split_halves_diverge"):
+                 "split_halves_diverge", "prop_slots_full"):
         assert out[name][2] == 0, name
     n_in, n_out, _ = out["gap_loop_13_steps"]
     assert n_out - n_in >= 8 + 4
     n_in, n_out, _ = out["recycle_more_than_W"]
     assert (n_out - n_in) + (n_out - W) > W  # created + dropped
+
+
+@pytest.mark.parametrize("pk", [2, 4])
+def test_prop_slots_chunk_matches_pallas(pk):
+    """The chunk whose ops fill every prop slot, at PK slots: the plain
+    version equals the JAX kernel exactly, and at PK 4 the result shows
+    each slot's effect (the later of two slots of one key wins on an
+    insert, a delete in a later slot tombstones span rows)."""
+    case = {c["name"]: c for c in overlay_edge_chunks(W, KR, KK, pk, B)}[
+        "prop_slots_full"]
+    want = _jax_out(case)
+    got = interop.table_to_numpy(tov.overlay_apply_chunk_ref(
+        interop.table_from_numpy(case["table"], device="cpu"),
+        interop.opbatch_from_numpy(case["ops"], device="cpu")))
+    n = int(want["n_rows"])
+    assert (int(got["n_rows"]), int(got["error"])) == (n, int(want["error"]))
+    for f in COLUMNS:
+        np.testing.assert_array_equal(got[f][:n], want[f][:n], err_msg=f)
+    if pk == 4:
+        seen = set(got["props"][:n].ravel().tolist())
+        assert {13, 12, 43, PROP_DELETE} <= seen and 11 not in seen
 
 
 @pytest.mark.parametrize("window,KR,KK,R,KRP", [
@@ -96,10 +119,10 @@ def test_kernel_geometry(window, KR, KK, R, KRP):
 
 
 @pytest.mark.parametrize("args", [
-    (8192, 24, 8),   # window above the shared memory
-    (1536, 24, 8),   # not 1024 threads x 1, 2 or 4 rows
-    (2048, 0, 8),    # no remover slot
-    (2048, 40, 25),  # heap row wider than COLD_MAX
+    (0, 24, 8),        # no rows
+    (1536, 24, 8),     # not a multiple of 1024
+    (2048, 0, 8),      # no remover slot
+    (2048, 1000, 25),  # heap row wider than the block's 1024 threads
 ])
 def test_kernel_geometry_raises(args):
     with pytest.raises(ValueError):

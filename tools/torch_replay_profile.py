@@ -2,6 +2,7 @@
 """Where the port's replay spends device time (one GPU).
 
     python3 tools/torch_replay_profile.py [--engine overlay|row] [--ops N]
+                                          [--docs D]
                                           [--root DIR]
 
 Replays the first N ops (default 1000000, the headline) of the seed-7
@@ -25,6 +26,14 @@ clock (256 and 16 calls on the first chunk, queued without a
 synchronise: fewer launches than the device's queue holds), then the
 same two under the profiler.
 
+``--docs D`` (overlay engine) replays D documents of N ops each at the
+bench geometry through `replay_docs` instead (one kernel launch per
+chunk for all of them): doc 0 is the headline prefix, the others lagged
+streams of `testing/golden.py`'s DOC_SEEDS with the headline's
+generator parameters (generated in worker processes), the 32 tiled over
+the D documents, as `chip_smoke.py` lays them out. It times the docs replay without the
+profiler too, and checks doc 0's digest.
+
 ``--root DIR`` imports the port from the checkout at DIR (a `git
 archive` of another commit, say) instead of this one, so that one call
 can compare two trees with the same measurement.
@@ -40,8 +49,10 @@ last device event) and the idle share. Writes the JSON summary as
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -58,9 +69,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--engine", choices=("overlay", "row"), default="overlay")
     ap.add_argument("--ops", type=int, default=N_GOLDEN)
+    ap.add_argument("--docs", type=int, default=0,
+                    help="replay this many documents together (overlay)")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose fluidframework_tpu_torch is measured")
     args = ap.parse_args()
+    if args.docs and args.engine != "overlay":
+        ap.error("--docs replays the overlay engine")
 
     import torch
     from torch.autograd import DeviceType
@@ -73,24 +88,38 @@ def main() -> int:
     from fluidframework_tpu_torch.core.overlay_replay import (
         OverlayDeviceReplica,
     )
+    if args.docs:
+        from fluidframework_tpu_torch.core.overlay_replay import (
+            replay_docs, restore_shard,
+        )
     from fluidframework_tpu_torch.ops.overlay import (
         fold_device, overlay_chunk_kernel,
     )
     from fluidframework_tpu_torch.testing.digest import state_digest
     from fluidframework_tpu_torch.testing.golden import (
-        golden_digest, headline_stream, load_golden, stream_prefix,
+        DOC_SEEDS, golden_digest, headline_stream, lagged_stream, load_golden,
+        stream_prefix,
     )
 
     golden = load_golden()
     stream = stream_prefix(headline_stream(golden), args.ops)
+    doc_streams = [stream]
+    if args.docs:
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            n = len(DOC_SEEDS)
+            doc_streams += list(pool.map(
+                lagged_stream, DOC_SEEDS, [args.ops] * n,
+                [golden["params"]] * n))
 
-    def replica():
+    def replica(s=stream):
         if args.engine == "row":
             return ColumnarReplica(stream, initial_len=64, chunk_size=CHUNK,
                                    capacity=131072, n_removers=24,
                                    n_prop_keys=8, sync_interval=4,
                                    device="cuda")
-        return OverlayDeviceReplica(stream, initial_len=64, chunk_size=CHUNK,
+        return OverlayDeviceReplica(s, initial_len=64, chunk_size=CHUNK,
                                     window=2048, n_removers=24,
                                     n_prop_keys=8, device="cuda")
 
@@ -99,7 +128,27 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     host = {}
-    if args.engine == "overlay":
+
+    def docs_replicas():
+        reps = [replica(doc_streams[d % len(doc_streams)])
+                for d in range(args.docs)]
+        for r in reps:
+            r.prepare()
+        torch.cuda.synchronize()
+        return reps
+
+    if args.docs:
+        reps = docs_replicas()
+        t0 = time.perf_counter()
+        replay_docs(reps)
+        torch.cuda.synchronize()
+        host["replay_s"] = time.perf_counter() - t0
+        host["replay_ops_per_s"] = args.docs * args.ops / host["replay_s"]
+        print(f"docs replay without the profiler: {args.docs} x {args.ops} "
+              f"ops in {host['replay_s']:.3f} s = "
+              f"{host['replay_ops_per_s']:,.0f} ops/s", flush=True)
+        del reps
+    elif args.engine == "overlay":
         timed = replica()
         timed.prepare()
         torch.cuda.synchronize()
@@ -136,11 +185,15 @@ def main() -> int:
     rep = replica()
     if args.engine == "overlay":
         rep.prepare()
+    if args.docs:
+        reps = docs_replicas()
     torch.cuda.synchronize()
     stages = []
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        if args.engine == "row":
+        if args.docs:
+            out = replay_docs(reps)
+        elif args.engine == "row":
             per = -(-STAGE_OPS // CHUNK)
             while rep.chunks_done < rep.n_chunks:
                 ts = time.perf_counter()
@@ -164,6 +217,8 @@ def main() -> int:
             rep.replay()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if args.docs:
+        rep = restore_shard(reps[0], *out[:4], 0)
     rep.check_errors()
 
     by_name = defaultdict(lambda: [0.0, 0])
@@ -184,6 +239,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     summary = {"gpu": gpu, "nvidia_smi": smi, "engine": args.engine,
                "root": os.path.abspath(args.root), "ops": args.ops,
+               "docs": args.docs, "distinct": len(doc_streams),
                "chunks": rep.n_chunks, "wall_s": wall, "stages": stages,
                **host}
     if not spans:
@@ -208,8 +264,9 @@ def main() -> int:
             "kernels": [{"name": n[:120], "total_ms": t / 1e3, "count": c}
                         for n, (t, c) in top[:15]],
         })
-        print(f"{gpu}: {args.engine} engine, {args.ops} ops, {rep.n_chunks} "
-              f"chunks, replay wall {wall:.3f}s (profiled)")
+        docs = f" x {args.docs} documents" if args.docs else ""
+        print(f"{gpu}: {args.engine} engine, {args.ops} ops{docs}, "
+              f"{rep.n_chunks} chunks, replay wall {wall:.3f}s (profiled)")
         print(f"device window {window / 1e3:.1f} ms, busy {busy / 1e3:.1f} "
               f"ms, idle share {1 - busy / window:.4f}")
         for n, (t, c) in top[:15]:
@@ -225,6 +282,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     tag = "" if args.root == ROOT else "_" + os.path.basename(
         os.path.abspath(args.root))
+    tag += f"_docs{args.docs}" if args.docs else ""
     path = os.path.join(out_dir,
                         f"torch_replay_profile_{args.engine}{tag}.json")
     with open(path, "w") as f:
