@@ -6,8 +6,9 @@
 Drives the port's replay paths on the card, through
 ``fluidframework_tpu_torch`` only -- it imports nothing of JAX or of
 ``fluidframework_tpu``: the overlay merge-tree replay that ``bench.py``
-measures on the JAX package, and the row-model replay
-(``ColumnarReplica``, ``bench.py`` with ``BENCH_ENGINE=pallas``).
+measures on the JAX package, the row-model replay (``ColumnarReplica``,
+``bench.py`` with ``BENCH_ENGINE=pallas``), the summary service's fold
+and the message-driven overlay replica.
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
@@ -86,18 +87,40 @@ Phases, in order; any failure exits non-zero:
    (doc 0's at the smaller D); aggregate ops/s and ms per chunk at each
    D;
 12. `replay_streaming` in 8 host segments on the 100k prefix, gated on
-   GOLDEN.json.
+   GOLDEN.json;
+13. the summary service's fold (`server/summary_fold.SummaryFolder`,
+   summaries every 375 records, the emission loop of config15's fold:
+   streams of 3000 ops from 4 clients, seeds 40 + i) over config15's 4
+   documents, fed in slices of 375 records: every manifest's seq,
+   count and handle must equal the JAX summarizer role's in
+   `fluidframework_tpu_torch/testing/fold_golden.json`, and the launches
+   the chunk count (after one untimed warm-up of the fold loop);
+14. the fold's own stacked launches held against the plain version per
+   document, exactly: all 132 documents on the first chunk of round 0,
+   and 8 documents on every chunk of the last 2 rounds; kernel A's ms
+   per launch at the fold's shape, 132 documents and one;
+15. the fold bench's emission loop (`testing/fold_streams.run_fold_sweep`:
+   boot, encode, one stacked `fold_jobs_overlay` per round, canonical
+   rows, reboot) at D = 4 and 132 documents, every emission's digest
+   gated on fold_golden.json, the launches equal to the chunks summed
+   over rounds and window groups; emissions/s, fold ops/s and seconds
+   per round split into encode, fold (with its device time by CUDA
+   events) and serialization + reboot;
+16. `OverlayKernelMessageReplica` on 4 documents' records as messages
+   (chunks of 64, window 1024), launches equal to the chunks, text,
+   spans and error word equal to the same replica on the CPU.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant). Every path
-(phases 4, 6, 10, 11 and 12) is driven with kernel launch counts set to
-0 just before it and read just after.
+(phases 4, 6, 10, 11, 12, 13, 15 and 16) is driven with kernel launch
+counts set to 0 just before it and read just after.
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
 shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
 block, grid barriers per op), the kernels line (JSON; kernel A's entry
 also lists every layout it checked, the two layouts' times on the same
-chunks, and the launches of each path), the
+chunks, the launches of each path, and the fold's window groups with
+their layout), the
 nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
@@ -107,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import hashlib
 import json
 import multiprocessing
 import os
@@ -152,6 +176,18 @@ DOC_OPS = 100_000
 DOC_COUNTS = (1, 8, 32, 132)
 LATE_DOCS = 8  # documents (distinct streams) held to plain on the last chunk
 STREAM_STEPS = 8  # segments of the streaming replay
+# The summary service's fold at the reference's accelerator shape:
+# config15's fold (tools/bench_configs.py:1070) through the emission
+# loop of `run_fold_backend_bench` (testing/deli_bench.py:603-640):
+# 3000 ops a document from 4 clients, a summary every max(64, 3000 // 8)
+# = 375 records, seeds 40 + i; fold_golden.json pins every emission.
+# D = 4 is config15's fold_docs, 132 one document per SM.
+FOLD_DOCS = (4, 132)
+FOLD_LATE_DOCS = 8  # documents whose last FOLD_LATE_ROUNDS rounds are held
+FOLD_LATE_ROUNDS = 2
+# The message-driven replica: 4 documents' records, chunks of 64 ops in
+# a window of 1024 (the reference's defaults).
+MSG_DOCS, MSG_CHUNK, MSG_WINDOW = 4, 64, 1024
 
 # H100 SXM peaks: the HBM3 rate from NVIDIA's data sheet, and the int32
 # issue rate (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost clock),
@@ -197,6 +233,296 @@ def doc_readout(stream, geometry: dict, table: dict, log, counts):
         torch.from_numpy(log)[None], torch.from_numpy(counts)[None],
         torch.tensor([len(log)], dtype=torch.int32), 0)
     return state_digest(rep.annotated_spans()), int(rep.table.error)
+
+
+def fold_phases(dev, hold, time_chunks, log) -> dict:
+    """Phases 13-16, the summary service's fold and the message-driven
+    replica, on `dev`. `hold(out, tin, ops, label)` holds one
+    document's kernel output against the plain version and
+    `time_chunks(pairs)` gives kernel A's ms per launch over
+    ``(table, ops)`` pairs. Raises on any mismatch; returns what the
+    kernels line reports of these paths."""
+    import torch
+
+    from fluidframework_tpu_torch.core.kernel_replica import (
+        EncoderState, PropInterner, TextArena, encode_op,
+    )
+    from fluidframework_tpu_torch.core.overlay_fold import (
+        boot_overlay, group_jobs, run_rounds, stack_jobs,
+    )
+    from fluidframework_tpu_torch.core.overlay_replay import (
+        OverlayKernelMessageReplica,
+    )
+    from fluidframework_tpu_torch.ops.mergetree_kernel import OP_NOOP
+    from fluidframework_tpu_torch.ops.overlay import (
+        fold_device, ops_at, overlay_apply_chunk, overlay_chunk_kernel,
+    )
+    from fluidframework_tpu_torch.server.summary_fold import (
+        SummaryFolder, _encode_fold,
+    )
+    from fluidframework_tpu_torch.testing import fold_streams as fs
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    golden = fs.load_fold_golden()
+    step = golden["params"]["summary_ops"]
+    t0 = time.perf_counter()
+    streams = fs.golden_streams(golden, max(FOLD_DOCS))
+    docs = list(streams)
+    want = {d["doc"]: d["rows_sha256"] for d in golden["docs"]}
+    n_rounds = len(want[docs[0]])
+    seeds = [d["seed"] for d in golden["docs"][:len(docs)]]
+    log(f"fold: {len(docs)} record streams of {golden['params']['n_ops']} "
+        f"ops (seeds {seeds[0]}..{seeds[-1]}) in "
+        f"{time.perf_counter() - t0:.2f}s; {n_rounds} rounds of {step} "
+        f"records")
+
+    def gate(digests, label):
+        for doc, got in digests.items():
+            if got != want[doc][:len(got)]:
+                k = next(i for i, (a, b) in enumerate(zip(got, want[doc]))
+                         if a != b)
+                raise AssertionError(
+                    f"{label}: {doc} emission {k} rows differ from "
+                    f"fold_golden.json")
+
+    def sweep(n_docs, label):
+        sub = {d: streams[d] for d in docs[:n_docs]}
+        sync()
+        overlay_chunk_kernel.launches = 0
+        out = fs.run_fold_sweep(sub, step, dev)
+        sync()
+        launches = overlay_chunk_kernel.launches
+        chunks = sum(r["chunks"] for r in out["rounds"])
+        if dev.type == "cuda" and launches != chunks:
+            raise AssertionError(
+                f"{label}: kernel launches {launches} != chunks {chunks}")
+        if any(sum(g["chunks"] for g in r["groups"]) != r["chunks"]
+               for r in out["rounds"]):
+            raise AssertionError(f"{label}: the fold's groups disagree "
+                                 f"with the replicas' chunks")
+        gate(out["digests"], label)
+        if any(len(v) != n_rounds for v in out["digests"].values()):
+            raise AssertionError(f"{label}: not every round emitted")
+        return out, launches
+
+    # ---- 13. the summary folder, config15's documents -------------------
+    warm, _ = sweep(FOLD_DOCS[0], "fold warm-up")
+    folder = SummaryFolder(summary_ops=step, device=dev)
+    sync()
+    overlay_chunk_kernel.launches = 0
+    t0 = time.perf_counter()
+    manifests = []
+    for lo in range(0, len(streams[docs[0]]), step):
+        for d in docs[:FOLD_DOCS[0]]:
+            for rec in streams[d][lo:lo + step]:
+                folder.process(rec)
+        manifests += folder.flush()
+    sync()
+    t_folder = time.perf_counter() - t0
+    launches_folder = overlay_chunk_kernel.launches
+    # The folder emits at every whole `step` records: the sweep's rounds
+    # but its last, short one.
+    n_whole = len(streams[docs[0]]) // step
+    want_chunks = sum(r["chunks"] for r in warm["rounds"][:n_whole])
+    if dev.type == "cuda" and launches_folder != want_chunks:
+        raise AssertionError(f"summary folder: kernel launches "
+                             f"{launches_folder} != chunks {want_chunks}")
+    got = {}
+    for m in manifests:
+        got.setdefault(m["doc"], []).append([m["seq"], m["count"],
+                                             m["handle"]])
+    if got != {d: golden["manifests"][d] for d in docs[:FOLD_DOCS[0]]} \
+            or folder.frozen:
+        raise AssertionError("summary folder: manifests differ from the "
+                             "JAX summarizer role's (fold_golden.json)")
+    log(f"summary folder: {len(manifests)} summaries of {FOLD_DOCS[0]} "
+        f"documents in {t_folder:.3f}s (kernel launches {launches_folder}, "
+        f"one per chunk and window group); seq, count and handle of every "
+        f"manifest equal the JAX summarizer role's")
+
+    # ---- 14. the fold's stacked launches vs the plain version ----------
+    held = 0
+    reps = {d: boot_overlay([], 0, device=dev) for d in docs}
+    for d in docs:
+        _encode_fold(reps[d], streams[d][:step])
+    jobs = [reps[d].build_round() for d in docs]
+    chunk_ms, chunk_bound = {}, {}
+    for grp in group_jobs(jobs).values():
+        tables, ops, _, _, msns = stack_jobs(grp)
+        out = overlay_apply_chunk(tables, ops_at(ops, 0))
+        for k in range(len(grp)):
+            hold(out.doc(k), tables.doc(k), ops_at(ops_at(ops, 0), k),
+                 f"fold D {len(grp)} W {grp[0]['window']}: doc {k} round 0 "
+                 f"chunk 0")
+            held += 1
+        if len(grp) == len(docs):
+            pairs, tin = [], tables
+            for ci in range(msns.shape[0]):
+                pairs.append((tin, ops_at(ops, ci)))
+                tin = fold_device(overlay_apply_chunk(tin, pairs[-1][1]),
+                                  msns[ci])[0]
+            chunk_ms[len(docs)] = time_chunks(pairs)
+            chunk_ms[1] = time_chunks([(t.doc(0), ops_at(c, 0))
+                                       for t, c in pairs])
+            fold_shape = dict(W=grp[0]["window"], B=ops.op_type.shape[-1],
+                              KR=tables.rem_clients.shape[-1],
+                              KK=tables.props.shape[-1],
+                              PK=ops.prop_keys.shape[-1])
+            # Least time for the same work, as for the bench chunks:
+            # each document's table in and out once and its ops in once
+            # over the HBM rate; INT_OPS_PER_ROW per live row per op.
+            f = fold_shape
+            for n_d in (len(docs), 1):
+                nbytes = n_d * 4 * (2 * (f["W"] * (6 + f["KR"] + f["KK"]) + 3)
+                                    + f["B"] * (8 + 2 * f["PK"]))
+                n_int = sum(
+                    int((t.n_rows[:n_d] * (c.op_type[:n_d] != OP_NOOP)
+                         .sum(-1)).sum()) for t, c in pairs
+                ) * INT_OPS_PER_ROW / len(pairs)
+                b_s, o_s = nbytes / PEAK_BYTES_S, n_int / PEAK_OPS_S
+                chunk_bound[n_d] = (max(b_s, o_s) * 1e3,
+                                    "bytes" if b_s >= o_s else "operations")
+    if not chunk_ms:
+        raise AssertionError("fold round 0: the documents' windows differ")
+    late = docs[:FOLD_LATE_DOCS]
+    reps = {d: boot_overlay([], 0, device=dev) for d in late}
+    msn = {d: 0 for d in late}
+    digests = {d: [] for d in late}
+    for r in range(n_rounds):
+        for d in late:
+            take = streams[d][r * step:(r + 1) * step]
+            _encode_fold(reps[d], take)
+            msn[d] = max(msn[d], max(x["msn"] for x in take))
+        jobs = [reps[d].build_round() for d in late]
+        if r >= n_rounds - FOLD_LATE_ROUNDS:
+            for grp in group_jobs(jobs).values():
+                tables, ops, _, _, msns = stack_jobs(grp)
+                for ci in range(msns.shape[0]):
+                    chunk = ops_at(ops, ci)
+                    out = overlay_apply_chunk(tables, chunk)
+                    for k in range(len(grp)):
+                        hold(out.doc(k), tables.doc(k), ops_at(chunk, k),
+                             f"fold D {len(grp)}: doc {k} round {r} "
+                             f"chunk {ci}")
+                        held += 1
+                    tables = fold_device(out, msns[ci])[0]
+        run_rounds(jobs)
+        for d in late:
+            rows = reps[d].canonical_rows(msn[d])
+            digests[d].append(hashlib.sha256(
+                json.dumps(rows, sort_keys=True).encode()).hexdigest())
+            reps[d] = boot_overlay(rows, msn[d], device=dev)
+    gate(digests, "fold held rounds")
+    log(f"fold: the stacked launch == plain on {held} (document, chunk) "
+        f"pairs: all {len(docs)} documents on round 0's first chunk, "
+        f"{len(late)} on every chunk of the last {FOLD_LATE_ROUNDS} rounds; "
+        f"kernel A at the fold's shape {fold_shape}: "
+        f"{chunk_ms[len(docs)]:.4f} ms per launch of {len(docs)} blocks "
+        f"(bound {chunk_bound[len(docs)][0]:.6f} ms, "
+        f"{chunk_bound[len(docs)][1]}), {chunk_ms[1]:.4f} ms for one "
+        f"document (bound {chunk_bound[1][0]:.6f} ms, {chunk_bound[1][1]}; "
+        f"CUDA events, round 0's chunks)")
+
+    # ---- 15. the fold, timed, at each D ---------------------------------
+    runs = []
+    layouts = {}
+    for D in FOLD_DOCS:
+        out, launches = sweep(D, f"fold D {D}")
+        rounds = out["rounds"]
+        n_em = sum(r["emissions"] for r in rounds)
+        enc = sum(r["encode_s"] for r in rounds)
+        fold = sum(r["fold_s"] for r in rounds)
+        ser = sum(r["serialize_s"] for r in rounds)
+        dev_s = (sum(r["device_ms"] for r in rounds) / 1e3
+                 if dev.type == "cuda" else None)
+        for r in rounds:
+            for g in r["groups"]:
+                key = (g["window"], g["docs"])
+                layouts[key] = layouts.get(key, 0) + g["chunks"]
+        run = dict(D=D, seconds=out["seconds"], emissions=n_em,
+                   rounds=len(rounds), launches=launches,
+                   emissions_per_s=n_em / out["seconds"],
+                   fold_ops_per_s=out["op_records"] / out["seconds"],
+                   encode_s_per_round=enc / len(rounds),
+                   fold_s_per_round=fold / len(rounds),
+                   device_s_per_round=(None if dev_s is None
+                                       else dev_s / len(rounds)),
+                   serialize_s_per_round=ser / len(rounds),
+                   windows=sorted({g["window"] for r in rounds
+                                   for g in r["groups"]}))
+        runs.append(run)
+        dev_txt = ("not measured" if dev_s is None
+                   else f"{run['device_s_per_round']:.4f}s")
+        log(f"fold D {D}: {n_em} emissions ({len(rounds)} rounds) in "
+            f"{out['seconds']:.3f}s = {run['emissions_per_s']:,.1f} "
+            f"emissions/s, {run['fold_ops_per_s']:,.0f} fold ops/s; per "
+            f"round: encode {run['encode_s_per_round']:.4f}s, fold "
+            f"{run['fold_s_per_round']:.4f}s (device {dev_txt}, CUDA events "
+            f"around the stacked replays), serialization + reboot "
+            f"{run['serialize_s_per_round']:.4f}s; kernel launches "
+            f"{launches} (one per chunk and window group; windows "
+            f"{run['windows']}); every digest equals fold_golden.json")
+
+    # ---- 16. the message-driven replica, card vs CPU --------------------
+    launches_msg, t_msg, n_msg = 0, 0.0, 0
+    threads = torch.get_num_threads()
+    for d in docs[:MSG_DOCS]:
+        msgs = fs.as_messages(streams[d])
+        enc = EncoderState(TextArena(""), PropInterner(8), 4)
+        for m in msgs:
+            if m.contents is not None and m.type.value == "op":
+                encode_op(enc, m.contents, m)
+        rep = OverlayKernelMessageReplica(chunk_size=MSG_CHUNK,
+                                          window=MSG_WINDOW, device=dev)
+        sync()
+        overlay_chunk_kernel.launches = 0
+        t0 = time.perf_counter()
+        rep.apply_messages(msgs)
+        sync()
+        t_msg += time.perf_counter() - t0
+        n_msg += len(enc._encoded)
+        launches = overlay_chunk_kernel.launches
+        want_launches = -(-len(enc._encoded) // MSG_CHUNK)
+        if dev.type == "cuda" and launches != want_launches:
+            raise AssertionError(f"message replica {d}: kernel launches "
+                                 f"{launches} != chunks {want_launches}")
+        launches_msg += launches
+        torch.set_num_threads(1)
+        try:
+            cpu = OverlayKernelMessageReplica(chunk_size=MSG_CHUNK,
+                                              window=MSG_WINDOW,
+                                              device="cpu")
+            cpu.apply_messages(msgs)
+        finally:
+            torch.set_num_threads(threads)
+        if (int(rep.table.error), rep.get_text(), rep.annotated_spans()) != (
+                int(cpu.table.error), cpu.get_text(), cpu.annotated_spans()):
+            raise AssertionError(f"message replica {d}: the card's text, "
+                                 f"spans or error word differ from the CPU's")
+        if int(rep.table.error):
+            raise AssertionError(f"message replica {d}: error "
+                                 f"{int(rep.table.error)}")
+    log(f"message replica: {MSG_DOCS} documents, {n_msg} ops (chunks of "
+        f"{MSG_CHUNK}, window {MSG_WINDOW}) in {t_msg:.3f}s = "
+        f"{n_msg / t_msg:,.0f} ops/s one document at a time (kernel launches "
+        f"{launches_msg}); text, spans and error word equal the CPU run's")
+    return dict(
+        summary_folder=launches_folder, message_replica=launches_msg,
+        fold_sweep={str(r["D"]): r["launches"] for r in runs},
+        fold_runs=runs, fold_held_pairs=held,
+        fold_groups=[dict(W=w, D=n, chunks=c,
+                          layout=(overlay_chunk_kernel.plan(
+                              w, fold_shape["KR"], fold_shape["KK"],
+                              fold_shape["B"], fold_shape["PK"]).layout
+                              if dev.type == "cuda" else None))
+                     for (w, n), c in sorted(layouts.items())],
+        fold_shape=fold_shape,
+        fold_chunk_ms={str(k): v for k, v in chunk_ms.items()},
+        fold_chunk_bound_ms={str(k): v[0] for k, v in chunk_bound.items()},
+    )
 
 
 def smi_line() -> str:
@@ -1057,6 +1383,9 @@ def main() -> int:
         f"included; kernel launches {launches_stream}); digest matches "
         f"GOLDEN.json at {DOC_OPS}")
 
+    # ---- 13-16. the summary service's fold, the message replica -------
+    fold = fold_phases(dev, hold, lambda pairs: time_overlay(pairs, 5), log)
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -1077,7 +1406,15 @@ def main() -> int:
             "default_window_replica": launches_def,
             "docs_replay": {str(r["D"]): r["launches"] for r in docs_runs},
             "streaming_replay": launches_stream,
+            "summary_folder": fold["summary_folder"],
+            "fold": fold["fold_sweep"],
+            "message_replica": fold["message_replica"],
         },
+        "fold_groups": fold["fold_groups"],
+        "fold_shape": fold["fold_shape"],
+        "fold_chunk_ms": fold["fold_chunk_ms"],
+        "fold_chunk_bound_ms": fold["fold_chunk_bound_ms"],
+        "fold_runs": fold["fold_runs"],
     }, {
         "name": mergetree_chunk_kernel.name,
         "route": "cuda",

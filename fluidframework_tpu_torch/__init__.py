@@ -12,7 +12,10 @@ copied module.
 Ported so far: the overlay merge-tree replay path that ``bench.py``
 measures (stream generation, the per-chunk overlay kernel as a
 hand-written CUDA kernel for sm_90a, the settle-merge fold, the fold
-log, and the host readout + digest).
+log, and the host readout + digest), many documents per launch, the
+row-model chunk replay (the second hand-written kernel), the host op
+encoder with the message-driven overlay replica, and the summary
+service's fold-and-emit datapath (``server/summary_fold.py``).
 
 Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device they raise instead of falling

@@ -21,7 +21,11 @@ the device while the previous one replays. `stack_replicas`,
 kernel launch (one block per document) and one fold per chunk for all
 of them, the one-card counterpart of
 `parallel.mesh.sharded_overlay_replay_multi`.
-`OverlayKernelMessageReplica` is not ported yet.
+
+`OverlayKernelMessageReplica` is the message-driven form: it encodes
+`SequencedMessage`s with the host op encoder
+(`core.kernel_replica.encode_op`) and flushes whole chunks through the
+same kernel and fold, with the same readout.
 """
 
 from __future__ import annotations
@@ -46,8 +50,10 @@ from ..ops.overlay import (
     REC_SETTLE_SPAN,
     REC_SETTLE_TEXT,
     OverlayTable,
+    fold_device,
     kernel_geometry,
     make_overlay_table,
+    overlay_apply_chunk,
     replay_chunk_step,
     replay_fused,
     stack_tables,
@@ -59,8 +65,16 @@ from ..ops.overlay_ref import (
     merge_span_props,
 )
 from ..protocol.constants import NO_CLIENT
+from ..protocol.messages import MessageType
 from ..testing.synthetic import ColumnarStream
 from ..utils.devices import DeviceLike, resolve_device
+from .kernel_replica import (
+    EncoderState,
+    PropInterner,
+    TextArena,
+    encode_op,
+    encoded_columns,
+)
 
 
 def reconstruct_settled(
@@ -486,3 +500,151 @@ def replay_docs(reps: List[OverlayDeviceReplica]):
     err = torch.amax((tables.error[:, None] >> bits) & 1, 0)
     gerr = torch.sum(err << bits, dtype=torch.int32)
     return tables, logs, counts, cursors, gmsn, gerr
+
+
+class OverlayKernelMessageReplica:
+    """SequencedMessage-driven overlay replica: the overlay chunk kernel
+    behind a message surface (counterpart of the JAX
+    `OverlayKernelMessageReplica`, overlay_replay.py:454-612), so the
+    farm differential tests (lagging refSeqs, tie-breaks, overlapping
+    removes, multi-pair annotations) hold the kernel to the scalar
+    oracle. Ops go through the host op encoder (text arena + prop
+    interner). `device` is ``cuda`` by default (raising when there is
+    none) or an explicit ``"cpu"``; it takes the place of the
+    reference's ``interpret=True``."""
+
+    def __init__(self, initial: str = "", chunk_size: int = 64,
+                 window: int = 1024, n_removers: int = 4,
+                 n_prop_keys: int = 8, max_prop_pairs: int = 4,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        kernel_geometry(window, n_removers, n_prop_keys)
+        self.arena = TextArena("")
+        self.props = PropInterner(n_prop_keys)
+        self.chunk_size = chunk_size
+        self.window = window
+        self.n_removers = n_removers
+        self.n_prop_keys = n_prop_keys
+        self.max_prop_pairs = max_prop_pairs
+        self.initial = initial
+        self._initial_np = np.asarray([ord(c) for c in initial], np.int32)
+        self.table = make_overlay_table(
+            window, n_removers, n_prop_keys, settled_len=len(initial),
+            device=self.device,
+        )
+        self._rows: List[tuple] = []
+        self._epochs: List[np.ndarray] = []
+        self._doc: Optional[OverlayDoc] = None
+
+    def apply_messages(self, msgs) -> None:
+        """Encode `msgs` and apply every whole chunk, then the rest as
+        one short chunk; with nothing pending, one fold at the last
+        MSN seen (a fold-only epoch)."""
+        enc = EncoderState(self.arena, self.props, self.max_prop_pairs)
+        msn = 0
+        for msg in msgs:
+            if msg.type == MessageType.OP and msg.contents is not None:
+                encode_op(enc, msg.contents, msg)
+                self._rows.extend(enc._encoded)
+                if enc._encoded:
+                    msn = enc._encoded[-1][10]
+                enc._encoded = []
+            else:
+                msn = max(msn, msg.minimum_sequence_number)
+            while len(self._rows) >= self.chunk_size:
+                self._flush(self._rows[: self.chunk_size])
+                self._rows = self._rows[self.chunk_size:]
+        if self._rows:
+            self._flush(self._rows)
+            self._rows = []
+        else:
+            self._fold(msn)
+        self._doc = None
+
+    def _flush(self, rows: List[tuple]) -> None:
+        """One chunk of encoded rows (NOOP-padded to the chunk size)
+        through the kernel, then the fold at its last row's MSN."""
+        batch = OpBatch(*(
+            torch.from_numpy(a).to(self.device)
+            for a in encoded_columns(rows, self.chunk_size,
+                                     self.max_prop_pairs)))
+        self.table = overlay_apply_chunk(self.table, batch)
+        self._fold(rows[-1][10])
+
+    def _fold(self, msn: int) -> None:
+        self.table, records, n_rec = fold_device(self.table, msn)
+        self._epochs.append(records[: int(n_rec)].cpu().numpy())
+
+    # ------------------------------------------------------------- output
+
+    def check_errors(self) -> None:
+        raise_kernel_errors(int(self.table.error))
+
+    def _materialize(self) -> OverlayDoc:
+        if self._doc is not None:
+            return self._doc
+        arena_text = np.asarray(
+            [ord(c) for c in self.arena.snapshot()], np.int32
+        )
+        counts = [len(r) for r in self._epochs]
+        log = (
+            np.concatenate(self._epochs) if self._epochs
+            else np.zeros((0, 5 + self.n_prop_keys), np.int32)
+        )
+        settled_t, settled_p, settled_a = reconstruct_settled(
+            self._initial_np, arena_text, log, counts, self.n_prop_keys
+        )
+        doc = OverlayDoc(settled_t, self.n_removers, self.n_prop_keys)
+        doc.settled_props = settled_p
+        doc.settled_attr = settled_a
+        t = self.table
+        m = int(t.n_rows)
+
+        def rows(a: torch.Tensor) -> np.ndarray:
+            return a[:m].cpu().numpy()
+
+        doc.anchor = rows(t.anchor)
+        doc.buf = rows(t.buf_start)
+        doc.length = rows(t.length)
+        doc.iseq = rows(t.ins_seq)
+        doc.iclient = rows(t.ins_client)
+        doc.rseq = rows(t.rem_seq)
+        doc.rcl = rows(t.rem_clients)
+        doc.props = rows(t.props)
+        doc.error = int(t.error)
+
+        def row_text(i: int) -> np.ndarray:
+            b = int(doc.buf[i])
+            ln = int(doc.length[i])
+            if b >= SETTLED_BASE:
+                a = b - SETTLED_BASE
+                return doc.settled_text[a: a + ln]
+            return arena_text[b: b + ln]
+
+        doc._row_text = row_text  # type: ignore[assignment]
+        self._doc = doc
+        return doc
+
+    def verify_invariants(self) -> None:
+        self._materialize().verify_invariants()
+
+    def _doc_order(self):
+        shim = OverlayReplica.__new__(OverlayReplica)
+        shim.doc = self._materialize()
+        return OverlayReplica._doc_order(shim)
+
+    def get_text(self) -> str:
+        return "".join(
+            "".join(map(chr, t)) for t, _ in self._doc_order()
+        )
+
+    def annotated_spans(self):
+        spans: List[Tuple[str, Optional[dict]]] = []
+        for text, props in self._doc_order():
+            for j in range(len(text)):
+                row = np.asarray(props[j])
+                p = self.props.decode_row(
+                    np.where(row == PROP_DELETE, PROP_ABSENT, row)
+                )
+                spans.append((chr(int(text[j])), p))
+        return spans

@@ -137,6 +137,40 @@ def make_overlay_table(
     )
 
 
+def pad_window(table: OverlayTable, window: int) -> OverlayTable:
+    """One document's live table widened to `window` rows, a multiple
+    of 1024 no smaller than its own: the new rows take each column's
+    empty-row sentinel (0, ``NO_CLIENT``, ``NOT_REMOVED``,
+    ``PROP_ABSENT``), as `make_overlay_table` fills them, so rows
+    ``[:n_rows]`` and every scalar are unchanged. The role of
+    `OverlayFoldReplica._ensure_window` (overlay_fold.py:183-214)."""
+    W = table.length.shape[-1]
+    if window % 1024 or window < W:
+        raise ValueError(
+            f"pad_window: {window} is not a multiple of 1024 at least "
+            f"the table's {W} rows")
+    pad = window - W
+
+    def grow(a: torch.Tensor, fill: int) -> torch.Tensor:
+        tail = torch.full((pad,) + tuple(a.shape[1:]), fill, dtype=I32,
+                          device=a.device)
+        return torch.cat([a, tail])
+
+    return OverlayTable(
+        n_rows=table.n_rows,
+        anchor=grow(table.anchor, 0),
+        buf_start=grow(table.buf_start, 0),
+        length=grow(table.length, 0),
+        ins_seq=grow(table.ins_seq, 0),
+        ins_client=grow(table.ins_client, NO_CLIENT),
+        rem_seq=grow(table.rem_seq, NOT_REMOVED),
+        rem_clients=grow(table.rem_clients, NO_CLIENT),
+        props=grow(table.props, PROP_ABSENT),
+        settled_len=table.settled_len,
+        error=table.error,
+    )
+
+
 def _check_geometry(table: OverlayTable, ops: OpBatch) -> None:
     window = table.length.shape[-1]
     if window % (8 * LANES):

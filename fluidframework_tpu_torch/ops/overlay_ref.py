@@ -2,8 +2,9 @@
 
 Copied from fluidframework_tpu/ops/overlay_ref.py (SETTLED_BASE,
 merge_span_props, OverlayDoc, OverlayReplica), re-pointed at the
-port's constants. `OverlayMessageReplica` is left out: it needs the
-message encoder of core/kernel_replica, which is not ported yet.
+port's constants. `OverlayMessageReplica` (the numpy spec fed by
+messages) is left out: the port's message-driven replica is
+`core.overlay_replay.OverlayKernelMessageReplica`.
 
 It is the executable spec of the overlay chunk kernel
 (ops/overlay.py, csrc/overlay_chunk.cu) and the host readout of the

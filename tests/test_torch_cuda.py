@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card,
+and the port's paths on the card against the same paths on the CPU (the
+replays, the summary fold rounds, the message-driven replica, and the
+summary folder against fold_golden.json).
 
 Marked ``cuda``: on a host without a CUDA device every test here skips
 with the reason. On the GPU run them with
@@ -9,21 +12,39 @@ with the reason. On the GPU run them with
 GPU host need not have; this file imports only the port.)
 """
 
+import json
+
 import pytest
 import torch
 
 from fluidframework_tpu_torch import interop
 from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
+from fluidframework_tpu_torch.core.overlay_fold import (
+    boot_overlay,
+    fold_jobs_overlay,
+)
 from fluidframework_tpu_torch.core.overlay_replay import (
     OverlayDeviceReplica,
+    OverlayKernelMessageReplica,
     replay_docs,
 )
 from fluidframework_tpu_torch.ops import mergetree_chunk as tmc
 from fluidframework_tpu_torch.ops import overlay as tov
 from fluidframework_tpu_torch.ops.mergetree_kernel import OpBatch, make_table
 from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
+from fluidframework_tpu_torch.server.summary_fold import (
+    SummaryFolder,
+    _encode_fold,
+)
 from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
 from fluidframework_tpu_torch.testing.digest import state_digest
+from fluidframework_tpu_torch.testing.fold_streams import (
+    as_messages,
+    build_mergetree_stream,
+    golden_streams,
+    load_fold_golden,
+    run_fold_sweep,
+)
 from fluidframework_tpu_torch.testing.overlay_edges import (
     overlay_edge_chunks,
     widen_prop_slots,
@@ -264,6 +285,91 @@ def test_cuda_replay_matches_cpu_replay(cuda):
     assert int(gpu.cursor) == int(cpu.cursor)
     assert state_digest(gpu.annotated_spans()) == state_digest(
         cpu.annotated_spans())
+
+
+
+# ------------------------------------------------------ summary fold path
+
+
+def test_cuda_fold_rounds_match_cpu(cuda):
+    """Three documents through the fold bench's emission loop, every
+    round one stacked `fold_jobs_overlay` call: the canonical rows of
+    every emission on the card equal the CPU run's, and kernel A runs
+    once per chunk of each window group."""
+    streams = {f"doc{i}": build_mergetree_stream(600, n_clients=4,
+                                                 seed=70 + i, doc=f"doc{i}")
+               for i in range(3)}
+    before = tov.overlay_chunk_kernel.launches
+    gpu = run_fold_sweep(streams, 150, cuda)
+    launches = tov.overlay_chunk_kernel.launches - before
+    cpu = run_fold_sweep(streams, 150, "cpu")
+    assert gpu["digests"] == cpu["digests"]
+    assert len(gpu["digests"]["doc0"]) == 5
+    assert launches == sum(r["chunks"] for r in gpu["rounds"])
+    assert all(r["device_ms"] > 0 for r in gpu["rounds"])
+
+
+def test_cuda_fold_window_groups_match_cpu(cuda):
+    """One fold call whose documents have two windows (one booted over
+    1,100 unsettled rows): one stacked launch per chunk of each window
+    group on the card, and the same tables and rows as the CPU run."""
+    big = [["x" * 3, 5, 1, None, None, {"k": i % 7}] for i in range(1100)]
+    recs = [build_mergetree_stream(300, n_clients=4, seed=80 + i,
+                                   doc=f"doc{i}") for i in range(3)]
+    runs = []
+    for dev in (cuda, "cpu"):
+        reps = [boot_overlay(rows, 0, device=dev)
+                for rows in ([], big, [])]
+        for rep, r in zip(reps, recs):
+            _encode_fold(rep, r)
+        before = tov.overlay_chunk_kernel.launches
+        groups = fold_jobs_overlay([(rep, None) for rep in reps])
+        runs.append((reps, groups, tov.overlay_chunk_kernel.launches
+                     - before))
+    (gpu, g_groups, g_launches), (cpu, c_groups, _) = runs
+    assert [(g["window"], g["docs"]) for g in g_groups] == [
+        (2048, 2), (3072, 1)]
+    assert [(g["window"], g["docs"], g["chunks"]) for g in g_groups] == [
+        (g["window"], g["docs"], g["chunks"]) for g in c_groups]
+    assert g_launches == sum(g["chunks"] for g in g_groups)
+    for a, b in zip(gpu, cpu):
+        _assert_overlay_equal(a.table.to("cpu"), b.table)
+        assert a.canonical_rows(304) == b.canonical_rows(304)
+
+
+def test_cuda_message_replica_matches_cpu(cuda):
+    for seed in (71, 72):
+        msgs = as_messages(build_mergetree_stream(900, n_clients=4,
+                                                  seed=seed))
+        reps = []
+        for dev in (cuda, "cpu"):
+            rep = OverlayKernelMessageReplica(chunk_size=64, window=1024,
+                                              device=dev)
+            rep.apply_messages(msgs)
+            reps.append(rep)
+        gpu, cpu = reps
+        assert int(gpu.table.error) == int(cpu.table.error) == 0
+        assert gpu.get_text() == cpu.get_text()
+        assert gpu.annotated_spans() == cpu.annotated_spans()
+
+
+def test_cuda_summary_folder_meets_fold_golden(cuda):
+    golden = load_fold_golden()
+    step = golden["params"]["summary_ops"]
+    folder = SummaryFolder(summary_ops=step, device=cuda)
+    streams = golden_streams(golden, 4)
+    for lo in range(0, len(streams["doc0"]), step):
+        for recs in streams.values():
+            for rec in recs[lo:lo + step]:
+                folder.process(rec)
+        folder.flush()
+    got = {}
+    for handle, payload in folder.blobs.items():
+        blob = json.loads(payload)
+        got.setdefault(blob["doc"], []).append(
+            [blob["seq"], blob["count"], handle])
+    for doc, want in golden["manifests"].items():
+        assert sorted(got[doc]) == want, doc
 
 
 # ---------------------------------------------------------------- row model

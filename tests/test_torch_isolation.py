@@ -20,10 +20,18 @@ import torch
 import fluidframework_tpu_torch
 from fluidframework_tpu_torch import interop
 from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
-from fluidframework_tpu_torch.core.overlay_replay import OverlayDeviceReplica
+from fluidframework_tpu_torch.core.overlay_fold import (
+    OverlayFoldReplica,
+    boot_overlay,
+)
+from fluidframework_tpu_torch.core.overlay_replay import (
+    OverlayDeviceReplica,
+    OverlayKernelMessageReplica,
+)
 from fluidframework_tpu_torch.ops import mergetree_chunk as tmc
 from fluidframework_tpu_torch.ops import overlay as tov
 from fluidframework_tpu_torch.ops.mergetree_kernel import make_table
+from fluidframework_tpu_torch.server.summary_fold import SummaryFolder
 from fluidframework_tpu_torch.testing.synthetic import generate_stream
 from fluidframework_tpu_torch.utils.devices import resolve_device
 
@@ -94,6 +102,14 @@ def test_no_silent_cpu_fallback(monkeypatch):
         tov.make_overlay_table(1024)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OverlayKernelMessageReplica()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OverlayFoldReplica()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        boot_overlay([["abc", 0, -3, None, None, None]], 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SummaryFolder()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.table_from_numpy(
             interop.table_to_numpy(tov.make_overlay_table(1024, device="cpu")))
