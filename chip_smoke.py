@@ -7,13 +7,14 @@ Drives the port's replay paths on the card, through
 ``fluidframework_tpu_torch`` only -- it imports nothing of JAX or of
 ``fluidframework_tpu``: the overlay merge-tree replay that ``bench.py``
 measures on the JAX package, the row-model replay (``ColumnarReplica``,
-``bench.py`` with ``BENCH_ENGINE=pallas``), the summary service's fold
-and the message-driven overlay replica.
+``bench.py`` with ``BENCH_ENGINE=pallas``), the summary service's fold,
+the message-driven overlay replica, and the deli sequencer (BASELINE
+config 5).
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
-2. builds both CUDA kernels (nvcc, sm_90a) and the native stream engine
-   (g++) from the checkout's sources, in parallel;
+2. builds the three CUDA kernels (nvcc, sm_90a) and the native stream
+   engine (g++) from the checkout's sources, in parallel;
 3. holds the overlay chunk kernel against its plain PyTorch version on
    the card at the bench geometry (window 2048, 24 remover slots, 8 prop
    keys, chunks of 256 ops): the first 16 chunks of the seed-7 lagged
@@ -108,19 +109,45 @@ Phases, in order; any failure exits non-zero:
    events) and serialization + reboot;
 16. `OverlayKernelMessageReplica` on 4 documents' records as messages
    (chunks of 64, window 1024), launches equal to the chunks, text,
-   spans and error word equal to the same replica on the CPU.
+   spans and error word equal to the same replica on the CPU;
+17. the sequencer kernel (`csrc/sequencer_step.cu`) against its plain
+   version `sequence_batch_ref`, run on CPU copies of the same inputs,
+   exactly (int32/bool, tolerance 0) on the new state, the abort tracker
+   and the four verdict planes: the chunks of config 5's first 4 and
+   last 2 pumps (timed there: the kernel by CUDA events behind a spin,
+   the plain version by host clock), grouped edge traffic (boxcars
+   across chunk edges, dedup on and off, system stamps, out-of-range
+   client slots, every nack code) at D 13 in both layouts, random
+   in-proc traffic through `KernelDeliLambda` in pumps of 37 and chunks
+   of 8 under a resident budget (eviction), and churn that grows the
+   client columns to 1024 and 2048 at D 5, each chunk in both layouts;
+18. the deli's main path: BASELINE config 5 at the reference's bench
+   defaults (`build_pipeline_workload(10_000, 64, 1)`: 1,280,000 raw
+   records) through `KernelDeliLambda(device="cuda", max_pump=16384)`
+   until it drains (79 pumps), after a warm-up over the first 4 pumps in
+   a separate log; launches equal to the chunks, the normalized deltas
+   digest, stamp and nack counts and the final checkpoint's digest equal
+   to `fluidframework_tpu_torch/testing/deli_golden.json` (the JAX
+   scalar deli's, `tools/deli_golden.py`); records/s by the host clock,
+   ms per pump split into plan, prepare, pack, upload, launch, read,
+   emit and the kernel (CUDA events), and the pool's D, C and B;
+19. restore: a fresh lambda checkpoints at the stream's midpoint, a new
+   one restores from it and drains the rest (under `torch.profiler`:
+   the kernel's device time in the path and the device's busy share);
+   the concatenated deltas and the final checkpoint equal the golden.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant). Every path
-(phases 4, 6, 10, 11, 12, 13, 15 and 16) is driven with kernel launch
-counts set to 0 just before it and read just after.
+(phases 4, 6, 10, 11, 12, 13, 15, 16, 18 and 19) is driven with kernel
+launch counts set to 0 just before it and read just after.
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
 shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
 block, grid barriers per op), the kernels line (JSON; kernel A's entry
 also lists every layout it checked, the two layouts' times on the same
 chunks, the launches of each path, and the fold's window groups with
-their layout), the
+their layout; the sequencer's lists its checked chunks, the deli's
+per-pump split and records/s), the
 nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
@@ -207,6 +234,15 @@ INT_OPS_PER_PASS_B = 15
 # Passes per op: an insert splits at pos1 and lands; a remove or an
 # annotate splits at pos1 and at pos2 and walks the covered range.
 PASSES_INSERT_B, PASSES_RANGE_B = 2, 3
+# The sequencer step's int32 work (csrc/sequencer_step.cu): per
+# submission, the slot clip, the dedup and boxcar tests, the four-rung
+# nack ladder, the stamp decision, the slot's update and the tracker
+# (about 32); per stamp, the MSN's masked min over the client columns
+# (a connected test and a min per column).
+SEQ_OPS_PER_SUB, SEQ_OPS_PER_COL = 32, 2
+# GPU cycles of the spin that holds the stream while the host enqueues
+# timed sequencer launches (~25 ms at 1.98 GHz; doubled when short).
+SPIN_CYCLES = 50_000_000
 
 
 def log(msg: str) -> None:
@@ -525,6 +561,384 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
     )
 
 
+def deli_phases(dev, log) -> dict:
+    """Phases 17-19, the deli sequencer, on `dev`: the sequencer kernel
+    against its plain version (on CPU copies of the same inputs,
+    exactly), BASELINE config 5's stream through `KernelDeliLambda`
+    timed and gated on deli_golden.json, and a checkpoint restore.
+    Raises on any mismatch; returns what the kernels line reports."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+    from fluidframework_tpu_torch.server.deli_kernel import (
+        TIME_KEYS, KernelDeliLambda, new_times,
+    )
+    from fluidframework_tpu_torch.server.log import MessageLog
+    from fluidframework_tpu_torch.testing import deli_streams as ds
+
+    kernel = tsk.sequencer_step_kernel
+    with open(os.path.join(ROOT, "fluidframework_tpu_torch", "testing",
+                           "deli_golden.json")) as f:
+        golden = json.load(f)
+    p = golden["params"]
+    t0 = time.perf_counter()
+    raws = ds.to_inproc(ds.build_pipeline_workload(
+        p["n_docs"], p["n_clients"], p["ops_per_client"], seed=p["seed"]))
+    pump = p["max_pump"]
+    log(f"deli: {len(raws)} raw records ({p['n_docs']} documents x "
+        f"{p['n_clients']} clients x {p['ops_per_client']} op) built in "
+        f"{time.perf_counter() - t0:.2f}s; pumps of {pump}")
+
+    max_err = 0
+    held = {"chunks": 0, "shared": 0, "global": 0}  # chunks; outputs per layout
+
+    def to_cpu(ts):
+        return [t.cpu() for t in ts]
+
+    def compare(got, want, label):
+        """A launch's (state, tracker, verdicts) against the plain
+        version's, exactly; the verdicts may be numpy arrays."""
+        nonlocal max_err
+        pairs = [*zip(tsk.SequencerState._fields, got[0], want[0]),
+                 ("aborted", got[1], want[1]),
+                 *zip(tsk.SeqResult._fields, got[2], want[2])]
+        for name, a, b in pairs:
+            a = torch.as_tensor(np.asarray(a.cpu() if torch.is_tensor(a)
+                                           else a))
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{label}: {name} is {a.dtype} "
+                                     f"{tuple(a.shape)}, plain {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+                if a.numel() else 0
+            max_err = max(max_err, diff)
+            if diff:
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     f"plain version by {diff}")
+
+    def hold(st_in, ab_in, cols, dedup, got, label, layouts=()):
+        """The kernel's (state, tracker, verdicts) `got` on one chunk
+        against the plain version on CPU copies of its inputs; each of
+        `layouts` is launched again on the same inputs and held too.
+        Returns the plain version's seconds."""
+        t0 = time.perf_counter()
+        want = tsk.sequence_batch_ref(
+            tsk.SequencerState(*to_cpu(st_in)), ab_in.cpu(),
+            tsk.SeqBatch(*to_cpu(cols[:4])), cols[4].cpu(), dedup)
+        plain_s = time.perf_counter() - t0
+        compare(got, want, label)
+        held["chunks"] += 1
+        held[kernel.plan(st_in.connected.shape[1])] += 1
+        for lay in layouts:
+            again = kernel(st_in, ab_in, tsk.SeqBatch(*cols[:4]), cols[4],
+                           dedup, layout=lay)
+            torch.cuda.synchronize()
+            compare(again, want, f"{label} ({lay})")
+            held[lay] += 1
+        return plain_s
+
+    def time_kernel(st_in, ab_in, cols, dedup, layout, reps=20) -> float:
+        """The kernel's device ms per launch in `layout` over `reps`
+        launches on the same inputs (the state stays in L2, as between
+        the path's pumps), CUDA events. A spin kernel
+        (`torch.cuda._sleep`) holds the stream while the host enqueues
+        the launches, so the span holds no host gap; the spin doubles
+        until it outlasts the enqueue."""
+        batch = tsk.SeqBatch(*cols[:4])
+        kernel(st_in, ab_in, batch, cols[4], dedup, layout=layout)  # warm-up
+        torch.cuda.synchronize()
+        cycles = SPIN_CYCLES
+        for _ in range(6):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(cycles)
+            ev[1].record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                kernel(st_in, ab_in, batch, cols[4], dedup, layout=layout)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev[2].record()
+            torch.cuda.synchronize()
+            if host_ms < ev[0].elapsed_time(ev[1]):
+                return ev[1].elapsed_time(ev[2]) / reps
+            cycles *= 2
+        raise AssertionError("time_kernel: the spin never outlasted the "
+                             "host's enqueue")
+
+    def bound(D, C, B, stamps):
+        """Least time for a launch: the state row in and out once
+        (seq, min_seq, tracker: 12 bytes; C connected bytes, C refSeqs,
+        C clientSeqs), the batch in (5 int32) and the verdicts out (3
+        int32 + 1 byte) once, over the HBM rate; against the int32 work,
+        SEQ_OPS_PER_SUB per submission and SEQ_OPS_PER_COL per client
+        column per stamp (the MSN's masked min), over the int32 rate."""
+        nbytes = 2 * D * (12 + 9 * C) + D * B * (20 + 13)
+        ops = D * B * SEQ_OPS_PER_SUB + stamps * C * SEQ_OPS_PER_COL
+        b_ms, o_ms = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+    def checked_lambda(recs, label, check_chunks=None, layouts=(),
+                       timed=None, **kw):
+        """Drain `recs` through a `KernelDeliLambda` on the card whose
+        chunks (all, or the indices in `check_chunks`) are held against
+        the plain version; `timed` collects per-chunk times. Returns
+        (normalized deltas, checkpoint digest, the deli)."""
+        lg = MessageLog()
+        lg.topic("rawdeltas").append_many(recs)
+        deli = KernelDeliLambda(lg, device=dev, **kw)
+        pool = deli.core.pool
+        run_chunk = pool.run_chunk
+
+        def checked(kind, client, cseq, ref, groups, dedup, aborted=None):
+            i = pool.chunks
+            if check_chunks is not None and i not in check_chunks:
+                return run_chunk(kind, client, cseq, ref, groups, dedup,
+                                 aborted)
+            if aborted is None:
+                aborted = tsk.no_aborts(pool.n_docs, dev)
+            st_in, ab_in = pool.state, aborted
+            res, ab = run_chunk(kind, client, cseq, ref, groups, dedup,
+                                aborted)
+            torch.cuda.synchronize()
+            cols = [torch.from_numpy(c).to(dev)
+                    for c in (kind, client, cseq, ref, groups)]
+            plain_s = hold(st_in, ab_in, cols, dedup, (pool.state, ab, res),
+                           f"{label} chunk {i}", layouts)
+            if timed is not None:
+                D, C = st_in.connected.shape
+                B = kind.shape[1]
+                stamps = int((res.seq > 0).sum())
+                b_ms, by = bound(D, C, B, stamps)
+                # Both layouts on the same inputs, in the order shared,
+                # global, global, shared; each one's mean.
+                both = {lay: [] for lay in tsk.LAYOUTS}
+                for lay in tsk.LAYOUTS + tsk.LAYOUTS[::-1]:
+                    both[lay].append(time_kernel(st_in, ab_in, cols, dedup,
+                                                 lay))
+                both = {lay: sum(v) / len(v) for lay, v in both.items()}
+                timed.append(dict(
+                    chunk=i, D=D, C=C, B=B, stamps=stamps,
+                    layout=kernel.plan(C), ms=both[kernel.plan(C)],
+                    layout_ms=both, plain_ms=plain_s * 1e3, bound_ms=b_ms,
+                    bound_by=by))
+            return res, ab
+
+        pool.run_chunk = checked
+        while deli.pump():
+            pass
+        entries = [ds.norm_entry(e) for e in lg.topic("deltas").read(0)]
+        return entries, ds.checkpoint_digest(deli.checkpoint()), deli
+
+    # ---- 17. the sequencer kernel vs its plain version ----------------
+    t17 = time.perf_counter()
+    # (a) the main path's chunks: the first 4 pumps and the last 2, with
+    # the kernel timed there in both layouts (CUDA events) and the plain
+    # version (host clock, on the CPU).
+    n_pumps = p["pumps"]
+    timed = []
+    _, cp_digest, deli = checked_lambda(
+        raws, "main path", check_chunks={0, 1, 2, 3, n_pumps - 2,
+                                         n_pumps - 1},
+        timed=timed, max_pump=pump)
+    if deli.core.pool.chunks != n_pumps or cp_digest != \
+            golden["checkpoint_sha256"]:
+        raise AssertionError(
+            f"phase 17 main path: {deli.core.pool.chunks} chunks, "
+            f"checkpoint {cp_digest} (golden {golden['checkpoint_sha256']})")
+    for r in timed:
+        log(f"  sequencer_step main-path chunk {r['chunk']}: D {r['D']} "
+            f"C {r['C']} B {r['B']} ({r['stamps']} stamps): kernel "
+            f"{r['ms']:.6f} ms ({r['layout']} layout, planned; shared "
+            f"{r['layout_ms']['shared']:.6f}, global "
+            f"{r['layout_ms']['global']:.6f} = "
+            f"{r['layout_ms']['global'] / r['layout_ms']['shared']:.3f}x), "
+            f"plain (CPU) {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    del deli
+    # (b) edge traffic, sequencer level: grouped chunks of 32 with
+    # boxcars across chunk edges, dedup on and off, system stamps,
+    # unknown / negative / huge client slots, every nack code, D 13
+    # (a block with one live warp of four), both layouts at C 8 and 128.
+    nacks = set()
+    for C in (8, 128):
+        for dedup in (False, True):
+            D = 13
+            st = tsk.make_state(D, C, dev)
+            ab = tsk.no_aborts(D, dev)
+            for ci, cols in enumerate(ds.edge_chunks(C + dedup, D, 8, 256,
+                                                     32)):
+                cols = [torch.from_numpy(c).to(dev) for c in cols]
+                got = kernel(st, ab, tsk.SeqBatch(*cols[:4]), cols[4], dedup)
+                torch.cuda.synchronize()
+                other = "global" if kernel.plan(C) == "shared" else "shared"
+                hold(st, ab, cols, dedup, got,
+                     f"edge C {C} dedup {dedup} chunk {ci}", (other,))
+                nacks |= set(got[2].nack.flatten().tolist())
+                st, ab = got[0], got[1]
+    if not {400, 403, 416, 422} <= nacks:
+        raise AssertionError(f"edge traffic missed a nack code: {nacks}")
+    # (b') the deli on random traffic: pumps of 37, chunks of 8, five
+    # slots under a resident budget of 6 (eviction), every chunk held.
+    for seed in (0, 1, 2):
+        recs = ds.gen_raw_traffic(seed, n=400, docs=9)
+        kw = dict(max_pump=37, max_cols=8, n_docs=5, max_resident=6)
+        got = checked_lambda(recs, f"traffic seed {seed}", **kw)
+        lg = MessageLog()
+        lg.topic("rawdeltas").append_many(recs)
+        cpu = KernelDeliLambda(lg, device="cpu", **kw)
+        while cpu.pump():
+            pass
+        if got[0] != [ds.norm_entry(e) for e in lg.topic("deltas").read(0)]:
+            raise AssertionError(f"traffic seed {seed}: the card's deltas "
+                                 f"differ from the CPU deli's")
+    # (c) churn: 1000 and 1100 distinct clients per document in one pump
+    # grow the columns to C 1024 (shared layout) and 2048 (global), at
+    # D 5; each chunk is held in the other layout too.
+    for n_clients, want_c in ((1000, 1024), (1100, 2048)):
+        recs = ds.churn_raws(3, n_clients, seed=n_clients)
+        other = "global" if want_c == 1024 else "shared"
+        _, _, deli = checked_lambda(recs, f"churn C {want_c}",
+                                    layouts=(other,), max_pump=len(recs),
+                                    n_docs=5)
+        pool = deli.core.pool
+        if (pool.n_clients, pool.n_docs) != (want_c, 5):
+            raise AssertionError(f"churn: pool reached C {pool.n_clients} "
+                                 f"D {pool.n_docs}")
+    log(f"sequencer_step vs plain: {held['shared'] + held['global']} "
+        f"kernel outputs on {held['chunks']} chunks exact (tolerance 0; "
+        f"{held['shared']} in the shared layout, {held['global']} in the "
+        f"global one), max_abs_err {max_err}, nack codes {sorted(nacks)}; "
+        f"phase 17 {time.perf_counter() - t17:.2f}s")
+
+    # ---- 18. the main path -------------------------------------------
+    warm = MessageLog()
+    warm.topic("rawdeltas").append_many(raws[:4 * pump])
+    deli = KernelDeliLambda(warm, device=dev, max_pump=pump)
+    while deli.pump():
+        pass
+    del deli, warm
+    lg = MessageLog()
+    lg.topic("rawdeltas").append_many(raws)
+    deli = KernelDeliLambda(lg, device=dev, max_pump=pump)
+    pool = deli.core.pool
+    pool.times = new_times()
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    pumps = 0
+    t0 = time.perf_counter()
+    while deli.pump():
+        pumps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    if launches != pool.chunks or pumps != n_pumps:
+        raise AssertionError(f"main path: {launches} launches, "
+                             f"{pool.chunks} chunks, {pumps} pumps")
+    digest = ds.StreamDigest().update(lg.topic("deltas").read(0))
+    cp = ds.checkpoint_digest(deli.checkpoint())
+    if (digest.hexdigest(), digest.stamps, digest.nacks, cp) != (
+            golden["deltas_sha256"], golden["stamps"], golden["nacks"],
+            golden["checkpoint_sha256"]):
+        raise AssertionError(
+            f"main path: deltas {digest.hexdigest()} ({digest.stamps} "
+            f"stamps, {digest.nacks} nacks), checkpoint {cp} differ from "
+            f"deli_golden.json")
+    times = pool.times
+    split = {k.rsplit("_", 1)[0]: times[k] * 1e3 / pumps for k in TIME_KEYS}
+    log(f"deli main path: {len(raws)} records in {pumps} pumps in "
+        f"{wall:.3f}s = {len(raws) / wall:,.0f} records/s (host clock); "
+        f"kernel launches {launches} = chunks; pool D {pool.n_docs} C "
+        f"{pool.n_clients} B {pool.max_cols_seen}; deltas and checkpoint "
+        f"digests match deli_golden.json ({digest.stamps} stamps, "
+        f"{digest.nacks} nacks)")
+    log("  ms per pump (host clock): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items())
+        + " (launch: the launch call; the kernel's device time: phase 19)")
+    del deli, lg
+
+    # ---- 19. restore --------------------------------------------------
+    half = len(raws) // 2
+    first = MessageLog()
+    first.topic("rawdeltas").append_many(raws[:half])
+    deli = KernelDeliLambda(first, device=dev, max_pump=pump)
+    kernel.launches = 0
+    while deli.pump():
+        pass
+    cp = deli.checkpoint()
+    digest = ds.StreamDigest().update(first.topic("deltas").read(0))
+    del deli, first
+    second = MessageLog()
+    second.topic("rawdeltas").append_many(raws)
+    deli = KernelDeliLambda(second, cp, device=dev, max_pump=pump)
+    # The second half under the profiler (device activity only): the
+    # kernel's own device time in the path, and the device's busy share.
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        while deli.pump():
+            pass
+        torch.cuda.synchronize()
+    wall_prof = time.perf_counter() - t0
+    launches_restore = kernel.launches
+    seq_us, seq_n, busy_us = 0.0, 0, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        busy_us += us
+        if "sequencer_step" in e.key:
+            seq_us += us
+            seq_n += e.count
+    prof_kernel_ms = seq_us / 1e3 / seq_n if seq_n else None
+    busy_share = busy_us / 1e6 / wall_prof
+    # The kernel's stage of a pump: its device time under the profiler,
+    # per launch, times the main path's launches per pump.
+    split["kernel"] = (prof_kernel_ms * launches / pumps if seq_n
+                       else None)
+    log(f"deli second half under the profiler: {wall_prof:.3f}s; "
+        f"sequencer_step {seq_n} launches, "
+        + (f"{prof_kernel_ms:.6f} ms each (device) = "
+           f"{split['kernel']:.6f} ms per main-path pump" if seq_n else
+           "no device time seen (not measured)")
+        + f"; all device work {busy_us / 1e3:.3f} ms, busy share "
+        f"{busy_share:.6f}")
+    digest.update(second.topic("deltas").read(0))
+    cp2 = ds.checkpoint_digest(deli.checkpoint())
+    if (digest.hexdigest(), cp2) != (golden["deltas_sha256"],
+                                     golden["checkpoint_sha256"]):
+        raise AssertionError("restore: the concatenated deltas or the final "
+                             "checkpoint differ from deli_golden.json")
+    log(f"deli restore: checkpoint at record {half}, restored into a new "
+        f"lambda, drained; concatenated deltas and final checkpoint match "
+        f"deli_golden.json (kernel launches {launches_restore})")
+    del deli, second
+
+    last = [r for r in timed if r["C"] == timed[-1]["C"]]
+    n = len(last)
+    return dict(
+        launches=launches,
+        max_abs_err=max_err,
+        ms=sum(r["ms"] for r in last) / n,
+        plain_ms=sum(r["plain_ms"] for r in last) / n,
+        bound_ms=sum(r["bound_ms"] for r in last) / n,
+        bound_by=last[-1]["bound_by"],
+        layout_ms={lay: sum(r["layout_ms"][lay] for r in last) / n
+                   for lay in tsk.LAYOUTS},
+        checked_chunks=timed,
+        profiled_ms_per_launch=prof_kernel_ms,
+        profiled_busy_share=busy_share,
+        path_launches={"deli_main_path": launches,
+                       "deli_restore": launches_restore},
+        pump_ms=split,
+        records_per_s=len(raws) / wall,
+        pool={"D": pool.n_docs, "C": pool.n_clients,
+              "B": pool.max_cols_seen},
+        held_chunks=held,
+    )
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -576,6 +990,9 @@ def main() -> int:
         ops_at, overlay_apply_chunk, overlay_apply_chunk_ref,
         overlay_chunk_kernel,
     )
+    from fluidframework_tpu_torch.ops.sequencer_kernel import (
+        sequencer_step_kernel,
+    )
     from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
     from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
     from fluidframework_tpu_torch.testing.digest import state_digest
@@ -597,15 +1014,16 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
-    cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name)
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+    cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name,
+                  sequencer_step_kernel.name)
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
         f_cuda = [ex.submit(_build.load, name) for name in cuda_names]
         f_host = ex.submit(load_hostmerge)
         for f in f_cuda:
             f.result()
         if f_host.result() is None:
             raise RuntimeError("g++ build of the native stream engine failed")
-    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x2 + g++ in parallel)")
+    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x3 + g++ in parallel)")
     for name in cuda_names:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1386,6 +1804,9 @@ def main() -> int:
     # ---- 13-16. the summary service's fold, the message replica -------
     fold = fold_phases(dev, hold, lambda pairs: time_overlay(pairs, 5), log)
 
+    # ---- 17-19. the deli sequencer --------------------------------------
+    deli = deli_phases(dev, log)
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -1428,6 +1849,29 @@ def main() -> int:
         "bound_by": bound_by_b,
         "library_ms": None,
         "check": "exact",
+    }, {
+        "name": sequencer_step_kernel.name,
+        "route": "cuda",
+        "source": sequencer_step_kernel.source,
+        "replaces": sequencer_step_kernel.replaces,
+        "launches": deli["launches"],
+        "max_abs_err": deli["max_abs_err"],
+        "ms": deli["ms"],
+        "plain_ms": deli["plain_ms"],
+        "bound_ms": deli["bound_ms"],
+        "bound_by": deli["bound_by"],
+        "library_ms": None,
+        "check": "exact",
+        "plain_on": "cpu",
+        "layout_ms": deli["layout_ms"],
+        "path_launches": deli["path_launches"],
+        "profiled_ms_per_launch": deli["profiled_ms_per_launch"],
+        "profiled_busy_share": deli["profiled_busy_share"],
+        "checked_chunks": deli["checked_chunks"],
+        "held_chunks": deli["held_chunks"],
+        "pool": deli["pool"],
+        "pump_ms": deli["pump_ms"],
+        "records_per_s": deli["records_per_s"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,10 +3,10 @@
 The port imports nothing of the JAX package, so state crosses as
 plain numpy: a dict of the JAX `OverlayTable` / `SegmentTable` /
 `OpBatch` fields (or any object with those attributes, e.g.
-``table._asdict()`` or the NamedTuple itself), and any object with the
-`ColumnarStream` fields. With these a table that the JAX engine
-produced mid-replay can be continued by the port, and the other way
-round.
+``table._asdict()`` or the NamedTuple itself), any object with the
+`ColumnarStream` fields, and the deli's `SequencerState`. With these a
+table (or a sequencer state) that the JAX engine produced mid-replay
+can be continued by the port, and the other way round.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from .ops.mergetree_kernel import OpBatch, SegmentTable
 from .ops.overlay import OverlayTable
+from .ops.sequencer_kernel import SequencerState
 from .testing.synthetic import ColumnarStream
 from .utils.devices import DeviceLike, resolve_device
 
@@ -82,3 +83,25 @@ def stream_from_numpy(src: Fields) -> ColumnarStream:
         f.name: np.array(_get(src, f.name), dtype=np.int32)
         for f in fields(ColumnarStream)
     })
+
+
+def sequencer_state_from_numpy(src: Fields,
+                               device: DeviceLike = None) -> SequencerState:
+    """The port's `SequencerState` from the JAX state's fields (numpy
+    arrays or anything `np.asarray` takes), on `device`: ``connected``
+    as bool, the rest int32."""
+    dev = resolve_device(device)
+    return SequencerState(**{
+        name: torch.from_numpy(np.array(
+            _get(src, name),
+            dtype=bool if name == "connected" else np.int32)).to(dev)
+        for name in SequencerState._fields
+    })
+
+
+def sequencer_state_to_numpy(state: SequencerState) -> Dict[str, np.ndarray]:
+    """The state's fields as numpy arrays (``connected`` bool, the rest
+    int32), keyed like the JAX `SequencerState` (``jax
+    SequencerState(**d)`` rebuilds it there)."""
+    return {name: getattr(state, name).cpu().numpy()
+            for name in SequencerState._fields}

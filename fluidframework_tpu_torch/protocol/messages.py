@@ -1,8 +1,11 @@
 """Wire message types.
 
 Copied from fluidframework_tpu/protocol/messages.py: `MessageType`
-(:19) and `SequencedMessage` (:48) only, the part that the host op
-encoder and the message-driven replica read. A client submits a
+(:19), `DocumentMessage` (:35), `SequencedMessage` (:48),
+`trace_submit_ts` (:65) and `NackMessage` (:99), the part that the
+host op encoder, the message-driven replica and the deli read. The
+class names and enum values are the reference's, so ``str(m.type)``
+and ``m.type.value`` compare equal across the packages. A client submits a
 message carrying (clientSequenceNumber, referenceSequenceNumber, type,
 contents); the ordering service stamps (sequenceNumber,
 minimumSequenceNumber) to produce a SequencedMessage that every replica
@@ -33,6 +36,19 @@ class MessageType(str, enum.Enum):
 
 
 @dataclass
+class DocumentMessage:
+    """A client-originated, not-yet-sequenced message."""
+
+    client_seq: int  # clientSequenceNumber: per-client monotone counter
+    ref_seq: int  # referenceSequenceNumber: last sequenced seq the client saw
+    type: MessageType = MessageType.OP
+    contents: Any = None
+    metadata: Any = None
+    # Which datastore / channel this op addresses (runtime envelope).
+    address: Optional[str] = None
+
+
+@dataclass
 class SequencedMessage:
     """A message stamped with a total order by the sequencing service."""
 
@@ -48,3 +64,25 @@ class SequencedMessage:
     timestamp: float = 0.0
     # Trace annotations (reference: ISequencedDocumentMessage.traces).
     traces: list = field(default_factory=list)
+
+
+def trace_submit_ts(metadata: Any) -> Optional[float]:
+    """The submitting client's timestamp riding op metadata under
+    "tr_sub" (foreign producers simply omit it)."""
+    if isinstance(metadata, dict):
+        ts = metadata.get("tr_sub")
+        if isinstance(ts, (int, float)):
+            return float(ts)
+    return None
+
+
+@dataclass
+class NackMessage:
+    """Rejection from the sequencing service (stale refSeq, unknown
+    client, ...). Reference: deli nacks at server/routerlicious/
+    packages/lambdas/src/deli/lambda.ts:967-982."""
+
+    client_id: int
+    client_seq: int
+    code: int
+    reason: str

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card,
 and the port's paths on the card against the same paths on the CPU (the
-replays, the summary fold rounds, the message-driven replica, and the
-summary folder against fold_golden.json).
+replays, the summary fold rounds, the message-driven replica, the
+summary folder against fold_golden.json, and the deli).
 
 Marked ``cuda``: on a host without a CUDA device every test here skips
 with the reason. On the GPU run them with
@@ -463,3 +463,85 @@ def test_mergetree_kernel_leaves_its_input(cuda):
         assert torch.equal(getattr(table, f), b), f
     _assert_row_tables_equal(second, first)
     _assert_row_tables_equal(first, tmc.apply_chunk_ref(table, batch))
+
+
+# -------------------------------------------------------------------- deli
+
+def _seq_plain(state, aborted, cols, dedup):
+    """The plain version on CPU copies of the card's inputs."""
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+
+    cpu = [c.cpu() for c in cols]
+    return tsk.sequence_batch_ref(
+        tsk.SequencerState(*(t.cpu() for t in state)), aborted.cpu(),
+        tsk.SeqBatch(*cpu[:4]), cpu[4], dedup)
+
+
+def _assert_seq_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b), (a, b)
+
+
+@pytest.mark.parametrize("C,layout", [(8, None), (8, "global"),
+                                      (128, None), (2048, None),
+                                      (2048, "shared")])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_sequencer_kernel_matches_plain(cuda, C, layout, dedup):
+    """The sequencer kernel vs `sequence_batch_ref` on grouped edge
+    traffic, chunk by chunk with the abort tracker carried, at an odd D
+    (13 documents: a block of 4 warps with one live), both layouts."""
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+    from fluidframework_tpu_torch.testing.deli_streams import edge_chunks
+
+    D = 13
+    state = tsk.make_state(D, C, cuda)
+    aborted = tsk.no_aborts(D, cuda)
+    before = tsk.sequencer_step_kernel.launches
+    chunks = edge_chunks(5 + C, D, min(C, 8), 96, 32)
+    for cols in chunks:
+        cols = [torch.from_numpy(c).to(cuda) for c in cols]
+        want = _seq_plain(state, aborted, cols, dedup)
+        state, aborted, res = tsk.sequencer_step_kernel(
+            state, aborted, tsk.SeqBatch(*cols[:4]), cols[4], dedup,
+            layout=layout)
+        torch.cuda.synchronize()
+        _assert_seq_equal(state, want[0])
+        _assert_seq_equal([aborted], [want[1]])
+        _assert_seq_equal(res, want[2])
+    assert tsk.sequencer_step_kernel.launches - before == len(chunks)
+
+
+def test_cuda_deli_matches_cpu_deli(cuda):
+    """`KernelDeliLambda` on the card and on the CPU give the same
+    deltas and checkpoints: random traffic in small pumps and chunks
+    under a resident budget, and churn that grows the columns to 2048
+    in one pump."""
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+    from fluidframework_tpu_torch.server.deli_kernel import KernelDeliLambda
+    from fluidframework_tpu_torch.server.log import MessageLog
+    from fluidframework_tpu_torch.testing.deli_streams import (
+        checkpoint_digest,
+        churn_raws,
+        gen_raw_traffic,
+        norm_entry,
+    )
+
+    cases = [(gen_raw_traffic(7, n=400, docs=9),
+              dict(max_pump=37, max_cols=8, n_docs=5, max_resident=6)),
+             (churn_raws(3, 1100, seed=2), dict(max_pump=10**6, n_docs=5))]
+    for recs, kw in cases:
+        outs = []
+        for dev in (cuda, "cpu"):
+            log = MessageLog()
+            log.topic("rawdeltas").append_many(recs)
+            deli = KernelDeliLambda(log, device=dev, **kw)
+            before = tsk.sequencer_step_kernel.launches
+            while deli.pump():
+                pass
+            if dev != "cpu":
+                assert (tsk.sequencer_step_kernel.launches - before
+                        == deli.core.pool.chunks)
+            outs.append(([norm_entry(e) for e in log.topic("deltas").read(0)],
+                         checkpoint_digest(deli.checkpoint())))
+        assert outs[0] == outs[1]

@@ -165,3 +165,50 @@ def test_row_model_no_silent_cpu_fallback(monkeypatch):
     assert tmc.mergetree_chunk_kernel.launches == 0
     with pytest.raises(AssertionError, match="the plain version ran"):
         tmc.apply_chunk(table, ops)
+
+
+def test_deli_no_silent_cpu_fallback(monkeypatch):
+    """The deli: `KernelDeliLambda`, `SeqPool`, `PackedDeliCore` and the
+    sequencer's state makers given no device raise without CUDA;
+    `sequence_batch` sends CPU state only to the plain version, and the
+    CUDA wrapper refuses CPU tensors without launching."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+    from fluidframework_tpu_torch.server.deli_kernel import (
+        KernelDeliLambda,
+        PackedDeliCore,
+        SeqPool,
+    )
+    from fluidframework_tpu_torch.server.log import MessageLog
+
+    for make in (lambda: KernelDeliLambda(MessageLog()), SeqPool,
+                 PackedDeliCore, lambda: tsk.make_state(4, 8),
+                 lambda: tsk.no_aborts(4),
+                 lambda: interop.sequencer_state_from_numpy(
+                     interop.sequencer_state_to_numpy(
+                         tsk.make_state(2, 2, "cpu")))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    state = tsk.make_state(3, 4, device="cpu")
+    batch = tsk.SeqBatch(*(torch.zeros((3, 8), dtype=torch.int32)
+                           for _ in range(4)))
+    groups = torch.full((3, 8), tsk.NO_GROUP, dtype=torch.int32)
+    aborted = tsk.no_aborts(3, device="cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tsk.sequencer_step_kernel(state, aborted, batch, groups)
+    assert tsk.sequencer_step_kernel.launches == 0
+    meta = tsk.SequencerState(*(t.to("meta") for t in state))
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        tsk.sequence_batch_ref(meta, aborted.to("meta"), batch, groups)
+    monkeypatch.setattr(tsk, "sequence_batch_ref", boom)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsk.sequence_batch_grouped(
+            meta, tsk.SeqBatch(*(t.to("meta") for t in batch)),
+            groups.to("meta"), aborted=aborted.to("meta"))
+    with pytest.raises(AssertionError, match="the plain version ran"):
+        tsk.sequence_batch_grouped(state, batch, groups, aborted=aborted)
