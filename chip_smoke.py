@@ -8,12 +8,12 @@ Drives the port's replay paths on the card, through
 ``fluidframework_tpu``: the overlay merge-tree replay that ``bench.py``
 measures on the JAX package, the row-model replay (``ColumnarReplica``,
 ``bench.py`` with ``BENCH_ENGINE=pallas``), the summary service's fold,
-the message-driven overlay replica, and the deli sequencer (BASELINE
-config 5).
+the message-driven overlay replica, the deli sequencer (BASELINE
+config 5), and SharedTree's batched rebase (BASELINE config 4).
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
-2. builds the three CUDA kernels (nvcc, sm_90a) and the native stream
+2. builds the four CUDA kernels (nvcc, sm_90a) and the native stream
    engine (g++) from the checkout's sources, in parallel;
 3. holds the overlay chunk kernel against its plain PyTorch version on
    the card at the bench geometry (window 2048, 24 remover slots, 8 prop
@@ -134,11 +134,30 @@ Phases, in order; any failure exits non-zero:
 19. restore: a fresh lambda checkpoints at the stream's midpoint, a new
    one restores from it and drains the rest (under `torch.profiler`:
    the kernel's device time in the path and the device's busy share);
-   the concatenated deltas and the final checkpoint equal the golden.
+   the concatenated deltas and the final checkpoint equal the golden;
+20. the rebase kernel (`csrc/rebase_batch.cu`) against its plain version
+   `rebase_batch_ref`, run on CPU copies of the same inputs, exactly
+   (int32/bool, tolerance 0) on all eight outputs: the 20 differential
+   streams and the edge set of `testing/tree_streams.py` (empty window
+   and branch, a ragged branch, a window of ~5 shared-memory tiles,
+   only moves with identity moves on both sides, double splits, kinds
+   outside 0..2) and config 4 whole; the inputs are checked unchanged
+   and the launches equal the calls;
+21. the rebase's main path: BASELINE config 4 (100,000 pending ops over
+   a 64-op trunk window, `tools/bench_configs.py:187-233`) through
+   `rebase_ops_columnar(device="cuda")` after a warm-up call: one
+   launch, the three output digests and the flagged / split / muted
+   counts equal to `fluidframework_tpu_torch/testing/tree_golden.json`
+   (the JAX package's, `tools/tree_golden.py`); the call's host-clock
+   time split into upload, launch, read and sequentialize,
+   op_rebases_per_sec (and REBASE_REPEATS more calls), the kernel's
+   time per launch by CUDA events behind a spin and under the profiler
+   in the path, and both bounds (bytes, operations) with the share
+   reached.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant). Every path
-(phases 4, 6, 10, 11, 12, 13, 15, 16, 18 and 19) is driven with kernel
+(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19 and 21) is driven with kernel
 launch counts set to 0 just before it and read just after.
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
@@ -147,7 +166,8 @@ block, grid barriers per op), the kernels line (JSON; kernel A's entry
 also lists every layout it checked, the two layouts' times on the same
 chunks, the launches of each path, and the fold's window groups with
 their layout; the sequencer's lists its checked chunks, the deli's
-per-pump split and records/s), the
+per-pump split and records/s; the rebase's, both bounds, the call's
+split and op_rebases_per_sec), the
 nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
@@ -240,6 +260,48 @@ PASSES_INSERT_B, PASSES_RANGE_B = 2, 3
 # (about 32); per stamp, the MSN's masked min over the client columns
 # (a connected test and a min per column).
 SEQ_OPS_PER_SUB, SEQ_OPS_PER_COL = 32, 2
+# The rebase step's int32 work (csrc/rebase_batch.cu) per pending op
+# per base op, by the staged code of the base op and the pending op's
+# kind (0 insert, 1 remove, 2 move, -1 any other value): the integer
+# instructions that kind's own branch needs, as nvcc can fuse them. One
+# each for a comparison (with one && or || of another predicate folded
+# in), an add or subtract (a three-term sum is one), a min or max, and a
+# select. Not counted: the base op's own terms (its end, attach gap and
+# code, the same for every pending op: the kernel makes them once per
+# tile entry), shared-memory loads, the loop and branches, and the other
+# kinds' branches, which a warp of mixed kinds runs but an op does not
+# need. Per piece: a shift at a gap (compare, add, select) 3; a gap
+# over a remove 4; a gap over a move (`gap_move`: inside 2, travel 1,
+# the remove slide 4, the tie 3, the attach add and two selects 3) 13;
+# a range's clip (end, min, max, difference, clamp, subtract) 6; the
+# spare's detach slide and attach shift under a move 6; a pending
+# move's mute (its two tests and the select) 3; a remove's split take
+# (four selects, the take and `sact`) 6 and the flag's or 1.
+# Insert code: insert / other 6 (index and spare shifts); move 17
+# (+ end, inside 2, absorb 2, dst shift 3, mute 3); remove 23 (+ end,
+# split test 3, head and tail 2, the spare's second-split test 4, flag
+# 1, take 6). Remove code: insert 8 (index and spare slides); other 14
+# (+ clip); remove 20 (+ clip, spare clip); move 21 (+ clip, dst slide,
+# mute). Move code: insert 19 (`gap_move` and spare); other 14 (detach
+# slide 3, end and full 3, travel select 2, spare 6); move 44 (detach
+# slide and end 4, index shift 3, absorb 4, `gap_move` of dst 13, the
+# claim flags 10, flag 1, mute 3, spare 6); remove 44 (detach slide,
+# end, full and travel 8, live 1, overlap 4, partial flag 1, attach
+# shift 3, split test 3, head and tail 2, the spare's flags 9, flag 1,
+# take 6, spare 6). Kinds outside 0..2 in the base: as a move's
+# positions with none of its flags (move 34 with no claim flags; others
+# as a non-flagging remove, 14; insert 19). An identity base move skips
+# the step: 0.
+REBASE_OPS = {
+    "insert": {0: 6, 1: 23, 2: 17, -1: 6},
+    "remove": {0: 8, 1: 20, 2: 21, -1: 14},
+    "move": {0: 19, 1: 44, 2: 44, -1: 14},
+    "other": {0: 19, 1: 14, 2: 34, -1: 14},
+    "noop": {0: 0, 1: 0, 2: 0, -1: 0},
+}
+# Host-clock repeats of config 4's call after the main path's one, for
+# the spread of op_rebases_per_sec; as many again run under the profiler.
+REBASE_REPEATS = 5
 # GPU cycles of the spin that holds the stream while the host enqueues
 # timed sequencer launches (~25 ms at 1.98 GHz; doubled when short).
 SPIN_CYCLES = 50_000_000
@@ -247,6 +309,35 @@ SPIN_CYCLES = 50_000_000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def spin_time(launch, reps: int) -> float:
+    """Device ms per call of `launch` (which enqueues one kernel launch)
+    over `reps` calls, CUDA events, after one warm-up call. A spin
+    kernel (`torch.cuda._sleep`) holds the stream while the host
+    enqueues the launches, so the span holds no host gap; the spin
+    doubles until it outlasts the enqueue."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            launch()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 2
+    raise AssertionError("spin_time: the spin never outlasted the host's "
+                         "enqueue")
 
 
 def doc_readout(stream, geometry: dict, table: dict, log, counts):
@@ -641,30 +732,10 @@ def deli_phases(dev, log) -> dict:
     def time_kernel(st_in, ab_in, cols, dedup, layout, reps=20) -> float:
         """The kernel's device ms per launch in `layout` over `reps`
         launches on the same inputs (the state stays in L2, as between
-        the path's pumps), CUDA events. A spin kernel
-        (`torch.cuda._sleep`) holds the stream while the host enqueues
-        the launches, so the span holds no host gap; the spin doubles
-        until it outlasts the enqueue."""
+        the path's pumps): `spin_time`."""
         batch = tsk.SeqBatch(*cols[:4])
-        kernel(st_in, ab_in, batch, cols[4], dedup, layout=layout)  # warm-up
-        torch.cuda.synchronize()
-        cycles = SPIN_CYCLES
-        for _ in range(6):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            torch.cuda._sleep(cycles)
-            ev[1].record()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                kernel(st_in, ab_in, batch, cols[4], dedup, layout=layout)
-            host_ms = (time.perf_counter() - t0) * 1e3
-            ev[2].record()
-            torch.cuda.synchronize()
-            if host_ms < ev[0].elapsed_time(ev[1]):
-                return ev[1].elapsed_time(ev[2]) / reps
-            cycles *= 2
-        raise AssertionError("time_kernel: the spin never outlasted the "
-                             "host's enqueue")
+        return spin_time(lambda: kernel(st_in, ab_in, batch, cols[4], dedup,
+                                        layout=layout), reps)
 
     def bound(D, C, B, stamps):
         """Least time for a launch: the state row in and out once
@@ -939,6 +1010,175 @@ def deli_phases(dev, log) -> dict:
     )
 
 
+def tree_phases(dev, log) -> dict:
+    """Phases 20-21, SharedTree's batched rebase (BASELINE config 4), on
+    `dev`: the rebase kernel against its plain version (on CPU copies of
+    the same inputs, exactly), then config 4 through
+    `rebase_ops_columnar` gated on tree_golden.json and timed. Raises on
+    any mismatch; returns what the kernels line reports."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidframework_tpu_torch.testing import tree_streams as ts
+    from fluidframework_tpu_torch.tree import rebase_kernel as trk
+
+    kernel = trk.rebase_kernel
+    golden = ts.load_tree_golden()
+
+    def columns(ops, base):
+        ops, base = trk._pad(ops), trk._pad(base)
+        return [torch.from_numpy(np.ascontiguousarray(a[:, j]))
+                for a in (ops, base) for j in range(4)]
+
+    # ---- 20. the rebase kernel vs its plain version ------------------
+    t20 = time.perf_counter()
+    max_err, held, calls = 0, 0, 0
+    plain_ms = None
+    before = kernel.launches
+    cases = ts.all_streams() + [("config4", *ts.config4_inputs())]
+    for name, ops, base in cases:
+        cols = columns(ops, base)
+        dev_cols = [c.to(dev) for c in cols]
+        got = trk.rebase_batch(*dev_cols)
+        torch.cuda.synchronize()
+        calls += 1 if len(ops) else 0  # N = 0 launches nothing
+        t0 = time.perf_counter()
+        want = trk.rebase_batch_ref(*cols)
+        plain_s = time.perf_counter() - t0
+        if name == "config4":
+            plain_ms = plain_s * 1e3
+        for field, a, b in zip(trk.OUT_FIELDS, got, want):
+            a = a.cpu()
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"rebase {name}: {field} is {a.dtype} "
+                                     f"{tuple(a.shape)}, plain {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+                if a.numel() else 0
+            max_err = max(max_err, diff)
+            if diff:
+                raise AssertionError(f"rebase {name}: {field} differs from "
+                                     f"the plain version by {diff}")
+            held += 1
+        for d, c in zip(dev_cols, cols):
+            if not torch.equal(d.cpu(), c):
+                raise AssertionError(f"rebase {name}: the kernel changed "
+                                     f"an input")
+    if kernel.launches - before != calls:
+        raise AssertionError(f"rebase: {kernel.launches - before} launches "
+                             f"for {calls} calls")
+    log(f"rebase_batch vs plain: {held} outputs of {len(cases)} rebases "
+        f"exact (tolerance 0; 20 streams, {len(cases) - 21} edge cases, "
+        f"config 4), inputs unchanged, launches {calls} = calls, "
+        f"max_abs_err {max_err}; plain (CPU) config 4 {plain_ms:.2f} ms; "
+        f"phase 20 {time.perf_counter() - t20:.2f}s")
+
+    # ---- 21. config 4 through rebase_ops_columnar ---------------------
+    ts.run_config4(dev)  # warm-up: allocator, first launch
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    run = ts.run_config4(dev)
+    launches = kernel.launches
+    counts = {k: run[k] for k in ("flagged", "native_splits", "muted")}
+    want_digests = {k: golden[f"{k}_sha256"]
+                    for k in ("rebased", "spares", "flagged")}
+    if launches != 1 or run["digests"] != want_digests or \
+            counts != {k: golden[k] for k in counts}:
+        raise AssertionError(f"config 4: {launches} launches, digests "
+                             f"{run['digests']}, counts {counts} differ "
+                             f"from tree_golden.json")
+    repeats = [ts.run_config4(dev)["op_rebases_per_sec"]
+               for _ in range(REBASE_REPEATS)]
+    # The kernel's device time: spin-held events over queued launches on
+    # config 4's inputs, and under the profiler in the path.
+    ops, base = ts.config4_inputs()
+    n, m = ops.shape[0], base.shape[0]
+    dev_cols = [c.to(dev) for c in columns(ops, base)]
+    _, out = trk.alloc_result(n, dev)
+    ms = spin_time(lambda: kernel(*dev_cols, out=out), 50)
+    torch.cuda.synchronize()
+    # Several calls: a profiler session that follows another one in the
+    # process (phase 19's) can miss the device work of its first
+    # milliseconds, so the mean is over the launches it saw.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REBASE_REPEATS):
+            ts.run_config4(dev)
+        torch.cuda.synchronize()
+    prof_us, prof_n = 0.0, 0
+    for e in prof.key_averages():
+        if "rebase_batch" in e.key:
+            prof_us += getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+            prof_n += e.count
+    prof_ms = prof_us / 1e3 / prof_n if prof_n else None
+    # Least time: the pending columns in (16 bytes an op) and the outputs
+    # out (6 int32 + 2 bytes) once, the base once, over the HBM rate;
+    # against this run's int32 work, REBASE_OPS by each base op's code
+    # and each pending op's kind, over the int32 rate.
+    bk, bi, bn, bj = (base[:, j].astype(np.int64) for j in range(4))
+    noop = (bk == 2) & (bi <= bj) & (bj <= bi + bn)
+    codes = np.where(bk == 0, "insert", np.where(
+        bk == 1, "remove", np.where(bk == 2, np.where(noop, "noop", "move"),
+                                    "other")))
+    pk = ops[:, 0]
+    kinds = {k: int((pk == k).sum()) for k in (0, 1, 2)}
+    kinds[-1] = n - sum(kinds.values())
+    op_count = sum(REBASE_OPS[c][k] * nk for c in codes
+                   for k, nk in kinds.items())
+    # what a thread issues when its warp holds all three pending kinds
+    all_kinds = sum(REBASE_OPS[c][k] for c in codes for k in (0, 1, 2)) / m
+    nbytes = n * (16 + 26) + m * 16
+    b_ms = nbytes / PEAK_BYTES_S * 1e3
+    o_ms = op_count / PEAK_OPS_S * 1e3
+    bound_ms, bound_by = (b_ms, "bytes") if b_ms >= o_ms else (
+        o_ms, "operations")
+    split = {k: v * 1e3 for k, v in run["stage_seconds"].items()}
+    log(f"nvidia-smi: {smi_line()}")
+    log(f"config 4 rebase: {n} pending ops over {m} trunk ops in "
+        f"{run['seconds'] * 1e3:.3f} ms (host clock) = "
+        f"{run['op_rebases_per_sec']:,.0f} op-rebases/s (repeats: "
+        + ", ".join(f"{r:,.0f}" for r in repeats)
+        + f"); kernel launches {launches}; digests and counts match "
+        f"tree_golden.json ({counts['flagged']} flagged, "
+        f"{counts['native_splits']} native splits, {counts['muted']} "
+        f"muted)")
+    log("  ms of the call (host clock): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items()))
+    log(f"  rebase_batch per launch: {ms * 1e3:.3f} us (CUDA events behind "
+        f"a spin, 50 launches), "
+        + (f"{prof_ms * 1e3:.3f} us in the path (profiler, {prof_n} of "
+           f"{REBASE_REPEATS} calls' launches seen)" if prof_n
+           else "in the path not measured (no device time seen)")
+        + f"; bounds: bytes {b_ms * 1e3:.3f} us ({nbytes} B), operations "
+        f"{o_ms * 1e3:.3f} us ({op_count} int32 ops, "
+        f"{op_count / (n * m):.2f} per op-rebase, {all_kinds:.2f} a step "
+        f"for a warp of all three kinds; base codes "
+        + ", ".join(f"{c} {int((codes == c).sum())}" for c in REBASE_OPS)
+        + "; pending kinds "
+        + ", ".join(f"{k} {nk}" for k, nk in kinds.items())
+        + f"); share of the bound {bound_ms / ms:.4f} ({bound_by})")
+    return dict(
+        launches=launches,
+        max_abs_err=max_err,
+        ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        bound_ms_bytes=b_ms,
+        bound_ms_operations=o_ms,
+        profiled_ms_per_launch=prof_ms,
+        profiled_launches_seen=prof_n,
+        path_launches={"config4_rebase": launches},
+        call_ms=run["seconds"] * 1e3,
+        call_split_ms=split,
+        op_rebases_per_sec=run["op_rebases_per_sec"],
+        op_rebases_per_sec_repeats=repeats,
+        held_outputs=held,
+        counts=counts,
+    )
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -994,6 +1234,7 @@ def main() -> int:
         sequencer_step_kernel,
     )
     from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
+    from fluidframework_tpu_torch.tree.rebase_kernel import rebase_kernel
     from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
     from fluidframework_tpu_torch.testing.digest import state_digest
     from fluidframework_tpu_torch.testing.overlay_edges import (
@@ -1015,7 +1256,7 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
     cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name,
-                  sequencer_step_kernel.name)
+                  sequencer_step_kernel.name, rebase_kernel.name)
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         f_cuda = [ex.submit(_build.load, name) for name in cuda_names]
         f_host = ex.submit(load_hostmerge)
@@ -1023,7 +1264,7 @@ def main() -> int:
             f.result()
         if f_host.result() is None:
             raise RuntimeError("g++ build of the native stream engine failed")
-    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x3 + g++ in parallel)")
+    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x4 + g++ in parallel)")
     for name in cuda_names:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1807,6 +2048,9 @@ def main() -> int:
     # ---- 17-19. the deli sequencer --------------------------------------
     deli = deli_phases(dev, log)
 
+    # ---- 20-21. SharedTree's batched rebase ---------------------------
+    tree = tree_phases(dev, log)
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -1872,6 +2116,15 @@ def main() -> int:
         "pool": deli["pool"],
         "pump_ms": deli["pump_ms"],
         "records_per_s": deli["records_per_s"],
+    }, {
+        "name": rebase_kernel.name,
+        "route": "cuda",
+        "source": rebase_kernel.source,
+        "replaces": rebase_kernel.replaces,
+        "library_ms": None,
+        "check": "exact",
+        "plain_on": "cpu",
+        **tree,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

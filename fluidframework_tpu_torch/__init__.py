@@ -14,8 +14,10 @@ measures (stream generation, the per-chunk overlay kernel as a
 hand-written CUDA kernel for sm_90a, the settle-merge fold, the fold
 log, and the host readout + digest), many documents per launch, the
 row-model chunk replay (the second hand-written kernel), the host op
-encoder with the message-driven overlay replica, and the summary
-service's fold-and-emit datapath (``server/summary_fold.py``).
+encoder with the message-driven overlay replica, the summary
+service's fold-and-emit datapath (``server/summary_fold.py``), the
+deli sequencer (``server/deli_kernel.py``), and SharedTree's batched
+changeset rebase (``tree/rebase_kernel.py``).
 
 Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device they raise instead of falling

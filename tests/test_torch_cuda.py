@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card,
 and the port's paths on the card against the same paths on the CPU (the
 replays, the summary fold rounds, the message-driven replica, the
-summary folder against fold_golden.json, and the deli).
+summary folder against fold_golden.json, the deli, and config 4's
+rebase against tree_golden.json).
 
 Marked ``cuda``: on a host without a CUDA device every test here skips
 with the reason. On the GPU run them with
@@ -14,6 +15,7 @@ GPU host need not have; this file imports only the port.)
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,6 +52,7 @@ from fluidframework_tpu_torch.testing.overlay_edges import (
     widen_prop_slots,
 )
 from fluidframework_tpu_torch.testing.synthetic import generate_lagged_stream
+from fluidframework_tpu_torch.testing.tree_streams import all_streams
 from fluidframework_tpu_torch.utils.devices import cuda_skip_reason
 
 pytestmark = pytest.mark.cuda
@@ -545,3 +548,50 @@ def test_cuda_deli_matches_cpu_deli(cuda):
             outs.append(([norm_entry(e) for e in log.topic("deltas").read(0)],
                          checkpoint_digest(deli.checkpoint())))
         assert outs[0] == outs[1]
+
+
+def _rebase_streams():
+    return {name: (ops, base) for name, ops, base in all_streams()}
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in all_streams()]
+                         + ["config4"])
+def test_rebase_kernel_matches_plain(cuda, name):
+    """The rebase kernel vs `rebase_batch_ref` on CPU copies of the same
+    inputs, all eight outputs exactly; the inputs are left untouched and
+    each launch is counted (N = 0 launches nothing)."""
+    from fluidframework_tpu_torch.testing.tree_streams import config4_inputs
+    from fluidframework_tpu_torch.tree import rebase_kernel as trk
+
+    ops, base = (config4_inputs() if name == "config4"
+                 else _rebase_streams()[name])
+    ops, base = trk._pad(ops), trk._pad(base)
+    cols = [torch.from_numpy(np.ascontiguousarray(a[:, j]))
+            for a in (ops, base) for j in range(4)]
+    dev_cols = [c.to(cuda) for c in cols]
+    before = trk.rebase_kernel.launches
+    got = trk.rebase_batch(*dev_cols)
+    torch.cuda.synchronize()
+    assert trk.rebase_kernel.launches - before == (1 if len(ops) else 0)
+    want = trk.rebase_batch_ref(*cols)
+    for field, a, b in zip(trk.OUT_FIELDS, got, want):
+        assert a.dtype == b.dtype and a.device.type == "cuda", field
+        assert torch.equal(a.cpu(), b), field
+    for d, c in zip(dev_cols, cols):
+        assert torch.equal(d.cpu(), c)
+
+
+def test_cuda_config4_meets_tree_golden(cuda):
+    """Config 4 through `rebase_ops_columnar` on the card: one launch,
+    the digests and counts of tree_golden.json."""
+    from fluidframework_tpu_torch.testing import tree_streams as ts
+    from fluidframework_tpu_torch.tree import rebase_kernel as trk
+
+    golden = ts.load_tree_golden()
+    before = trk.rebase_kernel.launches
+    run = ts.run_config4(cuda)
+    assert trk.rebase_kernel.launches - before == 1
+    assert run["digests"] == {k: golden[f"{k}_sha256"]
+                              for k in ("rebased", "spares", "flagged")}
+    for key in ("flagged", "native_splits", "muted"):
+        assert run[key] == golden[key], key

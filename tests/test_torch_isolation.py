@@ -212,3 +212,40 @@ def test_deli_no_silent_cpu_fallback(monkeypatch):
             groups.to("meta"), aborted=aborted.to("meta"))
     with pytest.raises(AssertionError, match="the plain version ran"):
         tsk.sequence_batch_grouped(state, batch, groups, aborted=aborted)
+
+
+def test_rebase_no_silent_cpu_fallback(monkeypatch):
+    """The rebase: `rebase_ops_columnar` given no device raises without
+    CUDA; `rebase_batch` sends CPU tensors only to the plain version,
+    a tensor on another device never reaches it, and the CUDA wrapper
+    refuses CPU tensors without launching."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    import numpy as np
+
+    from fluidframework_tpu_torch.testing import tree_streams as ts
+    from fluidframework_tpu_torch.tree import rebase_kernel as trk
+
+    ops, base = ts.random_streams()[10][1:]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trk.rebase_ops_columnar(ops, base)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ts.run_config4(None)
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    cols = [torch.from_numpy(np.ascontiguousarray(a[:, j]))
+            for a in (ops, base) for j in range(4)]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        trk.rebase_kernel(*cols)
+    assert trk.rebase_kernel.launches == 0
+    meta = [c.to("meta") for c in cols]
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        trk.rebase_batch_ref(*meta)
+    monkeypatch.setattr(trk, "rebase_batch_ref", boom)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trk.rebase_batch(*meta)
+    with pytest.raises(AssertionError, match="the plain version ran"):
+        trk.rebase_batch(*cols)
+    assert trk.rebase_kernel.launches == 0
