@@ -141,8 +141,11 @@ Phases, in order; any failure exits non-zero:
    streams and the edge set of `testing/tree_streams.py` (empty window
    and branch, a ragged branch, a window of ~5 shared-memory tiles,
    only moves with identity moves on both sides, double splits, kinds
-   outside 0..2) and config 4 whole; the inputs are checked unchanged
-   and the launches equal the calls;
+   outside 0..2, and the cases of the kernel's grouping by kind: one
+   kind only, runs of kinds across warp and block edges, branches of 1,
+   31, 33 and a block and one, kinds outside 0..2 within a warp) and
+   config 4 whole; the inputs are checked unchanged and the launches
+   equal the calls;
 21. the rebase's main path: BASELINE config 4 (100,000 pending ops over
    a 64-op trunk window, `tools/bench_configs.py:187-233`) through
    `rebase_ops_columnar(device="cuda")` after a warm-up call: one
@@ -152,8 +155,14 @@ Phases, in order; any failure exits non-zero:
    time split into upload, launch, read and sequentialize,
    op_rebases_per_sec (and REBASE_REPEATS more calls), the kernel's
    time per launch by CUDA events behind a spin and under the profiler
-   in the path, and both bounds (bytes, operations) with the share
-   reached.
+   in the path, and both bounds (bytes; operations, the larger of the
+   ALU's and the issue's) with the share reached; the kernel's time
+   over no base op and with every pending op of one kind; and, computed
+   rather than read from the card (a log line, not in the kernels
+   line), the kernel's grouping: ops a block, the warps by the step
+   they run (one kind's, or generic in a warp of mixed kinds) and the
+   mixed-warp share by `warp_steps`, and the instructions a step by
+   REBASE_OPS of a warp of one kind against a mixed one.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant). Every path
@@ -237,10 +246,13 @@ FOLD_LATE_ROUNDS = 2
 MSG_DOCS, MSG_CHUNK, MSG_WINDOW = 4, 64, 1024
 
 # H100 SXM peaks: the HBM3 rate from NVIDIA's data sheet, and the int32
-# issue rate (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost clock),
+# ALU's rate (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost clock),
 # half the data sheet's non-FMA fp32 rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 64 * 132 * 1.98e9
+# Instruction issue: one warp instruction per clock in each of an SM's
+# four schedulers, 128 lanes an SM, whatever the pipe.
+PEAK_ISSUE_S = 128 * 132 * 1.98e9
 INT_OPS_PER_ROW = 16  # visibility, prefix sum and landing tests per row per op
 # Row model: int32 work per live row of one pass of an op over the
 # table (mergetree_pallas.py:160-185, `vis_tile` in
@@ -291,17 +303,48 @@ SEQ_OPS_PER_SUB, SEQ_OPS_PER_COL = 32, 2
 # take 6, spare 6). Kinds outside 0..2 in the base: as a move's
 # positions with none of its flags (move 34 with no claim flags; others
 # as a non-flagging remove, 14; insert 19). An identity base move skips
-# the step: 0.
+# the step: 0. Then each entry is lowered to the SASS instructions of the
+# kernel's step specialised to that base code and pending kind, where
+# that needs fewer (tools/rebase_sass.py compiles one probe kernel for
+# each pair and counts; nvcc fuses an add with a min or max, and folds
+# more predicates into a comparison): insert code, move 17 -> 16; remove
+# code, remove 20 -> 14; move code, insert 19 -> 17, move 44 -> 40, other
+# 14 -> 13; other code, insert 19 -> 17, remove 14 -> 13, move 34 -> 31,
+# other 14 -> 13. Where the SASS needs more (remove code, insert 10; move
+# code, remove 46) the count stays: the table counts the function's work,
+# not the kernel's.
 REBASE_OPS = {
-    "insert": {0: 6, 1: 23, 2: 17, -1: 6},
-    "remove": {0: 8, 1: 20, 2: 21, -1: 14},
-    "move": {0: 19, 1: 44, 2: 44, -1: 14},
-    "other": {0: 19, 1: 14, 2: 34, -1: 14},
+    "insert": {0: 6, 1: 23, 2: 16, -1: 6},
+    "remove": {0: 8, 1: 14, 2: 21, -1: 14},
+    "move": {0: 17, 1: 44, 2: 40, -1: 13},
+    "other": {0: 17, 1: 13, 2: 31, -1: 13},
+    "noop": {0: 0, 1: 0, 2: 0, -1: 0},
+}
+# Of each entry, the instructions that only the integer ALU can issue:
+# comparisons, selects, min / max (fused with an add or not), logic. The
+# rest of an entry is adds, subtracts and moves, which nvcc issues as
+# IMAD on the FMA pipe or as IADD3 on the ALU, as it balances the two.
+# Each entry is the specialised step's ALU-only SASS instructions
+# (tools/rebase_sass.py, "by pipe"), capped at the REBASE_OPS entry
+# (remove code, pending insert: 9 in the SASS, 8). Over config 4's base
+# mix they are 0.78 of REBASE_OPS (7.50 / 19.69 / 18.19 a step against
+# 9.38 / 25.44 / 23.56 for an insert / remove / move), so the ALU bounds
+# the step and the issue rate (PEAK_ISSUE_S) does not: a pending op's
+# step needs at least its ALU-only work over the ALU's 64 lanes and all
+# its work over the 128 issue slots.
+REBASE_ALU_OPS = {
+    "insert": {0: 4, 1: 17, 2: 11, -1: 4},
+    "remove": {0: 8, 1: 12, 2: 18, -1: 12},
+    "move": {0: 13, 1: 34, 2: 31, -1: 8},
+    "other": {0: 13, 1: 8, 2: 22, -1: 8},
     "noop": {0: 0, 1: 0, 2: 0, -1: 0},
 }
 # Host-clock repeats of config 4's call after the main path's one, for
 # the spread of op_rebases_per_sec; as many again run under the profiler.
 REBASE_REPEATS = 5
+# Draws the dst of config 4's pending ops when phase 21 times them all as
+# moves.
+CONFIG4_ONE_KIND_SEED = 5
 # GPU cycles of the spin that holds the stream while the host enqueues
 # timed sequencer launches (~25 ms at 1.98 GHz; doubled when short).
 SPIN_CYCLES = 50_000_000
@@ -1097,6 +1140,20 @@ def tree_phases(dev, log) -> dict:
     dev_cols = [c.to(dev) for c in columns(ops, base)]
     _, out = trk.alloc_result(n, dev)
     ms = spin_time(lambda: kernel(*dev_cols, out=out), 50)
+    # Where a launch's time goes: the same pending ops over no base op
+    # (loads, partition, stores), and config 4's window with every pending
+    # op of one kind (that kind's step in every warp; a move's dst drawn).
+    ms_no_window = spin_time(
+        lambda: kernel(*dev_cols[:4], *(c[:0] for c in dev_cols[4:]),
+                       out=out), 50)
+    rng = np.random.default_rng(CONFIG4_ONE_KIND_SEED)
+    ms_one_kind = {}
+    for k, name in enumerate(trk.WARP_STEPS[:3]):
+        one = ops.copy()
+        one[:, 0] = k
+        one[:, 3] = rng.integers(0, 100_000, n) if k == trk.K_MOVE else 0
+        one_cols = [c.to(dev) for c in columns(one, base)]
+        ms_one_kind[name] = spin_time(lambda: kernel(*one_cols, out=out), 50)
     torch.cuda.synchronize()
     # Several calls: a profiler session that follows another one in the
     # process (phase 19's) can miss the device work of its first
@@ -1114,8 +1171,9 @@ def tree_phases(dev, log) -> dict:
     prof_ms = prof_us / 1e3 / prof_n if prof_n else None
     # Least time: the pending columns in (16 bytes an op) and the outputs
     # out (6 int32 + 2 bytes) once, the base once, over the HBM rate;
-    # against this run's int32 work, REBASE_OPS by each base op's code
-    # and each pending op's kind, over the int32 rate.
+    # against this run's int32 work, by each base op's code and each
+    # pending op's kind: REBASE_ALU_OPS over the ALU's rate, REBASE_OPS
+    # over the issue rate, whichever takes longer.
     bk, bi, bn, bj = (base[:, j].astype(np.int64) for j in range(4))
     noop = (bk == 2) & (bi <= bj) & (bj <= bi + bn)
     codes = np.where(bk == 0, "insert", np.where(
@@ -1126,11 +1184,25 @@ def tree_phases(dev, log) -> dict:
     kinds[-1] = n - sum(kinds.values())
     op_count = sum(REBASE_OPS[c][k] * nk for c in codes
                    for k, nk in kinds.items())
-    # what a thread issues when its warp holds all three pending kinds
+    # What a warp issues a step by the table: its kind's branch when its
+    # ops share one kind, every kind's in a warp of mixed kinds.
     all_kinds = sum(REBASE_OPS[c][k] for c in codes for k in (0, 1, 2)) / m
+    steps = trk.warp_steps(pk)
+    n_warps = sum(steps.values())
+    mixed_share = steps["generic"] / n_warps
+    uniform = {trk.WARP_STEPS[k]: sum(REBASE_OPS[c][k] for c in codes) / m
+               for k in (0, 1, 2)}
+    mean_step = (sum(uniform[k] * steps[k] for k in uniform)
+                 + all_kinds * steps["generic"]) / n_warps
+    # By pipe: the ALU-only work over the ALU's rate, all of it over the
+    # issue rate (adds and moves may go to the FMA pipe as IMADs).
+    alu_count = sum(REBASE_ALU_OPS[c][k] * nk for c in codes
+                    for k, nk in kinds.items())
     nbytes = n * (16 + 26) + m * 16
     b_ms = nbytes / PEAK_BYTES_S * 1e3
-    o_ms = op_count / PEAK_OPS_S * 1e3
+    alu_ms = alu_count / PEAK_OPS_S * 1e3
+    issue_ms = op_count / PEAK_ISSUE_S * 1e3
+    o_ms = max(alu_ms, issue_ms)
     bound_ms, bound_by = (b_ms, "bytes") if b_ms >= o_ms else (
         o_ms, "operations")
     split = {k: v * 1e3 for k, v in run["stage_seconds"].items()}
@@ -1151,13 +1223,29 @@ def tree_phases(dev, log) -> dict:
            f"{REBASE_REPEATS} calls' launches seen)" if prof_n
            else "in the path not measured (no device time seen)")
         + f"; bounds: bytes {b_ms * 1e3:.3f} us ({nbytes} B), operations "
-        f"{o_ms * 1e3:.3f} us ({op_count} int32 ops, "
+        f"{o_ms * 1e3:.3f} us, the larger of the ALU's {alu_ms * 1e3:.3f} "
+        f"us ({alu_count} ALU-only int32 ops) and the issue's "
+        f"{issue_ms * 1e3:.3f} us ({op_count} int32 ops, "
         f"{op_count / (n * m):.2f} per op-rebase, {all_kinds:.2f} a step "
         f"for a warp of all three kinds; base codes "
         + ", ".join(f"{c} {int((codes == c).sum())}" for c in REBASE_OPS)
         + "; pending kinds "
         + ", ".join(f"{k} {nk}" for k, nk in kinds.items())
         + f"); share of the bound {bound_ms / ms:.4f} ({bound_by})")
+    log(f"  grouping (computed, not read from the card): {trk.THREADS} "
+        f"ops a block; by `warp_steps`, the kernel's partition rule, "
+        f"{n_warps} warps by step: "
+        + ", ".join(f"{k} {v}" for k, v in steps.items())
+        + f", mixed-warp share {mixed_share:.4f}; instructions a step by "
+        "the REBASE_OPS table: a warp of one kind "
+        + ", ".join(f"{k} {v:.2f}" for k, v in uniform.items())
+        + f", a mixed warp {all_kinds:.2f}, the grid's mean "
+        f"{mean_step:.2f}")
+    log(f"  per launch: {ms_no_window * 1e3:.3f} us over no base op (loads, "
+        f"partition, stores), so {(ms - ms_no_window) * 1e3 / m:.4f} us a "
+        "step over config 4's window; every pending op of one kind: "
+        + ", ".join(f"{k} {v * 1e3:.3f} us" for k, v in ms_one_kind.items())
+        + " (CUDA events behind a spin, 50 launches)")
     return dict(
         launches=launches,
         max_abs_err=max_err,
@@ -1167,6 +1255,8 @@ def tree_phases(dev, log) -> dict:
         bound_by=bound_by,
         bound_ms_bytes=b_ms,
         bound_ms_operations=o_ms,
+        bound_ms_alu=alu_ms,
+        bound_ms_issue=issue_ms,
         profiled_ms_per_launch=prof_ms,
         profiled_launches_seen=prof_n,
         path_launches={"config4_rebase": launches},
@@ -1176,6 +1266,8 @@ def tree_phases(dev, log) -> dict:
         op_rebases_per_sec_repeats=repeats,
         held_outputs=held,
         counts=counts,
+        ms_no_window=ms_no_window,
+        ms_one_kind=ms_one_kind,
     )
 
 

@@ -13,7 +13,10 @@
   branches, a branch that is not a multiple of the block, a window
   longer than one shared-memory tile, only moves (identity moves on both
   sides), removes split twice, kind values outside 0..2, and positions
-  at both ends of int32.
+  at both ends of int32; then the cases of its grouping by kind: one
+  kind only, runs of kinds across warp and block edges, branches of 1,
+  31, 33 and one more than a block of ops, and kinds outside 0..2
+  within one warp.
 - `run_config4` runs config 4 through `rebase_ops_columnar` on a device
   and times the call by the host clock: the port's counterpart of
   `config4_tree_rebase`.
@@ -35,6 +38,7 @@ from ..tree.rebase_kernel import (
     K_INSERT,
     K_MOVE,
     K_REMOVE,
+    THREADS,
     TILE,
     TIME_STAGES,
     rebase_ops_columnar,
@@ -110,7 +114,14 @@ def _rows(rng: np.random.Generator, n: int, kinds, span: int,
           max_cnt: int) -> np.ndarray:
     """n rows of the given kinds over [0, span), counts 1..max_cnt, a
     move's dst in [0, span)."""
-    k = rng.choice(np.asarray(kinds), n)
+    return _rows_of(rng, rng.choice(np.asarray(kinds), n), span, max_cnt)
+
+
+def _rows_of(rng: np.random.Generator, k: np.ndarray, span: int,
+             max_cnt: int) -> np.ndarray:
+    """Rows of the kinds `k` over [0, span), counts 1..max_cnt, a
+    move's dst in [0, span)."""
+    n = len(k)
     idx = rng.integers(0, span, n)
     cnt = rng.integers(1, max_cnt + 1, n)
     dst = np.where(k == K_MOVE, rng.integers(0, span, n), 0)
@@ -161,6 +172,44 @@ def edge_streams() -> List[Stream]:
     # positions at both ends of int32, where the sums wrap (as the
     # reference's int32 arithmetic wraps)
     out.append(("int32_ends", _int32_ends(rng, 320), _int32_ends(rng, 40)))
+    return out + _grouping_streams()
+
+
+# Run lengths of one kind that straddle the kernel's warp (32) and block
+# (THREADS) edges.
+KIND_RUNS = (31, 33, THREADS + 1)
+
+
+def _grouping_streams() -> List[Stream]:
+    """The cases of the kernel's grouping of a block's ops by kind."""
+    rng = np.random.default_rng(12)
+    mixed = (K_INSERT, K_REMOVE, K_MOVE)
+    out: List[Stream] = []
+    # one kind only: every warp runs that kind's step
+    out.append(("inserts_only", _rows(rng, 600, (K_INSERT,), 80, 4),
+                _rows(rng, 40, mixed, 80, 4)))
+    out.append(("removes_only", _rows(rng, 600, (K_REMOVE,), 80, 8),
+                _rows(rng, 40, mixed, 80, 4)))
+    # runs of 31, 33 and 257 of each kind, in turn, across four blocks
+    runs = [KIND_RUNS[(i + i // 3) % 3] for i in range(9)]
+    kinds = np.concatenate([np.full(r, i % 3) for i, r in enumerate(runs)])
+    out.append(("kind_runs", _rows_of(rng, kinds, 120, 4),
+                _rows(rng, 48, mixed, 120, 4)))
+    # branches of one op, a warp less one, a warp and one, a block and one
+    for n in (1, 31, 33, THREADS + 1):
+        out.append((f"n_{n}", _rows(rng, n, mixed, 60, 4),
+                    _rows(rng, 32, mixed, 60, 4)))
+    # kinds outside 0..2 among the lanes of one warp: one odd lane in a
+    # warp of inserts, two in one of removes, moves alternating with an
+    # odd kind, and a warp of one odd kind only
+    kinds = np.concatenate([
+        np.where(np.arange(32) == 7, -1, K_INSERT),
+        np.select([np.arange(32) == 0, np.arange(32) == 31], [3, 7],
+                  K_REMOVE),
+        np.where(np.arange(32) % 2 == 0, K_MOVE, -2),
+        np.full(32, 5)])
+    out.append(("odd_in_warp", _rows_of(rng, kinds, 40, 4),
+                _rows(rng, 24, (-1, 0, 1, 2, 3), 40, 4)))
     return out
 
 

@@ -18,7 +18,9 @@ the current base op: there is no reduction across the pending axis.
   ``where`` or ``sum`` widens to int64.
 - `RebaseKernel` launches the hand-written CUDA kernel
   ``csrc/rebase_batch.cu``: one thread per pending op walks the whole
-  window, the window staged in shared memory; one launch per rebase.
+  window, the window staged in shared memory; each block groups its
+  ops by kind so that a warp runs one kind's step; one launch per
+  rebase. `warp_steps` counts the warps by the step they run.
 - `rebase_batch` sends CUDA tensors to the kernel (or raises) and CPU
   tensors to the plain version; no other device is taken.
 - `rebase_ops_columnar` is the numpy entry point (config 4's), with one
@@ -268,8 +270,31 @@ def rebase_batch_ref(kinds, idxs, cnts, dsts, base_kinds, base_idxs,
 # ----------------------------------------------------------------------
 # The CUDA kernel's wrapper.
 
-THREADS = 128  # pending ops per block; must match the .cu file
+THREADS = 256  # pending ops per block (BLOCK in the .cu file)
 TILE = 1024  # base ops staged in shared memory at a time; the .cu file's
+WARP = 32
+# The step a warp of the kernel runs: one kind's, or every kind's.
+WARP_STEPS = ("insert", "remove", "move", "generic")
+
+
+def warp_steps(kinds, block: int = THREADS) -> Dict[str, int]:
+    """The kernel's warps counted by the step they run, for the
+    pending kind column `kinds`: in each block of `block` ops, the ops
+    are ordered stably by class (insert, remove, move, then any kind
+    outside 0..2), and a warp of 32 of those slots that holds an op runs
+    its ops' kind's step when they all share one kind of 0..2, and the
+    generic step (every kind's branches) otherwise."""
+    k = np.asarray(kinds, np.int64).ravel()
+    out = dict.fromkeys(WARP_STEPS, 0)
+    for b0 in range(0, len(k), block):
+        kb = k[b0:b0 + block]
+        kb = kb[np.argsort(np.where((kb >= 0) & (kb <= 2), kb, 3),
+                           kind="stable")]
+        for w0 in range(0, len(kb), WARP):
+            w = kb[w0:w0 + WARP]
+            same = bool((w == w[0]).all()) and 0 <= w[0] <= 2
+            out[WARP_STEPS[w[0]] if same else "generic"] += 1
+    return out
 
 
 def alloc_result(n: int, device) -> Tuple[torch.Tensor, tuple]:

@@ -12,7 +12,10 @@ The same inputs (numpy, from seeds) go through the JAX
 - the port's `rebase_ops_columnar(device="cpu")` against the JAX one on
   the same inputs;
 - on the 20 streams' unflagged ops, the port against the scalar
-  `changeset.rebase_change`, piece by piece.
+  `changeset.rebase_change`, piece by piece;
+- `warp_steps`, the count of the kernel's warps by the step they run
+  under its grouping of a block's ops by kind;
+- the tables of `chip_smoke.py` that bound the kernel's operations.
 """
 
 import itertools
@@ -134,6 +137,95 @@ def test_edge_set_covers_its_cases():
     rebased, _, _ = prk.rebase_ops_columnar(ops, base, device="cpu")
     # some positions wrap past an end of int32, as the reference's do
     assert ((ops[:, 1] > 0) & (rebased[:, 1] < 0)).any()
+    # one kind only, over several blocks: no warp runs the generic step
+    for name, kind in (("inserts_only", prk.K_INSERT),
+                       ("removes_only", prk.K_REMOVE)):
+        ops, base = STREAMS[name]
+        assert (ops[:, 0] == kind).all() and ops.shape[0] > 2 * prk.THREADS
+        assert len(np.unique(base[:, 0])) == 3
+        steps = prk.warp_steps(ops[:, 0])
+        assert steps["generic"] == 0
+        assert steps[prk.WARP_STEPS[kind]] == -(-ops.shape[0] // prk.WARP)
+    _, spares, flagged = prk.rebase_ops_columnar(*STREAMS["removes_only"],
+                                                 device="cpu")
+    assert ((spares[:, 2] > 0) & ~flagged).any()  # the spare taken
+    # runs of 31, 33 and a block and one of each kind: run edges inside
+    # warps, runs across block edges, every step run
+    kinds = STREAMS["kind_runs"][0][:, 0]
+    edges = np.flatnonzero(np.diff(kinds)) + 1
+    runs = np.diff(np.concatenate([[0], edges, [len(kinds)]]))
+    assert sorted(runs) == sorted(ts.KIND_RUNS * 3)
+    assert set(kinds[np.concatenate([[0], edges])]) == {0, 1, 2}
+    assert (edges % prk.WARP != 0).sum() >= len(edges) - 1
+    assert any(a // prk.THREADS != (b - 1) // prk.THREADS
+               for a, b in zip(np.concatenate([[0], edges]),
+                               np.concatenate([edges, [len(kinds)]])))
+    assert all(v > 0 for v in prk.warp_steps(kinds).values())
+    # branches of 1, 31, 33 and a block and one ops
+    for n in (1, 31, 33, prk.THREADS + 1):
+        ops, base = STREAMS[f"n_{n}"]
+        assert ops.shape[0] == n and base.shape[0] > 0
+    # kinds outside 0..2 among one warp's lanes, beside kinds 0..2
+    kinds = STREAMS["odd_in_warp"][0][:, 0]
+    for w0 in range(0, 96, prk.WARP):
+        w = kinds[w0:w0 + prk.WARP]
+        assert np.isin(w, (0, 1, 2)).any() and not np.isin(w, (0, 1, 2)).all()
+    assert prk.warp_steps(kinds)["generic"] == len(kinds) // prk.WARP
+
+
+def test_warp_steps():
+    """The kernel's step per warp: ops ordered stably by class within
+    each block, one kind's step for a warp of one kind of 0..2, the
+    generic step otherwise."""
+    zero = dict.fromkeys(prk.WARP_STEPS, 0)
+    assert prk.warp_steps([]) == zero
+    assert prk.warp_steps([0] * 256) == {**zero, "insert": 8}
+    # 100 inserts, 100 removes, 56 moves: warps 3 and 6 straddle an edge
+    kinds = [0] * 100 + [1] * 100 + [2] * 56
+    want = {"insert": 3, "remove": 2, "move": 1, "generic": 2}
+    assert prk.warp_steps(kinds) == want
+    # the order within a block does not matter, the block does
+    rng = np.random.default_rng(0)
+    assert prk.warp_steps(rng.permutation(kinds)) == want
+    assert prk.warp_steps(kinds, block=128) == {
+        "insert": 3, "remove": 2, "move": 1, "generic": 2}
+    assert prk.warp_steps([0] * 300) == {**zero, "insert": 10}
+    # kinds outside 0..2 run the generic step, alone or among others
+    assert prk.warp_steps([5] * 32) == {**zero, "generic": 1}
+    assert prk.warp_steps([0] * 31 + [-1]) == {**zero, "generic": 1}
+    assert prk.warp_steps([1] * 32 + [3] * 32) == {
+        **zero, "remove": 1, "generic": 1}
+    # config 4: every block's warps, at most three of eight generic
+    ops, _ = ts.config4_inputs()
+    steps = prk.warp_steps(ops[:, 0])
+    blocks = -(-len(ops) // prk.THREADS)
+    assert sum(steps.values()) == -(-len(ops) // prk.WARP)
+    assert 0 < steps["generic"] <= 3 * blocks
+    assert min(steps[k] for k in ("insert", "remove", "move")) > 0
+
+
+def test_operations_bound_tables():
+    """The kernel's operations bound: every (base code, pending kind)
+    entry of REBASE_OPS has its ALU-only part in REBASE_ALU_OPS, never
+    more than the entry; an identity base move costs nothing; at config
+    4's inputs the ALU's share, over its half of the issue rate, takes
+    longer than the whole at the issue rate."""
+    import chip_smoke as cs
+
+    assert cs.REBASE_ALU_OPS.keys() == cs.REBASE_OPS.keys()
+    for code, row in cs.REBASE_OPS.items():
+        alu = cs.REBASE_ALU_OPS[code]
+        assert alu.keys() == row.keys() == {0, 1, 2, -1}
+        assert all(0 <= alu[k] <= v for k, v in row.items())
+    assert not any(cs.REBASE_OPS["noop"].values())
+    assert cs.PEAK_ISSUE_S == 2 * cs.PEAK_OPS_S
+    ops, base = ts.config4_inputs()
+    codes = [("insert", "remove", "move")[k] for k in base[:, 0]]
+    kinds = [int((ops[:, 0] == k).sum()) for k in (0, 1, 2)]
+    alu, total = (sum(t[c][k] * nk for c in codes
+                      for k, nk in zip((0, 1, 2), kinds))
+                  for t in (cs.REBASE_ALU_OPS, cs.REBASE_OPS))
+    assert 0.5 < alu / total < 1
 
 
 def test_window_0_gives_the_inputs_back():
