@@ -9,11 +9,13 @@ Drives the port's replay paths on the card, through
 measures on the JAX package, the row-model replay (``ColumnarReplica``,
 ``bench.py`` with ``BENCH_ENGINE=pallas``), the summary service's fold,
 the message-driven overlay replica, the deli sequencer (BASELINE
-config 5), and SharedTree's batched rebase (BASELINE config 4).
+config 5), SharedTree's batched rebase (BASELINE config 4), and the
+row-model scan under `KernelReplica` and the summary fold's ``kernel``
+backend.
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
-2. builds the four CUDA kernels (nvcc, sm_90a) and the native stream
+2. builds the five CUDA kernels (nvcc, sm_90a) and the native stream
    engine (g++) from the checkout's sources, in parallel;
 3. holds the overlay chunk kernel against its plain PyTorch version on
    the card at the bench geometry (window 2048, 24 remover slots, 8 prop
@@ -162,12 +164,39 @@ Phases, in order; any failure exits non-zero:
    line), the kernel's grouping: ops a block, the warps by the step
    they run (one kind's, or generic in a warp of mixed kinds) and the
    mixed-warp share by `warp_steps`, and the instructions a step by
-   REBASE_OPS of a warp of one kind against a mixed one.
+   REBASE_OPS of a warp of one kind against a mixed one;
+22. the row-model scan kernel (`csrc/mergetree_scan.cu`, one block per
+   document) against its plain version `apply_op_batch_ref`, run on CPU
+   copies of the same inputs in worker processes, exactly (int32,
+   tolerance 0) on n_rows, error and rows [:min(n_rows, C)]: the edge
+   chunks of `testing/scan_edges.py` at C 512, 1024 and 2048, each alone
+   and all stacked in one launch; then the launches of an untimed
+   kernel-backend fold sweep at D = 132 (config15's fold, as in phase
+   15): 8 documents on every launch of rounds 0 (C 1024), 4 (C 2048)
+   and the last (C 512), and all 132 on round 4's first launch; then
+   the kernel's time per launch by CUDA events behind a spin at C 512
+   (round 0's first launch), 1024 and 2048 (round 4's first launch),
+   D = 132 and one document, each beside its bound;
+23. `SummaryFolder(fold_backend="kernel")` over config15's 4 documents:
+   every manifest's seq, count and handle equal the JAX role's in
+   fold_golden.json, and its scan launches equal those of phase 24's
+   D = 4 sweep over the whole rounds;
+24. `run_fold_sweep(backend="kernel")` at D = 4 and 132: every
+   emission's digest equal to fold_golden.json, the launches equal to
+   the fold's chunks summed over rounds and capacity groups; emissions/s,
+   fold ops/s, the per-round split (encode, fold with its device time,
+   serialization + reboot) and the kernel-over-overlay time against
+   phase 15's overlay sweep;
+25. `KernelReplica(device="cuda")` (chunks of 512, capacity 4096) on 4
+   documents' records as messages: launches equal to the chunks, text,
+   spans and error word equal to the same replica on the CPU (worker
+   processes), and text and spans (equal-prop runs) to the overlay
+   message replica's.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant). Every path
-(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19 and 21) is driven with kernel
-launch counts set to 0 just before it and read just after.
+(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24 and 25) is driven
+with kernel launch counts set to 0 just before it and read just after.
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
 shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
@@ -176,7 +205,8 @@ also lists every layout it checked, the two layouts' times on the same
 chunks, the launches of each path, and the fold's window groups with
 their layout; the sequencer's lists its checked chunks, the deli's
 per-pump split and records/s; the rebase's, both bounds, the call's
-split and op_rebases_per_sec), the
+split and op_rebases_per_sec; the scan's, its times at each capacity
+and D, the launches of each path and the kernel fold's runs), the
 nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
@@ -186,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import hashlib
 import json
 import multiprocessing
@@ -345,6 +376,27 @@ REBASE_REPEATS = 5
 # Draws the dst of config 4's pending ops when phase 21 times them all as
 # moves.
 CONFIG4_ONE_KIND_SEED = 5
+# The row-model scan (csrc/mergetree_scan.cu) at the kernel fold's shape
+# (summary_fold: chunks of 128, KR 4, KK 8, PK 4): edge chunks at each
+# capacity the fold reaches; the fold's launches of round 0, round
+# SCAN_TIMED_ROUND (timed, all its documents held) and the last round
+# held; SCAN_TIME_REPS launches a timing.
+FOLD_CHUNK = 128
+SCAN_EDGE_CAPACITIES = (512, 1024, 2048)
+SCAN_TIMED_ROUND = 4
+SCAN_TIME_REPS = 20
+SCAN_COLS = ("buf_start", "length", "ins_seq", "ins_client", "rem_seq",
+             "rem_clients", "props")
+# The scan's int32 work per live row of one pass (`Doc::pass` and the
+# tests after it in csrc/mergetree_scan.cu): the visibility -- the live
+# test, removed, rem_seq <= ref, tomb, ins_client == client, ins_seq <=
+# ref, their or, skip, visible, the length select (10) --, the thread
+# sum's and the prefix's adds (2), and the row's test against the
+# position -- its end prefix, two compares, the and (4). The remover
+# reads of removed rows are left out. 2 passes an insert, 3 a range op.
+SCAN_OPS_PER_PASS = 16
+# KernelReplica on the card (phase 25): the reference's defaults.
+REPLICA_CHUNK, REPLICA_CAPACITY = 512, 4096
 # GPU cycles of the spin that holds the stream while the host enqueues
 # timed sequencer launches (~25 ms at 1.98 GHz; doubled when short).
 SPIN_CYCLES = 50_000_000
@@ -1271,6 +1323,417 @@ def tree_phases(dev, log) -> dict:
     )
 
 
+def scan_plain(table: dict, ops: dict):
+    """The row-model scan's plain version on the CPU for one document's
+    chunk (run in a worker process, one torch thread): (the output
+    table's fields as numpy arrays, seconds by the host clock)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.ops.mergetree_kernel import (
+        apply_op_batch_ref,
+    )
+
+    torch.set_num_threads(1)
+    t = interop.segment_table_from_numpy(table, "cpu")
+    o = interop.opbatch_from_numpy(ops, "cpu")
+    t0 = time.perf_counter()
+    out = apply_op_batch_ref(t, o)
+    return interop.segment_table_to_numpy(out), time.perf_counter() - t0
+
+
+def replica_on_cpu(records: list, chunk: int, capacity: int):
+    """`KernelReplica(device="cpu")` over one document's records as
+    messages (run in a worker process): (text, spans, error word)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+
+    from fluidframework_tpu_torch.core.kernel_replica import KernelReplica
+    from fluidframework_tpu_torch.testing.fold_streams import as_messages
+
+    torch.set_num_threads(1)
+    rep = KernelReplica(chunk_size=chunk, capacity=capacity, device="cpu")
+    rep.apply_messages(as_messages(records))
+    return rep.get_text(), rep.annotated_spans(), int(rep.table.error)
+
+
+def prop_runs(spans) -> list:
+    """Annotated spans with adjacent equal-prop spans merged: the form in
+    which two engines that split rows differently agree."""
+    out = []
+    for seg, props in spans:
+        if out and out[-1][1] == props:
+            out[-1][0] += seg
+        else:
+            out.append([seg, props])
+    return out
+
+
+def scan_phases(dev, log, overlay_runs=None) -> dict:
+    """Phases 22-25, the row-model scan (`csrc/mergetree_scan.cu`) and
+    its paths, on `dev`: the kernel against its plain version (on CPU
+    copies of the same inputs, in worker processes, exactly), the
+    summary folder and the fold sweep on the ``kernel`` backend gated on
+    fold_golden.json, and `KernelReplica` on the card against its CPU
+    run and the overlay message replica. `overlay_runs` are phase 15's
+    fold runs (the ratio's denominator); without them the overlay sweep
+    runs here. Raises on any mismatch; returns what the kernels line
+    reports."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.core.kernel_replica import KernelReplica
+    from fluidframework_tpu_torch.core.overlay_replay import (
+        OverlayKernelMessageReplica,
+    )
+    from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
+    from fluidframework_tpu_torch.ops.mergetree_scan import (
+        mergetree_scan_kernel as kernel,
+        scan_geometry,
+    )
+    from fluidframework_tpu_torch.server import summary_fold as sf
+    from fluidframework_tpu_torch.testing import fold_streams as fs
+    from fluidframework_tpu_torch.testing.scan_edges import scan_edge_chunks
+
+    t22 = time.perf_counter()
+    golden = fs.load_fold_golden()
+    step = golden["params"]["summary_ops"]
+    streams = fs.golden_streams(golden, max(FOLD_DOCS))
+    docs = list(streams)
+    want = {d["doc"]: d["rows_sha256"] for d in golden["docs"]}
+    n_rounds = len(want[docs[0]])
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    # Phase 25's CPU runs, started first so that they overlap the card.
+    f_rep = [pool.submit(replica_on_cpu, streams[d], REPLICA_CHUNK,
+                         REPLICA_CAPACITY) for d in docs[:MSG_DOCS]]
+
+    # ---- 22. the scan kernel vs its plain version -----------------------
+    pending = []  # (label, future, the card's output of that document)
+
+    def hold(tables, ops, out, label, which=None):
+        t_np = interop.segment_table_to_numpy(tables)
+        o_np = interop.opbatch_to_numpy(ops)
+        g_np = interop.segment_table_to_numpy(out)
+        for d in range(t_np["n_rows"].shape[0]) if which is None else which:
+            pending.append((f"{label} doc {d}", pool.submit(
+                scan_plain, {k: v[d] for k, v in t_np.items()},
+                {k: v[d] for k, v in o_np.items()}),
+                {k: v[d] for k, v in g_np.items()}))
+
+    def settle() -> tuple:
+        """Waits for every held document; returns (pairs, max |card -
+        plain| over the compared fields, plain seconds by label)."""
+        err, secs = 0, {}
+        for label, fut, got in pending:
+            plain, s = fut.result()
+            secs[label] = s
+            n = int(plain["n_rows"])
+            if (int(got["n_rows"]), int(got["error"])) != (
+                    n, int(plain["error"])):
+                raise AssertionError(
+                    f"scan {label}: n_rows / error {int(got['n_rows'])} / "
+                    f"{int(got['error'])} != plain {n} / "
+                    f"{int(plain['error'])}")
+            m = min(n, plain["length"].shape[0])
+            for f in SCAN_COLS:
+                diff = np.abs(got[f][:m].astype(np.int64)
+                              - plain[f][:m].astype(np.int64))
+                err = max(err, int(diff.max()) if diff.size else 0)
+            if err:
+                raise AssertionError(f"scan {label}: rows differ from the "
+                                     f"plain version (max |diff| {err})")
+        n = len(pending)
+        pending.clear()
+        return n, err, secs
+
+    # The edge chunks, each alone and all of one chunk size stacked.
+    edge_flags = 0
+    for C in SCAN_EDGE_CAPACITIES:
+        cases = scan_edge_chunks(C, 4, 8, 4, FOLD_CHUNK)
+        for case in cases:
+            t = interop.segment_table_from_numpy(case["table"], dev)
+            o = interop.opbatch_from_numpy(case["ops"], dev)
+            out = kernel(t, o)
+            edge_flags |= int(out.error)
+            hold(tmk.stack_segment_tables([t]), tmk.stack_op_batches([o]),
+                 tmk.stack_segment_tables([out]), f"C {C} {case['label']}")
+        same_b = [c for c in cases if c["ops"]["op_type"].shape[0]
+                  == FOLD_CHUNK]
+        t = interop.segment_table_from_numpy({k: np.stack(
+            [c["table"][k] for c in same_b]) for k in same_b[0]["table"]}, dev)
+        o = interop.opbatch_from_numpy({k: np.stack(
+            [c["ops"][k] for c in same_b]) for k in same_b[0]["ops"]}, dev)
+        hold(t, o, kernel.docs(t, o), f"C {C} edge chunks stacked")
+    if edge_flags != tmk.ERR_CAPACITY | tmk.ERR_BAD_POS | tmk.ERR_REMOVERS:
+        raise AssertionError(f"scan edge chunks flagged {edge_flags}")
+    n_edge, _, _ = settle()
+
+    # The fold's own launches: a warm-up sweep of the kernel backend at
+    # D = 132 (untimed) keeps each launch's stacked inputs and output.
+    launches_rec = []
+    real_docs, real_one = sf.apply_op_batch_docs, sf.apply_op_batch
+
+    def rec_docs(tables, ops):
+        out = real_docs(tables, ops)
+        launches_rec.append((tables, ops, out))
+        return out
+
+    def rec_one(table, ops):
+        out = real_one(table, ops)
+        launches_rec.append(tuple(tmk.stack_segment_tables([x])
+                                  if isinstance(x, tmk.SegmentTable) else
+                                  tmk.stack_op_batches([x])
+                                  for x in (table, ops, out)))
+        return out
+
+    sf.apply_op_batch_docs, sf.apply_op_batch = rec_docs, rec_one
+    try:
+        warm = fs.run_fold_sweep(streams, step, dev, backend="kernel")
+    finally:
+        sf.apply_op_batch_docs, sf.apply_op_batch = real_docs, real_one
+    torch.cuda.synchronize()
+    first = np.cumsum([0] + [r["chunks"] for r in warm["rounds"]])
+    if first[-1] != len(launches_rec):
+        raise AssertionError(f"fold warm-up: {len(launches_rec)} launches "
+                             f"!= the rounds' chunks {first[-1]}")
+    held_rounds = (0, SCAN_TIMED_ROUND, n_rounds - 1)
+    caps = set()
+    for r in held_rounds:
+        for k in range(first[r], first[r + 1]):
+            tables, ops, out = launches_rec[k]
+            C = tables.length.shape[1]
+            caps.add(C)
+            which = range(min(FOLD_LATE_DOCS, tables.length.shape[0]))
+            if (r, k) == (SCAN_TIMED_ROUND, first[r]):
+                which = None  # every document of the timed launch
+            hold(tables, ops, out, f"fold round {r} launch {k} C {C}",
+                 which)
+    n_fold, max_err, secs = settle()
+    timed_tables, timed_ops, _ = launches_rec[first[SCAN_TIMED_ROUND]]
+    D = timed_tables.length.shape[0]
+    plain_ms = 1e3 * sum(s for lab, s in secs.items()
+                         if lab.startswith(f"fold round {SCAN_TIMED_ROUND} "
+                                           f"launch {first[SCAN_TIMED_ROUND]} "))
+    if sorted(caps) != [512, 1024, 2048] or D != max(FOLD_DOCS):
+        raise AssertionError(f"fold launches held at capacities "
+                             f"{sorted(caps)} and D {D}")
+    log(f"mergetree_scan == plain on {n_edge + n_fold} (document, chunk) "
+        f"pairs, exactly: the {len(cases)} edge chunks at C "
+        f"{SCAN_EDGE_CAPACITIES} alone and stacked, and the D = "
+        f"{max(FOLD_DOCS)} fold's launches of rounds {held_rounds} (C "
+        f"{sorted(caps)}; {FOLD_LATE_DOCS} documents each, all {D} on "
+        f"round {SCAN_TIMED_ROUND}'s first)")
+
+    def bound(tables, ops):
+        """Least time for one launch's work: the tables in and out and
+        the ops in once over the HBM rate, against SCAN_OPS_PER_PASS
+        int32 operations per live row per pass (2 passes an insert, 3 a
+        remove or annotate) over the ALU rate, live rows taken at the
+        chunk's start."""
+        Dn, C = tables.length.shape
+        KR, KK = tables.rem_clients.shape[2], tables.props.shape[2]
+        B, PK = ops.prop_keys.shape[1:]
+        nbytes = 4 * Dn * (2 * (C * (5 + KR + KK) + 2) + B * (8 + 2 * PK))
+        t = ops.op_type
+        passes = (2 * (t == tmk.OP_INSERT) + 3 * ((t == tmk.OP_REMOVE)
+                                                  | (t == tmk.OP_ANNOTATE)))
+        live = torch.clamp(tables.n_rows, max=C).to(torch.int64)
+        n_int = int((passes.sum(1) * live).sum()) * SCAN_OPS_PER_PASS
+        b_s, o_s = nbytes / PEAK_BYTES_S, n_int / PEAK_OPS_S
+        return max(b_s, o_s) * 1e3, "bytes" if b_s >= o_s else "operations"
+
+    def cut(tables, C):
+        """The stacked tables' first C rows (rows at and above n_rows
+        are scratch)."""
+        return tmk.SegmentTable(*(
+            a[:, :C].contiguous() if a.dim() > 1 else a
+            for a in (getattr(tables, f.name)
+                      for f in dataclasses.fields(tmk.SegmentTable))))
+
+    # Per launch at the fold's shape: C 512 on round 0's first launch
+    # (empty tables), C 1024 and 2048 on round SCAN_TIMED_ROUND's first
+    # (hundreds of live rows); D = 132 and doc 0 alone.
+    times = {}
+    r0_tables, r0_ops, _ = launches_rec[0]
+    for C, (tab, ops) in ((512, (r0_tables, r0_ops)),
+                          (1024, (timed_tables, timed_ops)),
+                          (2048, (timed_tables, timed_ops))):
+        if tab.length.shape[1] > C:
+            tab = cut(tab, C)
+        if C > tab.length.shape[1]:
+            raise AssertionError(f"no fold launch at C {C} to time")
+        if int(tab.n_rows.max()) + 2 * ops.op_type.shape[1] > C:
+            raise AssertionError(f"the timed tables do not fit C {C}")
+        one = (tab.doc(0), ops.doc(0))
+        for n_d, fn in ((tab.length.shape[0], lambda: kernel.docs(tab, ops)),
+                        (1, lambda: kernel(*one))):
+            ms = spin_time(fn, SCAN_TIME_REPS)
+            sub = (tab, ops) if n_d > 1 else tuple(
+                tmk.stack_segment_tables([one[0]]) if i == 0 else
+                tmk.stack_op_batches([one[1]]) for i in range(2))
+            b_ms, b_by = bound(*sub)
+            times[f"C{C}_D{n_d}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    head = times[f"C2048_D{D}"]
+    nt, rpt, smem = scan_geometry(2048, FOLD_CHUNK, 4)
+    log(f"mergetree_scan per launch (CUDA events behind a spin, "
+        f"{SCAN_TIME_REPS} launches; C 512 on round 0's first launch, 1024 "
+        f"and 2048 on round {SCAN_TIMED_ROUND}'s; B {FOLD_CHUNK}, KR 4, KK "
+        f"8, PK 4): "
+        + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.6f}, "
+                    f"{v['bound_by']})" for k, v in times.items())
+        + f"; the plain version {plain_ms:.2f} ms for round "
+        f"{SCAN_TIMED_ROUND}'s launch of {D} documents (CPU, one thread "
+        f"a document, summed); block {nt} threads x {rpt} rows, {smem} "
+        f"shared bytes at C 2048; phase 22 {time.perf_counter() - t22:.2f}s")
+
+    # ---- 23. the summary folder on the kernel backend ------------------
+    folder = sf.SummaryFolder(summary_ops=step, device=dev,
+                              fold_backend="kernel")
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    manifests = []
+    for lo in range(0, len(streams[docs[0]]), step):
+        for d in docs[:FOLD_DOCS[0]]:
+            for rec in streams[d][lo:lo + step]:
+                folder.process(rec)
+        manifests += folder.flush()
+    torch.cuda.synchronize()
+    t_folder = time.perf_counter() - t0
+    launches_folder = kernel.launches
+    got = {}
+    for m in manifests:
+        got.setdefault(m["doc"], []).append([m["seq"], m["count"],
+                                             m["handle"]])
+    if got != {d: golden["manifests"][d] for d in docs[:FOLD_DOCS[0]]} \
+            or folder.frozen:
+        raise AssertionError("summary folder (kernel backend): manifests "
+                             "differ from the JAX summarizer role's")
+    log(f"summary folder, kernel backend: {len(manifests)} summaries of "
+        f"{FOLD_DOCS[0]} documents in {t_folder:.3f}s (scan launches "
+        f"{launches_folder}, one per chunk and capacity group); seq, count "
+        f"and handle of every manifest equal the JAX summarizer role's")
+
+    # ---- 24. the fold sweep on the kernel backend, timed ----------------
+    runs = []
+    for D_run in FOLD_DOCS:
+        sub = {d: streams[d] for d in docs[:D_run]}
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        out = fs.run_fold_sweep(sub, step, dev, backend="kernel")
+        torch.cuda.synchronize()
+        launches = kernel.launches
+        rounds = out["rounds"]
+        chunks = sum(r["chunks"] for r in rounds)
+        if launches != chunks or any(r["chunks"] < r["steps"]
+                                     for r in rounds):
+            raise AssertionError(f"kernel fold D {D_run}: launches "
+                                 f"{launches} != chunks {chunks}")
+        for doc, dg in out["digests"].items():
+            if dg != want[doc]:
+                raise AssertionError(f"kernel fold D {D_run}: {doc} rows "
+                                     f"differ from fold_golden.json")
+        n_em = sum(r["emissions"] for r in rounds)
+        per = {k: sum(r[k] for r in rounds) / len(rounds)
+               for k in ("encode_s", "fold_s", "serialize_s")}
+        dev_s = sum(r["device_ms"] for r in rounds) / 1e3 / len(rounds)
+        over = None
+        if overlay_runs is not None:
+            over = next(r["seconds"] for r in overlay_runs if r["D"] == D_run)
+        else:
+            over = fs.run_fold_sweep(sub, step, dev)["seconds"]
+        run = dict(D=D_run, seconds=out["seconds"], emissions=n_em,
+                   rounds=len(rounds), launches=launches,
+                   emissions_per_s=n_em / out["seconds"],
+                   fold_ops_per_s=out["op_records"] / out["seconds"],
+                   encode_s_per_round=per["encode_s"],
+                   fold_s_per_round=per["fold_s"],
+                   device_s_per_round=dev_s,
+                   serialize_s_per_round=per["serialize_s"],
+                   capacities=sorted({g["capacity"] for r in rounds
+                                      for g in r["groups"]}),
+                   overlay_seconds=over,
+                   fold_backend_speedup=out["seconds"] / over)
+        runs.append(run)
+        n_whole = len(streams[docs[0]]) // step
+        if D_run == FOLD_DOCS[0] and launches_folder != sum(
+                r["chunks"] for r in rounds[:n_whole]):
+            raise AssertionError(f"summary folder (kernel backend): "
+                                 f"{launches_folder} launches, the sweep's "
+                                 f"{n_whole} whole rounds took "
+                                 f"{sum(r['chunks'] for r in rounds[:n_whole])}")
+        log(f"kernel fold D {D_run}: {n_em} emissions ({len(rounds)} rounds) "
+            f"in {out['seconds']:.3f}s = {run['emissions_per_s']:,.1f} "
+            f"emissions/s, {run['fold_ops_per_s']:,.0f} fold ops/s; per "
+            f"round: encode {per['encode_s']:.4f}s, fold "
+            f"{per['fold_s']:.4f}s (device {dev_s:.4f}s, CUDA events around "
+            f"the launches), serialization + reboot {per['serialize_s']:.4f}s; "
+            f"scan launches {launches} (one per chunk and capacity group; "
+            f"capacities {run['capacities']}); every digest equals "
+            f"fold_golden.json; kernel / overlay time "
+            f"{run['fold_backend_speedup']:.3f} (overlay {over:.3f}s)")
+
+    # ---- 25. KernelReplica on the card vs its CPU run -------------------
+    launches_rep, t_rep, n_rep = 0, 0.0, 0
+    for d, f in zip(docs[:MSG_DOCS], f_rep):
+        msgs = fs.as_messages(streams[d])
+        rep = KernelReplica(chunk_size=REPLICA_CHUNK,
+                            capacity=REPLICA_CAPACITY, device=dev)
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        rep.apply_messages(msgs)
+        torch.cuda.synchronize()
+        t_rep += time.perf_counter() - t0
+        launches = kernel.launches
+        n_ops = sum(1 for m in msgs if m.type.value == "op")
+        if launches != -(-n_ops // REPLICA_CHUNK):
+            raise AssertionError(f"kernel replica {d}: launches {launches} "
+                                 f"!= chunks of {n_ops} ops")
+        launches_rep += launches
+        n_rep += n_ops
+        card = (rep.get_text(), rep.annotated_spans(), int(rep.table.error))
+        if card != f.result():
+            raise AssertionError(f"kernel replica {d}: the card's text, spans "
+                                 f"or error word differ from the CPU run's")
+        ov = OverlayKernelMessageReplica(chunk_size=MSG_CHUNK,
+                                         window=MSG_WINDOW, device=dev)
+        ov.apply_messages(msgs)
+        if (card[0], prop_runs(card[1])) != (
+                ov.get_text(), prop_runs(ov.annotated_spans())) or card[2]:
+            raise AssertionError(f"kernel replica {d}: text or spans differ "
+                                 f"from the overlay message replica's")
+    pool.shutdown()
+    log(f"kernel replica: {MSG_DOCS} documents, {n_rep} ops (chunks of "
+        f"{REPLICA_CHUNK}, capacity {REPLICA_CAPACITY} grown as needed) in "
+        f"{t_rep:.3f}s = {n_rep / t_rep:,.0f} ops/s one document at a time "
+        f"(scan launches {launches_rep}); text, spans and error word equal "
+        f"the CPU run's and the overlay message replica's")
+    b_ms, b_by = bound(timed_tables, timed_ops)
+    return dict(
+        launches=runs[-1]["launches"],
+        max_abs_err=max_err,
+        ms=head["ms"],
+        plain_ms=plain_ms,
+        bound_ms=b_ms,
+        bound_by=b_by,
+        path_launches={
+            "summary_folder_kernel": launches_folder,
+            "fold_kernel": {str(r["D"]): r["launches"] for r in runs},
+            "kernel_replica": launches_rep,
+        },
+        times=times,
+        held_pairs=n_edge + n_fold,
+        fold_kernel_runs=runs,
+    )
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1322,6 +1785,9 @@ def main() -> int:
         ops_at, overlay_apply_chunk, overlay_apply_chunk_ref,
         overlay_chunk_kernel,
     )
+    from fluidframework_tpu_torch.ops.mergetree_scan import (
+        mergetree_scan_kernel,
+    )
     from fluidframework_tpu_torch.ops.sequencer_kernel import (
         sequencer_step_kernel,
     )
@@ -1348,15 +1814,17 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
     cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name,
-                  sequencer_step_kernel.name, rebase_kernel.name)
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+                  sequencer_step_kernel.name, rebase_kernel.name,
+                  mergetree_scan_kernel.name)
+    with concurrent.futures.ThreadPoolExecutor(len(cuda_names) + 1) as ex:
         f_cuda = [ex.submit(_build.load, name) for name in cuda_names]
         f_host = ex.submit(load_hostmerge)
         for f in f_cuda:
             f.result()
         if f_host.result() is None:
             raise RuntimeError("g++ build of the native stream engine failed")
-    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x4 + g++ in parallel)")
+    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x{len(cuda_names)} "
+        f"+ g++ in parallel)")
     for name in cuda_names:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -2143,6 +2611,9 @@ def main() -> int:
     # ---- 20-21. SharedTree's batched rebase ---------------------------
     tree = tree_phases(dev, log)
 
+    # ---- 22-25. the row-model scan, the kernel fold, KernelReplica -----
+    scan = scan_phases(dev, log, fold["fold_runs"])
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -2217,6 +2688,15 @@ def main() -> int:
         "check": "exact",
         "plain_on": "cpu",
         **tree,
+    }, {
+        "name": mergetree_scan_kernel.name,
+        "route": "cuda",
+        "source": mergetree_scan_kernel.source,
+        "replaces": mergetree_scan_kernel.replaces,
+        "library_ms": None,
+        "check": "exact",
+        "plain_on": "cpu",
+        **scan,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

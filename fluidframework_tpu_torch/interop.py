@@ -6,7 +6,10 @@ plain numpy: a dict of the JAX `OverlayTable` / `SegmentTable` /
 ``table._asdict()`` or the NamedTuple itself), any object with the
 `ColumnarStream` fields, and the deli's `SequencerState`. With these a
 table (or a sequencer state) that the JAX engine produced mid-replay
-can be continued by the port, and the other way round.
+can be continued by the port, and the other way round. Every
+converter keeps a leading ``[D]`` axis: a stacked JAX `SegmentTable` /
+`OpBatch` (the docs form's inputs, ``jax.tree_util.tree_map(np.stack,
+...)``) comes across as the port's stacked table or batch, and back.
 """
 
 from __future__ import annotations
@@ -74,6 +77,13 @@ def segment_table_to_numpy(table: SegmentTable) -> Dict[str, np.ndarray]:
 def opbatch_from_numpy(src: Fields, device: DeviceLike = None) -> OpBatch:
     """The port's `OpBatch` from the JAX batch's fields."""
     return _tensors(OpBatch, src, device)
+
+
+def opbatch_to_numpy(ops: OpBatch) -> Dict[str, np.ndarray]:
+    """The batch's fields as int32 numpy arrays, keyed like the JAX
+    `OpBatch` (``jax OpBatch(**d)`` rebuilds it there)."""
+    return {f.name: getattr(ops, f.name).cpu().numpy()
+            for f in fields(OpBatch)}
 
 
 def stream_from_numpy(src: Fields) -> ColumnarStream:

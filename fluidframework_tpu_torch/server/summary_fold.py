@@ -1,14 +1,22 @@
-"""The summary service's fold-and-emit datapath, on the overlay engine.
+"""The summary service's fold-and-emit datapath, on both fold backends.
 
 Copied from fluidframework_tpu/server/summarizer.py, the parts that
-decide what a summary holds: `_decode_mt_op` (:179), `_encode_fold`
-(:251), the engine decision and cadence triggers of
+decide what a summary holds: `_decode_mt_op` (:179), `_boot_mergetree`
+(:192), `_encode_fold` (:251), `_fold_jobs` (:308), `_canonical_rows`
+(:371), the engine decision and cadence triggers of
 `SummarizerRole.process` (:626-670), `_freeze` (:674), the round
 grouping of `flush_batch` (:703-718) and `_emit_round` (:760-837), with
-`supervisor.canonical_record` (:140). The fold runs on
-`core.overlay_fold` (the role's ``overlay`` backend): every document
-that summarizes in one emission round is stacked into one kernel
-launch per chunk and window group.
+`supervisor.canonical_record` (:140). Two fold backends, with
+byte-identical blobs by contract:
+
+- ``overlay`` (`SummaryFolder`'s default): `core.overlay_fold`, every
+  document that summarizes in one emission round stacked into one
+  kernel A launch per chunk and window group;
+- ``kernel`` (the JAX role's default): the row-model `KernelReplica`
+  (`_boot_mergetree`), its documents grouped by (capacity, chunk) and
+  each group's chunk of every document applied by one launch of the
+  scan kernel (`_fold_jobs`), serialized by `_canonical_rows`. The
+  role's ``plane=`` placement over a device mesh is not ported.
 
 `SummaryFolder` is that datapath without the role's supervision: no
 fenced lease, heartbeat, checkpoint, topics, castore or metrics, and
@@ -33,21 +41,55 @@ import hashlib
 import json
 from typing import Any, Dict, List, Tuple
 
-from ..core.kernel_replica import encode_op
+import numpy as np
+import torch
+
+from ..core.kernel_replica import (
+    KernelReplica,
+    TextArena,
+    empty_columns,
+    encode_op,
+    encoded_columns,
+    read_segment_table,
+    upload_op_batch,
+    upload_segment_table,
+)
 from ..core.overlay_fold import (
-    OverlayFoldReplica,
     boot_overlay,
     fold_jobs_overlay,
+    merge_canonical_rows,
 )
+from ..ops.mergetree_kernel import (
+    NOT_REMOVED,
+    apply_op_batch,
+    apply_op_batch_docs,
+    raise_kernel_errors,
+    stack_segment_tables,
+)
+from ..protocol.constants import NO_CLIENT, UNIVERSAL_SEQ
 from ..protocol.mergetree_ops import op_from_json
 from ..protocol.messages import MessageType, SequencedMessage
 from ..utils.devices import DeviceLike, resolve_device
 
-__all__ = ["DEFAULT_SUMMARY_OPS", "SummaryFolder", "canonical_record"]
+__all__ = ["DEFAULT_SUMMARY_OPS", "FOLD_BACKENDS", "SummaryFolder",
+           "canonical_record"]
 
 # Default emission cadence: one summary per doc every N sequenced
 # records (the role's default).
 DEFAULT_SUMMARY_OPS = 256
+FOLD_BACKENDS = ("overlay", "kernel")
+
+# The kernel backend's shape knobs (uniform across documents, so that
+# the stacked launch can group them).
+_CHUNK = 128
+_MIN_CAP = 512
+
+
+def _pow2(n: int, lo: int = _MIN_CAP) -> int:
+    c = lo
+    while c < n:
+        c *= 2
+    return c
 
 
 def canonical_record(rec: dict) -> dict:
@@ -72,7 +114,145 @@ def _decode_mt_op(contents: Any):
         return None
 
 
-def _encode_fold(rep: OverlayFoldReplica, records: List[dict]) -> None:
+def _boot_mergetree(rows: List[list], msn: int,
+                    device: DeviceLike = None) -> KernelReplica:
+    """A live `KernelReplica` from serialized canonical rows: THE
+    restart path, also run after every emission, so interrupted and
+    uninterrupted summarizers proceed from the identical state. The
+    table reaches the device in one copy."""
+    rep = KernelReplica(initial="", chunk_size=_CHUNK, capacity=_MIN_CAP,
+                        device=device)
+    n = len(rows)
+    cap = _pow2(n + 2 * _CHUNK + 8)
+    cols = empty_columns(cap, rep.n_removers, rep.n_prop_keys)
+    parts: List[str] = []
+    off = 0
+    for i, (seg, ins, icl, rem, rcl, prow) in enumerate(rows):
+        cols["buf_start"][i] = off
+        cols["length"][i] = len(seg)
+        cols["ins_seq"][i] = ins
+        cols["ins_client"][i] = icl
+        if rem is not None:
+            cols["rem_seq"][i] = rem
+            cols["rem_clients"][i, : len(rcl)] = rcl
+        if prow:
+            for k, v in prow.items():
+                cols["props"][i, rep.props.key_id(k)] = rep.props.value_id(v)
+        parts.append(seg)
+        off += len(seg)
+    rep.arena = TextArena("".join(parts))
+    rep.capacity = cap
+    rep.table = upload_segment_table(cols, n, 0, rep.device)
+    rep.min_seq = rep._applied_min_seq = int(msn)
+    rep._pending_rows_bound = n
+    return rep
+
+
+def _fold_jobs(jobs: List[tuple]) -> List[dict]:
+    """Drain the pending encoded rows of several `KernelReplica`s
+    through the scan, stacking the replicas of one (capacity, chunk)
+    into one launch of the docs-form kernel per chunk: K summarizing
+    documents cost one launch per chunk and group, not K. `jobs` holds
+    ``(replica, records)`` pairs, as the role passes them. After each
+    chunk a replica past its watermark compacts, as
+    `KernelReplica._flush_chunks` does.
+
+    Returns one summary per capacity group: ``{"capacity", "docs"
+    (the most documents of one launch), "chunks" (the group's
+    launches), "device_ms"}``, where ``device_ms`` sums CUDA-event
+    spans around the group's launches alone, after the tables are
+    stacked and the ops uploaded (None on the CPU)."""
+    reps = [rep for rep, _ in jobs]
+    summary: Dict[int, dict] = {}
+    timed = bool(reps) and reps[0].device.type == "cuda"
+    events = []
+    while any(r._encoded for r in reps):
+        groups: Dict[tuple, list] = {}
+        for r in reps:
+            if not r._encoded:
+                continue
+            r._ensure_capacity()
+            groups.setdefault((r.capacity, r.chunk_size), []).append(r)
+        for (cap, chunk_b), grp in groups.items():
+            chunks = []
+            for r in grp:
+                chunks.append(r._encoded[:chunk_b])
+                del r._encoded[:chunk_b]
+            g = summary.setdefault(cap, {"capacity": cap, "docs": 0,
+                                         "chunks": 0, "device_ms": None})
+            g["docs"] = max(g["docs"], len(grp))
+            g["chunks"] += 1
+            if len(grp) == 1:
+                tables = grp[0].table
+                ops = grp[0]._build_batch(chunks[0])
+                apply = apply_op_batch
+            else:
+                cols = [np.stack(c) for c in zip(*(
+                    encoded_columns(c, r.chunk_size, r.max_prop_pairs)
+                    for r, c in zip(grp, chunks)))]
+                tables = stack_segment_tables([r.table for r in grp])
+                ops = upload_op_batch(cols, grp[0].device)
+                apply = apply_op_batch_docs
+            if timed:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = apply(tables, ops)
+            if timed:
+                ev[1].record()
+                events.append((cap, ev))
+            if len(grp) == 1:
+                grp[0].table = out
+            else:
+                for i, r in enumerate(grp):
+                    r.table = out.doc(i)
+            for r, c in zip(grp, chunks):
+                r._applied_min_seq = c[-1][10]
+                r._applied_since_compact = True
+                if r._pending_rows_bound > r.capacity * r.compact_watermark:
+                    # The zamboni watermark of `_flush_chunks`: without it
+                    # a long fold accumulates tombstones and splits.
+                    r.compact()
+    if events:
+        events[-1][1][1].synchronize()
+        for cap, (e0, e1) in events:
+            g = summary[cap]
+            g["device_ms"] = (g["device_ms"] or 0.0) + e0.elapsed_time(e1)
+    return list(summary.values())
+
+
+def _canonical_rows(rep: KernelReplica, msn: int) -> List[list]:
+    """The canonical serialized row form of a replica's table at fold
+    msn `msn`, a pure function of the document's op prefix: tombstones
+    removed at or below `msn` dropped, rows inserted at or below `msn`
+    normalized to (UNIVERSAL_SEQ, NO_CLIENT), and adjacent rows whose
+    semantic fields all match merged (`merge_canonical_rows`, shared
+    with the overlay backend). Raises RuntimeError on a kernel error
+    flag. Each row: ``[text, ins_seq, ins_client, rem_seq|None,
+    rem_clients|None, props|None]``."""
+    t = read_segment_table(rep.table)
+    raise_kernel_errors(int(t.error))
+    text = rep.arena.snapshot()
+    raw: List[tuple] = []
+    for i in range(int(t.n_rows)):
+        rem = int(t.rem_seq[i])
+        removed = rem != NOT_REMOVED
+        if removed and rem <= msn:
+            continue  # zamboni: tombstone below the window
+        b = int(t.buf_start[i])
+        seg = text[b: b + int(t.length[i])]
+        ins = int(t.ins_seq[i])
+        icl = int(t.ins_client[i])
+        if ins <= msn:
+            ins, icl = UNIVERSAL_SEQ, NO_CLIENT
+        rcl = (sorted(int(c) for c in t.rem_clients[i]
+                      if int(c) != NO_CLIENT) if removed else None)
+        props = rep.props.decode_row(t.props[i])
+        raw.append((seg, ins, icl, rem if removed else None, rcl, props))
+    return merge_canonical_rows(raw)
+
+
+def _encode_fold(rep, records: List[dict]) -> None:
     """Encode canonical op records into the replica's pending rows
     (`kernel_replica.encode_op`). Join/leave/noop records advance msn
     only."""
@@ -94,7 +274,8 @@ def _encode_fold(rep: OverlayFoldReplica, records: List[dict]) -> None:
 
 class SummaryFolder:
     """deltas records in, summaries out: the summary role's fold and
-    emission, on the overlay fold.
+    emission, on the ``overlay`` fold backend (the default here) or the
+    ``kernel`` one (the JAX role's default), with the same blobs.
 
     `process(rec)` takes sequenced deltas records one at a time (as
     the role's `process` does; anything but ``kind == "op"`` records
@@ -107,7 +288,11 @@ class SummaryFolder:
     ``"cpu"``."""
 
     def __init__(self, summary_ops: int = DEFAULT_SUMMARY_OPS,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, fold_backend: str = "overlay"):
+        if fold_backend not in FOLD_BACKENDS:
+            raise ValueError(f"fold_backend {fold_backend!r} not in "
+                             f"{FOLD_BACKENDS}")
+        self.fold_backend = fold_backend
         self.device = resolve_device(device)
         self.summary_ops = int(summary_ops)
         if self.summary_ops < 1:
@@ -115,7 +300,7 @@ class SummaryFolder:
         # doc -> fold dict (JSON-serializable; live replicas cached
         # separately and rebuilt from the serialized rows).
         self.docs: Dict[str, dict] = {}
-        self._reps: Dict[str, OverlayFoldReplica] = {}
+        self._reps: Dict[str, Any] = {}
         # (doc, window_upto, records_upto, seq, msn, count): the
         # pending emission points, folded and emitted by `flush`.
         self._triggers: List[tuple] = []
@@ -135,13 +320,22 @@ class SummaryFolder:
             }
         return f
 
-    def _rep(self, doc: str, f: dict) -> OverlayFoldReplica:
+    def _boot_rep(self, rows: List[list], msn: int):
+        if self.fold_backend == "overlay":
+            return boot_overlay(rows, msn, device=self.device)
+        return _boot_mergetree(rows, msn, device=self.device)
+
+    def _rep(self, doc: str, f: dict):
         rep = self._reps.get(doc)
         if rep is None:
-            rep = self._reps[doc] = boot_overlay(
-                f["rows"], f["base_msn"], device=self.device
-            )
+            rep = self._reps[doc] = self._boot_rep(f["rows"], f["base_msn"])
         return rep
+
+    def _rows_of(self, rep, msn: int) -> List[list]:
+        """Canonical rows at `msn`, identical bytes on either backend."""
+        if self.fold_backend == "overlay":
+            return rep.canonical_rows(msn)
+        return _canonical_rows(rep, msn)
 
     def process(self, rec: Any) -> None:
         if not isinstance(rec, dict) or rec.get("kind") != "op" \
@@ -208,7 +402,7 @@ class SummaryFolder:
 
     def _emit_round(self, round_jobs: List[tuple],
                     consumed: Dict[str, int], out: List[dict]) -> None:
-        fold_jobs: List[Tuple[OverlayFoldReplica, list]] = []
+        fold_jobs: List[Tuple[Any, list]] = []
         for doc, upto, _rupto, _seq, _msn, _count in round_jobs:
             f = self.docs[doc]
             if f["engine"] != "mergetree":
@@ -223,7 +417,10 @@ class SummaryFolder:
                 continue
             fold_jobs.append((rep, take))
         if fold_jobs:
-            fold_jobs_overlay(fold_jobs)
+            if self.fold_backend == "overlay":
+                fold_jobs_overlay(fold_jobs)
+            else:
+                _fold_jobs(fold_jobs)
         for doc, upto, rec_upto, seq, msn, count in round_jobs:
             f = self.docs[doc]
             if f["engine"] == "frozen":
@@ -234,7 +431,7 @@ class SummaryFolder:
                 if rep is None:
                     continue  # froze mid-round
                 try:
-                    rows = rep.canonical_rows(msn)
+                    rows = self._rows_of(rep, msn)
                 except RuntimeError as exc:  # kernel error flag
                     self._freeze(doc, f, repr(exc))
                     continue
@@ -246,8 +443,7 @@ class SummaryFolder:
                 # Rebuild from the serialized form: the restart path,
                 # exercised every cadence, so a restored summarizer can
                 # never diverge from this one.
-                self._reps[doc] = boot_overlay(rows, msn,
-                                               device=self.device)
+                self._reps[doc] = self._boot_rep(rows, msn)
                 blob = {"form": "mergetree", "doc": doc, "seq": seq,
                         "msn": msn, "count": count, "rows": rows}
             elif f["engine"] == "ops":

@@ -8,9 +8,12 @@ tools/bench_configs.py). Each record is a sequenced deltas record
 ``refSeq``, ``type``, ``contents``) whose ``contents`` is a merge-tree
 wire op (`protocol.mergetree_ops.op_to_json` form).
 
-`run_fold_sweep` is the emission loop of that bench on the port's
-overlay fold, and fold_golden.json (tools/fold_golden.py) pins the
-reference's digest of every emission for the smoke's documents.
+`run_fold_sweep` is the emission loop of that bench on either of the
+port's fold backends (``overlay`` or ``kernel``), `compare_fold_backends`
+runs both over identical streams and requires every emission's digest
+to agree before it reports a time, and fold_golden.json
+(tools/fold_golden.py) pins the reference's digest of every emission
+for the smoke's documents.
 """
 
 from __future__ import annotations
@@ -109,24 +112,50 @@ def golden_streams(golden: dict, n_docs: int) -> Dict[str, List[dict]]:
 
 
 def run_fold_sweep(streams: Dict[str, List[dict]], summary_ops: int,
-                   device) -> dict:
+                   device, backend: str = "overlay") -> dict:
     """The emission loop of the reference's fold bench
-    (`run_fold_backend_bench`, deli_bench.py:603-690) on the port's
-    overlay fold: for each slice of `summary_ops` records, every
+    (`run_fold_backend_bench`, deli_bench.py:603-690) on one of the
+    port's fold backends: for each slice of `summary_ops` records, every
     document boots from its last canonical rows, encodes the slice, all
-    documents fold in one `fold_jobs_overlay` call, and each one
-    serializes (`canonical_rows`) and reboots.
+    documents fold in one call (``overlay``: `fold_jobs_overlay`;
+    ``kernel``: `summary_fold._fold_jobs`), and each one serializes its
+    canonical rows and reboots.
 
     Returns ``digests`` (doc -> sha256 of each emission's rows, the
     bench's digest), ``seconds``, ``op_records`` (the merge-tree ops
     folded) and per round ``rounds``: ``encode_s``, ``fold_s``,
     ``serialize_s`` (serialization and reboot) by the host clock,
-    ``device_ms`` (CUDA events around the round's replays; None on the
-    CPU), ``groups`` (the fold's window groups) and ``chunks``: the
-    kernel launches the round needs, worked out from the replicas
-    (per window, the most chunks of encoded rows of one document)."""
+    ``device_ms`` (CUDA events around the round's launches; None on the
+    CPU), ``groups`` (the fold's window or capacity groups) and
+    ``chunks``: the kernel launches the round needs. For ``overlay``
+    they are worked out from the replicas (per window, the most chunks
+    of encoded rows of one document); for ``kernel`` they are the
+    fold's own count of (chunk, capacity group) steps, since a replica
+    may grow or compact between chunks, and ``steps``, the most chunks
+    of one document, bounds them from below."""
     from ..core.overlay_fold import boot_overlay, fold_jobs_overlay
-    from ..server.summary_fold import _encode_fold
+    from ..server.summary_fold import (
+        _boot_mergetree,
+        _canonical_rows,
+        _encode_fold,
+        _fold_jobs,
+    )
+
+    if backend == "overlay":
+        def boot(rows, msn):
+            return boot_overlay(rows, msn, device=device)
+
+        fold = fold_jobs_overlay
+
+        def rows_of(rep, msn):
+            return rep.canonical_rows(msn)
+    elif backend == "kernel":
+        def boot(rows, msn):
+            return _boot_mergetree(rows, msn, device=device)
+
+        fold, rows_of = _fold_jobs, _canonical_rows
+    else:
+        raise ValueError(f"unknown fold backend {backend!r}")
 
     reps: Dict[str, object] = {}
     state = {d: ([], 0) for d in streams}
@@ -145,7 +174,7 @@ def run_fold_sweep(streams: Dict[str, List[dict]], summary_ops: int,
                 continue
             rep = reps.get(doc)
             if rep is None:
-                rep = reps[doc] = boot_overlay(*state[doc], device=device)
+                rep = reps[doc] = boot(*state[doc])
             _encode_fold(rep, take)
             n_ops += sum(1 for r in take if r.get("type") == "op")
             msn_run[doc] = max(msn_run[doc], max(r["msn"] for r in take))
@@ -153,28 +182,58 @@ def run_fold_sweep(streams: Dict[str, List[dict]], summary_ops: int,
             triggers.append((doc, rep, msn_run[doc]))
         pending = [(rep, len(rep._encoded)) for rep, _ in jobs]
         t1 = time.perf_counter()
-        groups = fold_jobs_overlay(jobs)
+        groups = fold(jobs)
         t2 = time.perf_counter()
-        per_window: Dict[int, int] = {}
-        for rep, n in pending:
-            if n:
-                per_window[rep.window] = max(per_window.get(rep.window, 0),
-                                             -(-n // rep.chunk_size))
+        steps = max((-(-n // rep.chunk_size) for rep, n in pending),
+                    default=0)
+        if backend == "overlay":
+            per_window: Dict[int, int] = {}
+            for rep, n in pending:
+                if n:
+                    per_window[rep.window] = max(
+                        per_window.get(rep.window, 0),
+                        -(-n // rep.chunk_size))
+            chunks = sum(per_window.values())
+        else:
+            chunks = sum(g["chunks"] for g in groups)
         for doc, rep, msn in triggers:
-            rows = rep.canonical_rows(msn)
+            rows = rows_of(rep, msn)
             digests[doc].append(hashlib.sha256(
                 json.dumps(rows, sort_keys=True).encode()).hexdigest())
             state[doc] = (rows, msn)
-            reps[doc] = boot_overlay(rows, msn, device=device)
+            reps[doc] = boot(rows, msn)
         t3 = time.perf_counter()
         dev_ms = [g["device_ms"] for g in groups]
         rounds.append(dict(
             emissions=len(triggers), encode_s=t1 - t0, fold_s=t2 - t1,
-            serialize_s=t3 - t2, groups=groups,
-            chunks=sum(per_window.values()),
+            serialize_s=t3 - t2, groups=groups, chunks=chunks, steps=steps,
             device_ms=None if None in dev_ms else sum(dev_ms)))
     return dict(digests=digests, rounds=rounds, op_records=n_ops,
                 seconds=time.perf_counter() - t_all)
+
+
+def compare_fold_backends(streams: Dict[str, List[dict]], summary_ops: int,
+                          device) -> dict:
+    """Both fold backends over identical streams, as the reference's
+    `run_fold_backend_bench` runs them: the canonical rows of every
+    emission must be byte-identical across backends (AssertionError
+    naming the first document and emission that differ) before any
+    time is reported. Returns each backend's `run_fold_sweep` result
+    under its name and ``fold_backend_speedup``, kernel seconds over
+    overlay seconds (the reference's name for that ratio)."""
+    out = {b: run_fold_sweep(streams, summary_ops, device, backend=b)
+           for b in ("kernel", "overlay")}
+    for doc in streams:
+        got, want = out["kernel"]["digests"][doc], \
+            out["overlay"]["digests"][doc]
+        if got != want:
+            k = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            raise AssertionError(
+                f"fold backends differ: {doc} emission {k}")
+    out["fold_backend_speedup"] = (out["kernel"]["seconds"]
+                                   / out["overlay"]["seconds"])
+    return out
 
 
 def as_messages(records: List[dict]) -> list:

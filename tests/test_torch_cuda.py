@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card,
 and the port's paths on the card against the same paths on the CPU (the
 replays, the summary fold rounds, the message-driven replica, the
-summary folder against fold_golden.json, the deli, and config 4's
-rebase against tree_golden.json).
+summary folder against fold_golden.json on both fold backends, the
+deli, config 4's rebase against tree_golden.json, and `KernelReplica`).
 
 Marked ``cuda``: on a host without a CUDA device every test here skips
 with the reason. On the GPU run them with
@@ -32,10 +32,14 @@ from fluidframework_tpu_torch.core.overlay_replay import (
 )
 from fluidframework_tpu_torch.ops import mergetree_chunk as tmc
 from fluidframework_tpu_torch.ops import overlay as tov
+from fluidframework_tpu_torch.core.kernel_replica import KernelReplica
+from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
+from fluidframework_tpu_torch.ops import mergetree_scan as tms
 from fluidframework_tpu_torch.ops.mergetree_kernel import OpBatch, make_table
 from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
 from fluidframework_tpu_torch.server.summary_fold import (
     SummaryFolder,
+    _boot_mergetree,
     _encode_fold,
 )
 from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
@@ -47,6 +51,7 @@ from fluidframework_tpu_torch.testing.fold_streams import (
     load_fold_golden,
     run_fold_sweep,
 )
+from fluidframework_tpu_torch.testing.scan_edges import scan_edge_chunks
 from fluidframework_tpu_torch.testing.overlay_edges import (
     overlay_edge_chunks,
     widen_prop_slots,
@@ -595,3 +600,138 @@ def test_cuda_config4_meets_tree_golden(cuda):
                               for k in ("rebased", "spares", "flagged")}
     for key in ("flagged", "native_splits", "muted"):
         assert run[key] == golden[key], key
+
+
+# ----------------------------------------------------------- row-model scan
+
+
+def _assert_scan_equal(got, want, label=""):
+    """Stacked tables equal per document on n_rows, error and rows
+    [:min(n_rows, C)] (the rows above are scratch)."""
+    for d in range(want.n_rows.shape[0]):
+        g, w = got.doc(d), want.doc(d)
+        n = int(w.n_rows)
+        assert int(g.n_rows) == n and int(g.error) == int(w.error), (label, d)
+        m = min(n, w.length.shape[0])
+        for f in ROW_FIELDS:
+            assert torch.equal(getattr(g, f)[:m].cpu(),
+                               getattr(w, f)[:m].cpu()), (label, d, f)
+
+
+def _stack(cases, key):
+    return {k: np.stack([c[key][k] for c in cases]) for k in cases[0][key]}
+
+
+@pytest.mark.parametrize("C", [64, 512, 2048, 8192])
+def test_scan_kernel_edge_chunks(cuda, C):
+    """Every edge chunk of `testing/scan_edges.py` alone (one block) and
+    the chunks of 128 ops stacked in one launch, against the plain
+    version on CPU copies."""
+    cases = scan_edge_chunks(C, 4, 8, 4, 128)
+    before = tms.mergetree_scan_kernel.launches
+    for case in cases:
+        t = interop.segment_table_from_numpy(case["table"], cuda)
+        o = interop.opbatch_from_numpy(case["ops"], cuda)
+        got = tms.mergetree_scan_kernel(t, o)
+        want = tmk.apply_op_batch_ref(t.to("cpu"), o.to("cpu"))
+        _assert_scan_equal(tmk.stack_segment_tables([got]),
+                           tmk.stack_segment_tables([want]), case["label"])
+    full = [c for c in cases if c["ops"]["op_type"].shape[0] == 128]
+    t = interop.segment_table_from_numpy(_stack(full, "table"), cuda)
+    o = interop.opbatch_from_numpy(_stack(full, "ops"), cuda)
+    got = tmk.apply_op_batch_docs(t, o)
+    _assert_scan_equal(got, tmk.apply_op_batch_docs_ref(t.to("cpu"),
+                                                        o.to("cpu")))
+    assert tms.mergetree_scan_kernel.launches - before == len(cases) + 1
+
+
+@pytest.mark.parametrize("C", [512, 1024, 2048])
+def test_scan_kernel_fold_chunks(cuda, C):
+    """Config15 fold chunks of 4 documents stacked (seeds 40..43, their
+    first round from empty tables), chunk after chunk from the kernel's
+    own output, against the plain version."""
+    golden = load_fold_golden()
+    reps = []
+    for recs in golden_streams(golden, 4).values():
+        rep = _boot_mergetree([], 0, device=cuda)
+        _encode_fold(rep, recs[:375])
+        reps.append(rep)
+    tables = tmk.stack_segment_tables([
+        tmk.grow_table(r.table, r.capacity, C) for r in reps])
+    for k in range(3):
+        ops = tmk.stack_op_batches([
+            r._build_batch(r._encoded[k * 128:(k + 1) * 128]) for r in reps])
+        got = tms.mergetree_scan_kernel.docs(tables, ops)
+        _assert_scan_equal(got, tmk.apply_op_batch_docs_ref(
+            tables.to("cpu"), ops.to("cpu")), f"C {C} chunk {k}")
+        assert int(got.error.max()) == 0
+        tables = got
+
+
+def test_scan_kernel_leaves_its_input(cuda):
+    case = scan_edge_chunks(512, 4, 8, 4, 128)[7]
+    t = interop.segment_table_from_numpy(case["table"], cuda)
+    o = interop.opbatch_from_numpy(case["ops"], cuda)
+    before = interop.segment_table_to_numpy(t)
+    first = tms.mergetree_scan_kernel(t, o)
+    second = tms.mergetree_scan_kernel(t, o)
+    after = interop.segment_table_to_numpy(t)
+    assert all(np.array_equal(before[k], after[k]) for k in before)
+    _assert_scan_equal(tmk.stack_segment_tables([second]),
+                       tmk.stack_segment_tables([first]))
+    with pytest.raises(ValueError, match="ceiling of 8192 rows"):
+        tms.mergetree_scan_kernel(make_table(8193, 4, 8, device=cuda), o)
+
+
+def test_cuda_kernel_fold_meets_fold_golden(cuda):
+    golden = load_fold_golden()
+    streams = golden_streams(golden, 4)
+    before = tms.mergetree_scan_kernel.launches
+    out = run_fold_sweep(streams, golden["params"]["summary_ops"], cuda,
+                         backend="kernel")
+    launches = tms.mergetree_scan_kernel.launches - before
+    assert launches == sum(r["chunks"] for r in out["rounds"])
+    want = {d["doc"]: d["rows_sha256"] for d in golden["docs"]}
+    assert out["digests"] == {d: want[d] for d in streams}
+    assert all(r["device_ms"] is not None for r in out["rounds"])
+
+
+def test_cuda_summary_folder_kernel_backend_meets_fold_golden(cuda):
+    golden = load_fold_golden()
+    step = golden["params"]["summary_ops"]
+    folder = SummaryFolder(summary_ops=step, device=cuda,
+                           fold_backend="kernel")
+    streams = golden_streams(golden, 4)
+    for lo in range(0, len(streams["doc0"]), step):
+        for recs in streams.values():
+            for rec in recs[lo:lo + step]:
+                folder.process(rec)
+        folder.flush()
+    got = {}
+    for handle, payload in folder.blobs.items():
+        blob = json.loads(payload)
+        got.setdefault(blob["doc"], []).append(
+            [blob["seq"], blob["count"], handle])
+    for doc, want in golden["manifests"].items():
+        assert sorted(got[doc]) == want, doc
+
+
+def test_cuda_kernel_replica_matches_cpu(cuda):
+    msgs = as_messages(build_mergetree_stream(1500, n_clients=4, seed=41))
+    kw = dict(chunk_size=128, capacity=512)
+    gpu = KernelReplica(device=cuda, **kw)
+    before = tms.mergetree_scan_kernel.launches
+    gpu.apply_messages(msgs)
+    n_ops = sum(1 for m in msgs if m.type.value == "op")
+    assert tms.mergetree_scan_kernel.launches - before == -(-n_ops // 128)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = KernelReplica(device="cpu", **kw)
+        cpu.apply_messages(msgs)
+    finally:
+        torch.set_num_threads(threads)
+    assert int(gpu.table.error) == int(cpu.table.error) == 0
+    assert gpu.capacity == cpu.capacity
+    assert gpu.get_text() == cpu.get_text()
+    assert gpu.annotated_spans() == cpu.annotated_spans()

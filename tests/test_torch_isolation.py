@@ -249,3 +249,49 @@ def test_rebase_no_silent_cpu_fallback(monkeypatch):
     with pytest.raises(AssertionError, match="the plain version ran"):
         trk.rebase_batch(*cols)
     assert trk.rebase_kernel.launches == 0
+
+
+def test_scan_no_silent_cpu_fallback(monkeypatch):
+    """The row-model scan: `KernelReplica`, the summary fold's kernel
+    backend and its boot given no device raise without CUDA;
+    `apply_op_batch` and `apply_op_batch_docs` send CPU tables only to
+    the plain version, another device never reaches it, and the CUDA
+    wrapper refuses CPU tensors without launching."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    from fluidframework_tpu_torch.core.kernel_replica import KernelReplica
+    from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
+    from fluidframework_tpu_torch.ops import mergetree_scan as tms
+    from fluidframework_tpu_torch.server.summary_fold import _boot_mergetree
+    from fluidframework_tpu_torch.testing.scan_edges import scan_edge_chunks
+
+    for make in (KernelReplica, lambda: _boot_mergetree([], 0),
+                 lambda: SummaryFolder(fold_backend="kernel"),
+                 lambda: interop.opbatch_from_numpy(
+                     scan_edge_chunks(64, 4, 8, 4, 16)[0]["ops"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    case = scan_edge_chunks(64, 4, 8, 4, 16)[5]
+    table = interop.segment_table_from_numpy(case["table"], "cpu")
+    ops = interop.opbatch_from_numpy(case["ops"], "cpu")
+    tables = tmk.stack_segment_tables([table, table])
+    batches = tmk.stack_op_batches([ops, ops])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tms.mergetree_scan_kernel(table, ops)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tms.mergetree_scan_kernel.docs(tables, batches)
+    assert tms.mergetree_scan_kernel.launches == 0
+    monkeypatch.setattr(tmk, "apply_op_batch_ref", boom)
+    monkeypatch.setattr(tmk, "apply_op_batch_docs_ref", boom)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmk.apply_op_batch(table.to("meta"), ops.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmk.apply_op_batch_docs(tables.to("meta"), batches.to("meta"))
+    with pytest.raises(AssertionError, match="the plain version ran"):
+        tmk.apply_op_batch(table, ops)
+    with pytest.raises(AssertionError, match="the plain version ran"):
+        tmk.apply_op_batch_docs(tables, batches)
