@@ -166,17 +166,25 @@ Phases, in order; any failure exits non-zero:
    mixed-warp share by `warp_steps`, and the instructions a step by
    REBASE_OPS of a warp of one kind against a mixed one;
 22. the row-model scan kernel (`csrc/mergetree_scan.cu`, one block per
-   document) against its plain version `apply_op_batch_ref`, run on CPU
-   copies of the same inputs in worker processes, exactly (int32,
-   tolerance 0) on n_rows, error and rows [:min(n_rows, C)]: the edge
-   chunks of `testing/scan_edges.py` at C 512, 1024 and 2048, each alone
-   and all stacked in one launch; then the launches of an untimed
-   kernel-backend fold sweep at D = 132 (config15's fold, as in phase
-   15): 8 documents on every launch of rounds 0 (C 1024), 4 (C 2048)
-   and the last (C 512), and all 132 on round 4's first launch; then
-   the kernel's time per launch by CUDA events behind a spin at C 512
-   (round 0's first launch), 1024 and 2048 (round 4's first launch),
-   D = 132 and one document, each beside its bound;
+   document, one pass an op) against its plain version
+   `apply_op_batch_ref`, run on CPU copies of the same inputs in worker
+   processes, exactly (int32, tolerance 0) on n_rows, error and rows
+   [:min(n_rows, C)]: the edge chunks of `testing/scan_edges.py` at C
+   512, 1024, 2048 and 16384 (the global layout), each alone and all
+   stacked in one launch; then the launches of an untimed kernel-backend
+   fold sweep at D = 132 (config15's fold, as in phase 15): 8 documents
+   on every launch of rounds 0 (C 1024), 4 (C 2048) and the last (C
+   512), and all 132 on round 4's first launch; then the kernel's time
+   per launch by CUDA events behind a spin at C 512 (round 0's first
+   launch), 1024 and 2048 (round 4's first launch), D = 132 and one
+   document, each beside its bound (the live rows in and out), with the
+   active warps and rows a thread that the blocks report from the card
+   (the kernels line) and the launcher's layout, computed (the log line
+   only); then its parts on round 4's first launch: all NOOP (the live
+   rows' copies alone), each op kind alone (the others made NOOP, 2
+   documents of each held), us an op by kind, and KernelReplica's
+   launches of doc 0 at C 4096 and 8192 (B 512, held whole), each with
+   its op loop as the card reports it;
 23. `SummaryFolder(fold_backend="kernel")` over config15's 4 documents:
    every manifest's seq, count and handle equal the JAX role's in
    fold_golden.json, and its scan launches equal those of phase 24's
@@ -378,11 +386,12 @@ REBASE_REPEATS = 5
 CONFIG4_ONE_KIND_SEED = 5
 # The row-model scan (csrc/mergetree_scan.cu) at the kernel fold's shape
 # (summary_fold: chunks of 128, KR 4, KK 8, PK 4): edge chunks at each
-# capacity the fold reaches; the fold's launches of round 0, round
+# capacity the fold reaches and at 16384 (the kernel's global layout,
+# above the first design's ceiling); the fold's launches of round 0, round
 # SCAN_TIMED_ROUND (timed, all its documents held) and the last round
 # held; SCAN_TIME_REPS launches a timing.
 FOLD_CHUNK = 128
-SCAN_EDGE_CAPACITIES = (512, 1024, 2048)
+SCAN_EDGE_CAPACITIES = (512, 1024, 2048, 16384)
 SCAN_TIMED_ROUND = 4
 SCAN_TIME_REPS = 20
 SCAN_COLS = ("buf_start", "length", "ins_seq", "ins_client", "rem_seq",
@@ -393,10 +402,23 @@ SCAN_COLS = ("buf_start", "length", "ins_seq", "ins_client", "rem_seq",
 # ref, their or, skip, visible, the length select (10) --, the thread
 # sum's and the prefix's adds (2), and the row's test against the
 # position -- its end prefix, two compares, the and (4). The remover
-# reads of removed rows are left out. 2 passes an insert, 3 a range op.
+# reads of removed rows are left out. One pass an op of any kind but
+# NOOP: the kernel decides an op's splits, landing and covered rows
+# from one pass (an earlier design's 2 passes an insert and 3 a range
+# op were its own, not the function's least work).
 SCAN_OPS_PER_PASS = 16
 # KernelReplica on the card (phase 25): the reference's defaults.
 REPLICA_CHUNK, REPLICA_CAPACITY = 512, 4096
+# The scan's parts (phase 22, `scan_part_times`): each op kind alone
+# (op codes of ops/mergetree_kernel.py), and KernelReplica's launches
+# of doc 0 at its two capacities: launch 1 at C 4096 (521 live rows)
+# and launch 3 at C 8192 (1633; the replica grows its table after its
+# second chunk), chunks of 512.
+SCAN_KINDS = (("insert", 0), ("remove", 1), ("annotate", 2))
+OP_NOOP_CODE = 3
+SCAN_REPLICA_LAUNCHES = {"replica_c4096": (1, 4096),
+                         "replica_c8192": (3, 8192)}
+FOLD_PARTS_DOCS = 2  # documents of each timed variant held to plain
 # GPU cycles of the spin that holds the stream while the host enqueues
 # timed sequencer launches (~25 ms at 1.98 GHz; doubled when short).
 SPIN_CYCLES = 50_000_000
@@ -1372,6 +1394,134 @@ def prop_runs(spans) -> list:
     return out
 
 
+def _stacked(x):
+    """One document's table or ops with a leading [1] axis."""
+    from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
+
+    if isinstance(x, tmk.SegmentTable):
+        return tmk.stack_segment_tables([x])
+    return tmk.stack_op_batches([x])
+
+
+def cut_docs(x, n: int):
+    """The first n documents of a stacked table or op batch (views)."""
+    return type(x)(*(getattr(x, f.name)[:n] for f in dataclasses.fields(x)))
+
+
+def record_fold_launches(streams: dict, step: int, dev):
+    """`run_fold_sweep(backend="kernel")` over `streams` on `dev`,
+    keeping each scan launch's stacked (tables, ops, output): returns
+    (the launches in order, the sweep's result)."""
+    from fluidframework_tpu_torch.server import summary_fold as sf
+    from fluidframework_tpu_torch.testing import fold_streams as fs
+
+    launches = []
+    real_docs, real_one = sf.apply_op_batch_docs, sf.apply_op_batch
+
+    def rec_docs(tables, ops):
+        out = real_docs(tables, ops)
+        launches.append((tables, ops, out))
+        return out
+
+    def rec_one(table, ops):
+        out = real_one(table, ops)
+        launches.append(tuple(_stacked(x) for x in (table, ops, out)))
+        return out
+
+    sf.apply_op_batch_docs, sf.apply_op_batch = rec_docs, rec_one
+    try:
+        warm = fs.run_fold_sweep(streams, step, dev, backend="kernel")
+    finally:
+        sf.apply_op_batch_docs, sf.apply_op_batch = real_docs, real_one
+    return launches, warm
+
+
+def record_replica_launches(records: list, dev) -> list:
+    """`KernelReplica` (chunks of REPLICA_CHUNK, capacity
+    REPLICA_CAPACITY) over one document's records as messages on `dev`,
+    keeping each scan launch's stacked (table, ops, output)."""
+    from fluidframework_tpu_torch.core import kernel_replica as kr
+    from fluidframework_tpu_torch.testing.fold_streams import as_messages
+
+    launches = []
+    real = kr.apply_op_batch
+
+    def rec(table, ops):
+        out = real(table, ops)
+        launches.append(tuple(_stacked(x) for x in (table, ops, out)))
+        return out
+
+    kr.apply_op_batch = rec
+    try:
+        rep = kr.KernelReplica(chunk_size=REPLICA_CHUNK,
+                               capacity=REPLICA_CAPACITY, device=dev)
+        rep.apply_messages(as_messages(records))
+    finally:
+        kr.apply_op_batch = real
+    return launches
+
+
+def scan_variants(ops) -> dict:
+    """The timed variants of one launch's ops (the op columns of the
+    other kinds set to NOOP in place): ``noop`` (the tables' copies in
+    and out alone), and ``insert``, ``remove`` and ``annotate``, each
+    kind alone."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
+
+    noop = torch.full_like(ops.op_type, tmk.OP_NOOP)
+    out = {"noop": dataclasses.replace(ops, op_type=noop)}
+    for name, k in SCAN_KINDS:
+        out[name] = dataclasses.replace(
+            ops, op_type=torch.where(ops.op_type == k, ops.op_type, noop))
+    return out
+
+
+def replica_timed_launches(records: list, dev) -> dict:
+    """KernelReplica's launches of SCAN_REPLICA_LAUNCHES over one
+    document's records on `dev`, by name: stacked (table, ops, output),
+    each checked to be at its capacity with chunks of REPLICA_CHUNK."""
+    rec = record_replica_launches(records, dev)
+    out = {}
+    for name, (k, C) in SCAN_REPLICA_LAUNCHES.items():
+        t, o, got = rec[k]
+        if (t.length.shape[1], o.op_type.shape[1]) != (C, REPLICA_CHUNK):
+            raise AssertionError(f"KernelReplica's launch {k} is at C "
+                                 f"{t.length.shape[1]}, B "
+                                 f"{o.op_type.shape[1]}; {name} expected "
+                                 f"C {C}, B {REPLICA_CHUNK}")
+        out[name] = (t, o, got)
+    return out
+
+
+def scan_part_times(launch, fold, extra: dict,
+                    reps: int = SCAN_TIME_REPS) -> dict:
+    """The scan's parts by CUDA events behind a spin (`spin_time`), for
+    `launch(tables, ops)`: ms a launch of `fold` (a stacked (tables,
+    ops) pair) as it is, of its all-NOOP variant and of each kind alone
+    (`scan_variants`), and of each named (tables, ops) of `extra`; and
+    us an op of each kind and of the mix, (ms - NOOP ms) over the most
+    ops of that kind in one document (the launch lasts as long as its
+    slowest block)."""
+    tables, ops = fold
+    t = ops.op_type
+    out = {"fold_ms": spin_time(lambda: launch(tables, ops), reps)}
+    for name, o in scan_variants(ops).items():
+        out[f"{name}_ms"] = spin_time(lambda o=o: launch(tables, o), reps)
+    for name, (tt, oo) in extra.items():
+        out[f"{name}_ms"] = spin_time(lambda tt=tt, oo=oo: launch(tt, oo),
+                                      reps)
+    us = {}
+    for name, k in SCAN_KINDS + (("mix", None),):
+        live = (t != OP_NOOP_CODE) if k is None else (t == k)
+        most = int(live.sum(1).max())
+        ms = out["fold_ms" if k is None else f"{name}_ms"]
+        us[name] = (ms - out["noop_ms"]) * 1e3 / most if most else None
+    out["us_per_op"] = us
+    return out
+
+
 def scan_phases(dev, log, overlay_runs=None) -> dict:
     """Phases 22-25, the row-model scan (`csrc/mergetree_scan.cu`) and
     its paths, on `dev`: the kernel against its plain version (on CPU
@@ -1476,27 +1626,7 @@ def scan_phases(dev, log, overlay_runs=None) -> dict:
 
     # The fold's own launches: a warm-up sweep of the kernel backend at
     # D = 132 (untimed) keeps each launch's stacked inputs and output.
-    launches_rec = []
-    real_docs, real_one = sf.apply_op_batch_docs, sf.apply_op_batch
-
-    def rec_docs(tables, ops):
-        out = real_docs(tables, ops)
-        launches_rec.append((tables, ops, out))
-        return out
-
-    def rec_one(table, ops):
-        out = real_one(table, ops)
-        launches_rec.append(tuple(tmk.stack_segment_tables([x])
-                                  if isinstance(x, tmk.SegmentTable) else
-                                  tmk.stack_op_batches([x])
-                                  for x in (table, ops, out)))
-        return out
-
-    sf.apply_op_batch_docs, sf.apply_op_batch = rec_docs, rec_one
-    try:
-        warm = fs.run_fold_sweep(streams, step, dev, backend="kernel")
-    finally:
-        sf.apply_op_batch_docs, sf.apply_op_batch = real_docs, real_one
+    launches_rec, warm = record_fold_launches(streams, step, dev)
     torch.cuda.synchronize()
     first = np.cumsum([0] + [r["chunks"] for r in warm["rounds"]])
     if first[-1] != len(launches_rec):
@@ -1530,23 +1660,37 @@ def scan_phases(dev, log, overlay_runs=None) -> dict:
         f"{sorted(caps)}; {FOLD_LATE_DOCS} documents each, all {D} on "
         f"round {SCAN_TIMED_ROUND}'s first)")
 
-    def bound(tables, ops):
-        """Least time for one launch's work: the tables in and out and
-        the ops in once over the HBM rate, against SCAN_OPS_PER_PASS
-        int32 operations per live row per pass (2 passes an insert, 3 a
-        remove or annotate) over the ALU rate, live rows taken at the
-        chunk's start."""
+    def bound(tables, ops, n_out):
+        """Least time for one launch's work: each document's live rows
+        in (min(C, n_rows)), its live rows out (min(C, n_out), `n_out`
+        the launch's output n_rows), its n_rows and error word in and
+        out and its ops in, once, over the HBM rate (the rows above are
+        scratch, read and written by no one), against SCAN_OPS_PER_PASS
+        int32 operations per live row for each op but NOOPs (one pass
+        an op) over the ALU rate, live rows taken at the chunk's
+        start."""
         Dn, C = tables.length.shape
         KR, KK = tables.rem_clients.shape[2], tables.props.shape[2]
         B, PK = ops.prop_keys.shape[1:]
-        nbytes = 4 * Dn * (2 * (C * (5 + KR + KK) + 2) + B * (8 + 2 * PK))
+        live = torch.clamp(tables.n_rows, 0, C).to(torch.int64)
+        live_out = torch.clamp(n_out, 0, C).to(torch.int64)
+        rows = int(live.sum()) + int(live_out.sum())
+        nbytes = 4 * (rows * (5 + KR + KK) + Dn * (4 + B * (8 + 2 * PK)))
         t = ops.op_type
-        passes = (2 * (t == tmk.OP_INSERT) + 3 * ((t == tmk.OP_REMOVE)
-                                                  | (t == tmk.OP_ANNOTATE)))
-        live = torch.clamp(tables.n_rows, max=C).to(torch.int64)
+        passes = ((t == tmk.OP_INSERT) | (t == tmk.OP_REMOVE)
+                  | (t == tmk.OP_ANNOTATE)).to(torch.int64)
         n_int = int((passes.sum(1) * live).sum()) * SCAN_OPS_PER_PASS
         b_s, o_s = nbytes / PEAK_BYTES_S, n_int / PEAK_OPS_S
         return max(b_s, o_s) * 1e3, "bytes" if b_s >= o_s else "operations"
+
+    def geometry(tables, ops):
+        """One launch's op loops as the card's blocks report them
+        (`last_geometry`): ((rows a thread min, max), (warps min, max)),
+        and the launch's output."""
+        out = kernel.docs(tables, ops)
+        g = kernel.last_geometry.cpu()
+        return ((int(g[:, 0].min()), int(g[:, 0].max())),
+                (int(g[:, 1].min()), int(g[:, 1].max()))), out
 
     def cut(tables, C):
         """The stacked tables' first C rows (rows at and above n_rows
@@ -1571,16 +1715,19 @@ def scan_phases(dev, log, overlay_runs=None) -> dict:
         if int(tab.n_rows.max()) + 2 * ops.op_type.shape[1] > C:
             raise AssertionError(f"the timed tables do not fit C {C}")
         one = (tab.doc(0), ops.doc(0))
+        loops, out = geometry(tab, ops)
+        if C == 2048:
+            timed_loops = loops
         for n_d, fn in ((tab.length.shape[0], lambda: kernel.docs(tab, ops)),
                         (1, lambda: kernel(*one))):
             ms = spin_time(fn, SCAN_TIME_REPS)
-            sub = (tab, ops) if n_d > 1 else tuple(
-                tmk.stack_segment_tables([one[0]]) if i == 0 else
-                tmk.stack_op_batches([one[1]]) for i in range(2))
+            sub = (tab, ops, out.n_rows) if n_d > 1 else (
+                cut_docs(tab, 1), cut_docs(ops, 1), out.n_rows[:1])
             b_ms, b_by = bound(*sub)
             times[f"C{C}_D{n_d}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
     head = times[f"C2048_D{D}"]
-    nt, rpt, smem = scan_geometry(2048, FOLD_CHUNK, 4)
+    geom = scan_geometry(2048, FOLD_CHUNK, 4, 4, 8)
+    (rpt_lo, rpt_hi), (w_lo, w_hi) = timed_loops
     log(f"mergetree_scan per launch (CUDA events behind a spin, "
         f"{SCAN_TIME_REPS} launches; C 512 on round 0's first launch, 1024 "
         f"and 2048 on round {SCAN_TIMED_ROUND}'s; B {FOLD_CHUNK}, KR 4, KK "
@@ -1589,8 +1736,49 @@ def scan_phases(dev, log, overlay_runs=None) -> dict:
                     f"{v['bound_by']})" for k, v in times.items())
         + f"; the plain version {plain_ms:.2f} ms for round "
         f"{SCAN_TIMED_ROUND}'s launch of {D} documents (CPU, one thread "
-        f"a document, summed); block {nt} threads x {rpt} rows, {smem} "
-        f"shared bytes at C 2048; phase 22 {time.perf_counter() - t22:.2f}s")
+        f"a document, summed); at C 2048 the launcher's block (computed, "
+        f"`scan_geometry`): {geom.threads} threads, hot columns {geom.hot}, "
+        f"remover half {geom.removers}, props half {geom.props}, "
+        f"{geom.smem} shared bytes; the blocks' op loops (read from the "
+        f"card): {w_lo}-{w_hi} active warps at {rpt_lo}-{rpt_hi} rows a "
+        f"thread on the timed launch ({int(timed_tables.n_rows.min())}"
+        f"-{int(timed_tables.n_rows.max())} live rows); the share of the "
+        f"bound at C 2048, D {D}: {head['bound_ms'] / head['ms']:.4f}; "
+        f"phase 22 {time.perf_counter() - t22:.2f}s")
+    # The parts: the timed C 2048 launch of all D documents as it is,
+    # all NOOP and each kind alone, and KernelReplica's launches at C
+    # 4096 and 8192 (B 512, one document); each variant held on
+    # FOLD_PARTS_DOCS documents, the replica's launches whole.
+    reps = replica_timed_launches(streams[docs[0]], dev)
+    for name, (rt, ro, rg) in reps.items():
+        hold(rt, ro, rg, name)
+    for name, o in scan_variants(timed_ops).items():
+        hold(timed_tables, o, kernel.docs(timed_tables, o),
+             f"{name} variant", range(FOLD_PARTS_DOCS))
+    n_parts, _, _ = settle()
+    parts = scan_part_times(kernel.docs, (timed_tables, timed_ops),
+                            {k: v[:2] for k, v in reps.items()})
+    rep_loops = {}
+    for name, (rt, ro, rg) in reps.items():
+        parts[f"{name}_bound_ms"], _ = bound(rt, ro, rg.n_rows)
+        rep_loops[name], _ = geometry(rt, ro)
+    log(f"mergetree_scan parts at C 2048, D {D} (CUDA events behind a "
+        f"spin; {n_parts} variant launches held exactly): as it is "
+        f"{parts['fold_ms']:.4f} ms, all NOOP {parts['noop_ms']:.4f}, "
+        f"inserts only {parts['insert_ms']:.4f}, removes only "
+        f"{parts['remove_ms']:.4f}, annotates only "
+        f"{parts['annotate_ms']:.4f}; us an op (over the most ops of the "
+        f"kind in one document, NOOP launch taken off): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts["us_per_op"].items()
+                    if v is not None)
+        + "; KernelReplica's launches of doc 0 (B "
+        f"{REPLICA_CHUNK}): " + ", ".join(
+            f"{name} {parts[name + '_ms']:.4f} ms (bound "
+            f"{parts[name + '_bound_ms']:.6f}, "
+            f"{int(reps[name][0].n_rows[0])} live rows, "
+            f"{rep_loops[name][0][0]} rows a thread on "
+            f"{rep_loops[name][1][0]} warps, read from the card)"
+            for name in reps))
 
     # ---- 23. the summary folder on the kernel backend ------------------
     folder = sf.SummaryFolder(summary_ops=step, device=dev,
@@ -1715,7 +1903,8 @@ def scan_phases(dev, log, overlay_runs=None) -> dict:
         f"{t_rep:.3f}s = {n_rep / t_rep:,.0f} ops/s one document at a time "
         f"(scan launches {launches_rep}); text, spans and error word equal "
         f"the CPU run's and the overlay message replica's")
-    b_ms, b_by = bound(timed_tables, timed_ops)
+    b_ms, b_by = bound(timed_tables, timed_ops,
+                       launches_rec[first[SCAN_TIMED_ROUND]][2].n_rows)
     return dict(
         launches=runs[-1]["launches"],
         max_abs_err=max_err,
@@ -1729,6 +1918,10 @@ def scan_phases(dev, log, overlay_runs=None) -> dict:
             "kernel_replica": launches_rep,
         },
         times=times,
+        parts=parts,
+        us_per_op=parts["us_per_op"],
+        rows_per_thread=[rpt_lo, rpt_hi],
+        active_warps=[w_lo, w_hi],
         held_pairs=n_edge + n_fold,
         fold_kernel_runs=runs,
     )

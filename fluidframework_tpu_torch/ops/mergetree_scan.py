@@ -9,15 +9,21 @@ plain version is `mergetree_kernel.apply_op_batch_ref` /
 `apply_op_batch_docs_ref`; the dispatchers `apply_op_batch` and
 `apply_op_batch_docs` send CUDA tables here.
 
-`scan_geometry` gives a block's threads, rows per thread and shared
-bytes, and raises ValueError above the capacity ceiling (8192 rows,
-within the 227 KB of opt-in shared memory with the chunk's ops).
+`scan_geometry` gives a block's threads, layout and shared bytes: the
+chunk's ops always in shared memory, then the hot columns, the cold
+heap's remover half and its props half each in shared memory where it
+still fits (else in global memory, the hot columns in a per-document
+scratch). It raises only where a chunk's ops cannot fit in shared
+memory; there is no capacity ceiling. Each block picks its op loop's
+rows a thread and warps from its own n_rows on the card and reports
+them (`MergetreeScanKernel.last_geometry`).
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import fields
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,39 +33,73 @@ from .mergetree_kernel import OpBatch, SegmentTable
 I32 = torch.int32
 
 # These constants must match csrc/mergetree_scan.cu.
-MAX_THREADS = 1024
-MAX_ROWS_PER_THREAD = 8
-MAX_CAPACITY = MAX_THREADS * MAX_ROWS_PER_THREAD  # 8192 rows
+THREADS = 512
 HOT_COLS = 6  # buf_start, length, ins_seq, ins_client, rem_seq, slot
 OP_COLS = 8  # op_type, pos1, pos2, seq, ref_seq, client, buf, len
-SMEM_MISC = 1024  # bytes of the block's scan and min scratch
+SMEM_MISC = 2048  # bytes of the block's scan and search slots
 SMEM_OPTIN = 232448  # an H100 block's opt-in dynamic shared memory (227 KB)
+# `layout` bits: the part lies in shared memory.
+LAYOUT_HOT, LAYOUT_REMOVERS, LAYOUT_PROPS = 1, 2, 4
 
 
-def scan_geometry(capacity: int, B: int, PK: int):
-    """The kernel's block for tables of `capacity` rows and chunks of B
-    ops with PK prop slots: (NT threads, R rows per thread, dynamic
-    shared bytes). NT is `capacity` rounded up to a warp, at most 1024;
-    thread t owns rows [t*R, t*R + R). Raises ValueError above the
-    ceiling: capacity <= 8192 (R <= 8) and the six hot columns plus
-    the chunk's ops within the opt-in shared memory."""
-    if capacity < 1 or B < 0 or PK < 0:
+class ScanGeometry(NamedTuple):
+    """A launch's block: threads, where the hot columns, the remover
+    half and the props half of the cold heap lie ("shared" or
+    "global"), and the dynamic shared bytes."""
+
+    threads: int
+    hot: str
+    removers: str
+    props: str
+    smem: int
+
+    @property
+    def layout(self) -> int:
+        return ((LAYOUT_HOT if self.hot == "shared" else 0)
+                | (LAYOUT_REMOVERS if self.removers == "shared" else 0)
+                | (LAYOUT_PROPS if self.props == "shared" else 0))
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def scan_geometry(capacity: int, B: int, PK: int, KR: int = 4,
+                  KK: int = 8) -> ScanGeometry:
+    """The kernel's block for tables of `capacity` rows with KR remover
+    and KK prop columns, and chunks of B ops with PK prop slots.
+
+    The block has 512 threads, all of which copy the live rows in and
+    out. The hot columns take shared memory first (rows permuted within
+    each 32-row group) where they fit beside the ops, else a
+    per-document scratch in global memory; then the remover half of the
+    cold heap (C + 2B rows of KR ints) and its props half (KK ints) each
+    take shared memory where it still fits. Each block takes its op
+    loop from the rows its chunk can reach, min(C, n_rows + 2B): one or
+    two rows a thread in registers up to 512 or 1024 of them with the
+    hot columns in shared memory, else the swept loop (the fewest even
+    number of rows a thread at which its 16 warps hold them), on the
+    warps those rows need. Raises ValueError only where the chunk's ops
+    do not fit in shared memory."""
+    if capacity < 1 or B < 0 or PK < 0 or KR < 1 or KK < 0:
         raise ValueError("scan_geometry: bad table or chunk sizes")
-    if capacity > MAX_CAPACITY:
-        raise ValueError(
-            f"capacity {capacity} is above the scan kernel's ceiling of "
-            f"{MAX_CAPACITY} rows ({MAX_ROWS_PER_THREAD} rows a thread at "
-            f"{MAX_THREADS} threads)")
-    NT = min(MAX_THREADS, -(-capacity // 32) * 32)
-    R = -(-capacity // NT)
-    cols = 4 * (HOT_COLS * capacity + OP_COLS * B + 2 * B * PK)
-    smem = -(-cols // 16) * 16 + SMEM_MISC
+    C = capacity
+    smem = SMEM_MISC + 4 * (OP_COLS * B + 2 * B * PK)
     if smem > SMEM_OPTIN:
         raise ValueError(
-            f"the scan kernel needs {smem} shared bytes for capacity "
-            f"{capacity} and chunks of {B} ops x {PK} prop slots; the "
-            f"ceiling is {SMEM_OPTIN}")
-    return NT, R, smem
+            f"the scan kernel needs {smem} shared bytes for chunks of {B} "
+            f"ops x {PK} prop slots alone; a block has {SMEM_OPTIN}")
+    hot_bytes = 4 * HOT_COLS * _ceil(C, 32) * 32
+    hot = "shared" if smem + hot_bytes <= SMEM_OPTIN else "global"
+    if hot == "shared":
+        smem += hot_bytes
+    parts = []
+    for cols in (KR, KK):
+        part = 4 * (C + 2 * B) * cols
+        parts.append("shared" if smem + part <= SMEM_OPTIN else "global")
+        if parts[-1] == "shared":
+            smem += part
+    return ScanGeometry(THREADS, hot, parts[0], parts[1], smem)
 
 
 class MergetreeScanKernel:
@@ -70,12 +110,17 @@ class MergetreeScanKernel:
     incremented where the kernel is launched and nowhere else. `docs`
     takes tables and ops with a leading ``[D]`` axis and makes one
     launch of D blocks; calling the wrapper on one table launches one
-    block. The wrapper checks device, dtype, shape and capacity,
-    allocates the output tables and the per-document cold-row heap
-    (``[D, C + 2B, KR + KK]``), launches on PyTorch's current stream
+    block. The wrapper checks device, dtype and shape, takes the block
+    from `scan_geometry`, allocates the output tables, the per-document
+    cold-row heap (``[D, C + 2B, KR + KK]``, where a half of it lies in
+    global memory) and the hot scratch (``[D, 6, C rounded up to 32]``,
+    where the hot columns do), launches on PyTorch's current stream
     without synchronising, and raises if the launch was refused: there
     is no fallback. The inputs are never written. Rows at and above
-    ``n_rows`` of the output are scratch."""
+    ``n_rows`` of the output are scratch (not written).
+    ``last_geometry`` is the last launch's ``[D, 2]`` int32 output on
+    the card: the rows a thread and the warps of each block's op
+    loop."""
 
     name = "mergetree_scan"
     source = "fluidframework_tpu_torch/csrc/mergetree_scan.cu"
@@ -83,16 +128,21 @@ class MergetreeScanKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.last_geometry: Optional[torch.Tensor] = None
         self._fn = None
+
+    @staticmethod
+    def bind(lib: ctypes.CDLL):
+        """The C entry of a loaded kernel library, typed."""
+        fn = lib.mergetree_scan_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 10 + [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        return fn
 
     def _entry(self):
         if self._fn is None:
-            lib = _build.load(self.name)
-            fn = lib.mergetree_scan_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 11 + [
-                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
-            self._fn = fn
+            self._fn = self.bind(_build.load(self.name))
         return self._fn
 
     def __call__(self, table: SegmentTable, ops: OpBatch) -> SegmentTable:
@@ -103,6 +153,7 @@ class MergetreeScanKernel:
         return stacked.doc(0)
 
     def docs(self, tables: SegmentTable, ops: OpBatch) -> SegmentTable:
+        """One launch for a chunk of every document."""
         dev = tables.length.device
         if dev.type != "cuda":
             raise ValueError(
@@ -137,7 +188,7 @@ class MergetreeScanKernel:
                 raise ValueError(f"mergetree scan kernel: shape "
                                  f"{tuple(t.shape)} where {shape} was "
                                  f"expected")
-        NT, R, smem = scan_geometry(C, B, PK)
+        g = scan_geometry(C, B, PK, KR, KK)
         ins = [t.contiguous() for t in ins]
         out = SegmentTable(
             n_rows=torch.empty_like(ins[0]), error=torch.empty_like(ins[1]),
@@ -147,14 +198,21 @@ class MergetreeScanKernel:
             rem_seq=torch.empty_like(ins[6]),
             rem_clients=torch.empty_like(ins[7]),
             props=torch.empty_like(ins[8]))
-        heap = torch.empty((D, C + 2 * B, KR + KK), dtype=I32, device=dev)
+        global_heap = "global" in (g.removers, g.props)
+        heap = torch.empty((D, C + 2 * B, KR + KK) if global_heap else (1,),
+                           dtype=I32, device=dev)
+        hot = torch.empty((D, HOT_COLS, _ceil(C, 32) * 32)
+                          if g.hot == "global" else (1,),
+                          dtype=I32, device=dev)
+        geometry = torch.empty((D, 2), dtype=I32, device=dev)
         outs = [out.buf_start, out.length, out.ins_seq, out.ins_client,
                 out.rem_seq, out.rem_clients, out.props, out.n_rows,
                 out.error]
         _build.launch(self.name, self._entry(), dev,
-                      (D, C, KR, KK, B, PK, NT, R, smem),
-                      ins + outs + [heap])
+                      (D, C, KR, KK, B, PK, g.layout, g.smem),
+                      ins + outs + [heap, hot, geometry])
         self.launches += 1
+        self.last_geometry = geometry
         return out
 
 

@@ -13,6 +13,7 @@ with the reason. On the GPU run them with
 GPU host need not have; this file imports only the port.)
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -42,7 +43,10 @@ from fluidframework_tpu_torch.server.summary_fold import (
     _boot_mergetree,
     _encode_fold,
 )
-from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
+from fluidframework_tpu_torch.testing.block_edges import (
+    block_edge_chunks,
+    edge_table,
+)
 from fluidframework_tpu_torch.testing.digest import state_digest
 from fluidframework_tpu_torch.testing.fold_streams import (
     as_messages,
@@ -51,7 +55,11 @@ from fluidframework_tpu_torch.testing.fold_streams import (
     load_fold_golden,
     run_fold_sweep,
 )
-from fluidframework_tpu_torch.testing.scan_edges import scan_edge_chunks
+from fluidframework_tpu_torch.testing.scan_edges import (
+    OP_LOOP_CASES,
+    random_chunk,
+    scan_edge_chunks,
+)
 from fluidframework_tpu_torch.testing.overlay_edges import (
     overlay_edge_chunks,
     widen_prop_slots,
@@ -622,11 +630,13 @@ def _stack(cases, key):
     return {k: np.stack([c[key][k] for c in cases]) for k in cases[0][key]}
 
 
-@pytest.mark.parametrize("C", [64, 512, 2048, 8192])
+@pytest.mark.parametrize("C", [64, 512, 2048, 8192, 16384])
 def test_scan_kernel_edge_chunks(cuda, C):
     """Every edge chunk of `testing/scan_edges.py` alone (one block) and
     the chunks of 128 ops stacked in one launch, against the plain
-    version on CPU copies."""
+    version on CPU copies (C 8192: the hot columns in shared memory, the
+    full tables on the swept op loop, the heap global; C 16384: the
+    global layout)."""
     cases = scan_edge_chunks(C, 4, 8, 4, 128)
     before = tms.mergetree_scan_kernel.launches
     for case in cases:
@@ -679,8 +689,39 @@ def test_scan_kernel_leaves_its_input(cuda):
     assert all(np.array_equal(before[k], after[k]) for k in before)
     _assert_scan_equal(tmk.stack_segment_tables([second]),
                        tmk.stack_segment_tables([first]))
-    with pytest.raises(ValueError, match="ceiling of 8192 rows"):
-        tms.mergetree_scan_kernel(make_table(8193, 4, 8, device=cuda), o)
+    # No capacity ceiling: a full table of 8193 rows (hot columns in
+    # shared memory, the heap global, the swept op loop).
+    big = interop.segment_table_from_numpy(
+        scan_edge_chunks(8193, 4, 8, 4, 128)[0]["table"], cuda)
+    g = tms.scan_geometry(8193, 128, 4)
+    assert (g.hot, g.removers, g.props) == ("shared", "global", "global")
+    got = tms.mergetree_scan_kernel(big, o)
+    want = tmk.apply_op_batch_ref(big.to("cpu"), o.to("cpu"))
+    _assert_scan_equal(tmk.stack_segment_tables([got]),
+                       tmk.stack_segment_tables([want]))
+    # What still raises: a chunk's ops that do not fit in shared memory.
+    wide = OpBatch(*(torch.cat([getattr(o, f.name)] * 32)
+                     for f in dataclasses.fields(OpBatch)))
+    with pytest.raises(ValueError, match="shared bytes"):
+        tms.mergetree_scan_kernel(t, wide)
+
+
+@pytest.mark.parametrize("C, n, loop", OP_LOOP_CASES)
+def test_scan_kernel_op_loops(cuda, C, n, loop):
+    """Each op loop, chosen by the block from the rows its chunk can
+    reach (min(C, n + 2B), B 128), as the card reports it (rows a
+    thread, warps), on a chunk of random ops against the plain
+    version."""
+    t = interop.segment_table_from_numpy(edge_table(C, 4, 8, n), cuda)
+    o = interop.opbatch_from_numpy(random_chunk(n, 128, 4, C + n), cuda)
+    kernel = tms.MergetreeScanKernel()
+    got = kernel(t, o)
+    assert tuple(kernel.last_geometry[0].tolist()) == loop
+    want = tmk.apply_op_batch_ref(t.to("cpu"), o.to("cpu"))
+    assert int(want.error) == 0 and int(want.n_rows) > n
+    _assert_scan_equal(tmk.stack_segment_tables([got]),
+                       tmk.stack_segment_tables([want]), f"C {C} n {n}")
+    assert kernel.launches == 1
 
 
 def test_cuda_kernel_fold_meets_fold_golden(cuda):
@@ -733,5 +774,30 @@ def test_cuda_kernel_replica_matches_cpu(cuda):
         torch.set_num_threads(threads)
     assert int(gpu.table.error) == int(cpu.table.error) == 0
     assert gpu.capacity == cpu.capacity
+    assert gpu.get_text() == cpu.get_text()
+    assert gpu.annotated_spans() == cpu.annotated_spans()
+
+
+def test_cuda_kernel_replica_above_the_old_ceiling_matches_cpu(cuda):
+    """KernelReplica at capacity 16384 (the scan kernel's global layout)
+    over a config15 stream, against the same replica on the CPU."""
+    golden = load_fold_golden()
+    msgs = as_messages(next(iter(golden_streams(golden, 1).values())))
+    kw = dict(chunk_size=512, capacity=16384)
+    assert tms.scan_geometry(16384, 512, 4).hot == "global"
+    gpu = KernelReplica(device=cuda, **kw)
+    before = tms.mergetree_scan_kernel.launches
+    gpu.apply_messages(msgs)
+    n_ops = sum(1 for m in msgs if m.type.value == "op")
+    assert tms.mergetree_scan_kernel.launches - before == -(-n_ops // 512)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = KernelReplica(device="cpu", **kw)
+        cpu.apply_messages(msgs)
+    finally:
+        torch.set_num_threads(threads)
+    assert int(gpu.table.error) == int(cpu.table.error) == 0
+    assert gpu.capacity == cpu.capacity == 16384
     assert gpu.get_text() == cpu.get_text()
     assert gpu.annotated_spans() == cpu.annotated_spans()

@@ -14,9 +14,11 @@ pass C once ``ERR_CAPACITY`` is set, as in the reference):
   KR 4, KK 8, PK 4) at C 512, 1024 and 2048, from an empty table and
   from a document booted at a later round;
 - D = 4 stacked tables with different n_rows through the docs form;
-- the edge chunks of `testing/scan_edges.py` at C 64 and 1024;
-- the kernel's block geometry and capacity ceiling, and the stacked
-  `interop` converters both ways.
+- the edge chunks of `testing/scan_edges.py` at C 64, 1024 and 16384
+  (the kernel's global layout), and what each of them is named for;
+- the kernel's block geometry and layouts (no capacity ceiling; only
+  a chunk's ops that do not fit in shared memory raise), and the
+  stacked `interop` converters both ways.
 """
 
 import jax
@@ -32,7 +34,6 @@ from fluidframework_tpu.testing.farm import FarmConfig, run_sharedstring_farm
 from fluidframework_tpu_torch import interop
 from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
 from fluidframework_tpu_torch.ops.mergetree_scan import (
-    MAX_CAPACITY,
     SMEM_OPTIN,
     scan_geometry,
 )
@@ -201,7 +202,8 @@ def test_scan_docs_form_matches_jax_on_four_documents():
 # ----------------------------------------------------------------------
 # edge chunks
 
-EDGE_GEOMETRIES = ((64, 4, 8, 4, 16), (1024, 4, 8, 4, 16))
+EDGE_GEOMETRIES = ((64, 4, 8, 4, 16), (1024, 4, 8, 4, 16),
+                   (16384, 4, 8, 4, 16))
 
 
 @pytest.mark.parametrize("C,KR,KK,PK,B", EDGE_GEOMETRIES)
@@ -220,8 +222,14 @@ def test_scan_edge_chunks_hold_their_semantics():
     """What the edge chunks show, read from the JAX scan: a full table
     grows n_rows past C and flags ERR_CAPACITY, a NOOP chunk leaves a
     table alone (but flags one already past C), repeated insert keys
-    keep the last slot and a negative key counts from the end once."""
-    cases = {c["label"]: c for c in scan_edge_chunks(64, 4, 8, 4, 16)}
+    keep the last slot and a negative key counts from the end once; an
+    insert inside a row lands between its head and its tail; a range op
+    inside one row or across two covers exactly the pieces between its
+    cuts, none with pos2 below pos1, and no row of zero visibility or
+    tombstone; inserts land at 0 and at the visible total; the tables
+    near C and the live-row cases grow as their ops open rows."""
+    C = 64
+    cases = {c["label"]: c for c in scan_edge_chunks(C, 4, 8, 4, 16)}
     out = {k: _jax_apply(c["table"], c["ops"]) for k, c in cases.items()}
     assert int(out["full table: insert at the end"].n_rows) == 65
     assert int(out["full table: split of the last row"].n_rows) == 66
@@ -241,21 +249,80 @@ def test_scan_edge_chunks_hold_their_semantics():
     assert int(out["a remover row with no free slot"].error) == \
         tmk.ERR_REMOVERS
 
+    def live(label):
+        t = out[label]
+        n = int(t.n_rows)
+        return n, {f: np.asarray(getattr(t, f))[:n] for f in COLS}
+
+    removed = int(jmk.NOT_REMOVED)
+    # The first insert splits row 1 (2..3) at 3: head, new row, tail.
+    n, t = live("an insert strictly inside a row")
+    assert n == 16 and t["ins_seq"][:4].tolist() == [1, 2, 74, 2]
+    assert t["length"][1:4].tolist() == [1, 3, 1] and t["buf_start"][3] == 3
+    # Rows of 6: the annotate cuts row 3 at 19 and 22, the remove row 1
+    # at 7 and 10; only the middle pieces are touched.
+    n, t = live("a remove and an annotate inside one row")
+    assert n == 12 and (t["rem_seq"] != removed).nonzero()[0].tolist() == [2]
+    assert t["buf_start"][2] == 7 and t["length"][1:4].tolist() == [1, 3, 2]
+    assert (t["props"][:, 0] == 5).nonzero()[0].tolist() == [6]
+    assert t["length"][5:8].tolist() == [1, 3, 2]
+    n, t = live("a remove and an annotate across adjacent rows")
+    assert n == 12 and (t["rem_seq"] == 75).nonzero()[0].tolist() == [2, 3]
+    assert t["buf_start"][2:4].tolist() == [9, 12]
+    assert (t["props"][:, 1] == 6).nonzero()[0].tolist() == [8, 9]
+    n, t = live("range ops with pos2 below pos1")
+    assert n == 12 and (t["rem_seq"] == removed).all()
+    assert (t["props"] == -1).all() and int(t["length"].sum()) == 48
+    n, t = live("a range op across rows of zero visibility and tombstones")
+    hidden = np.isin(t["ins_seq"], (100, 101))
+    assert hidden.sum() == 2 and (t["rem_seq"][hidden] == removed).all()
+    assert (t["props"][hidden] == -1).all()
+    assert (t["rem_seq"] == 20).sum() == 2
+    assert (t["rem_clients"][t["rem_seq"] == 20, 0] == 2).all()
+    assert (t["rem_seq"] == 200).sum() == 4
+    n, t = live("inserts at 0 and at the visible total")
+    assert n == 13 and t["ins_seq"][0] == 74
+    assert t["ins_seq"][11:].tolist() == [75, 76]
+    for k in (3, 2, 1):
+        w = out[f"n = C - {k}: one pass, then step by step"]
+        assert int(w.n_rows) == C - k + 7
+        assert int(w.error) & tmk.ERR_CAPACITY
+    for n0 in (31, 32, 33):
+        w = out[f"{n0} live rows"]
+        assert int(w.n_rows) == n0 + 8 and int(w.error) == 0
+    grown = out["a chunk that grows its table across a warp's rows"]
+    assert int(grown.n_rows) == 44 and int(grown.error) == 0
+
 
 # ----------------------------------------------------------------------
 # the kernel's geometry and the stacked converters
 
 
 def test_scan_geometry_and_ceiling():
-    assert scan_geometry(512, 128, 4)[:2] == (512, 1)
-    assert scan_geometry(1500, 8, 4)[:2] == (1024, 2)
-    assert scan_geometry(2048, 128, 4)[:2] == (1024, 2)
-    NT, R, smem = scan_geometry(MAX_CAPACITY, 128, 4)
-    assert (NT, R) == (1024, 8) and smem <= SMEM_OPTIN
-    with pytest.raises(ValueError, match="ceiling of 8192 rows"):
-        scan_geometry(MAX_CAPACITY + 1, 128, 4)
+    """The layouts: everything in shared memory at the fold's shapes,
+    the props half global at KernelReplica's C 4096 / B 512, the hot
+    columns in shared memory wherever they fit beside the ops (C 8192
+    and 8193) and in global memory above, with no capacity ceiling;
+    only a chunk's ops that do not fit in shared memory raise."""
+    for C in (64, 512, 1024, 2048):
+        g = scan_geometry(C, 128, 4, 4, 8)
+        assert g.threads == 512
+        assert (g.hot, g.removers, g.props) == ("shared",) * 3
+        assert g.layout == 7 and g.smem <= SMEM_OPTIN
+    g = scan_geometry(4096, 512, 4, 4, 8)
+    assert (g.hot, g.removers, g.props) == ("shared", "shared", "global")
+    for C, B in ((8192, 128), (8192, 512), (8193, 128)):
+        g = scan_geometry(C, B, 4, 4, 8)
+        assert (g.hot, g.removers, g.props) == ("shared", "global", "global")
+        assert g.layout == 1 and g.smem <= SMEM_OPTIN
+    for C, B in ((16384, 128), (16384, 512), (1 << 20, 128)):
+        g = scan_geometry(C, B, 4, 4, 8)
+        assert (g.hot, g.threads) == ("global", 512)
+        assert g.smem <= SMEM_OPTIN
+    assert scan_geometry(16384, 128, 4, 4, 8).layout == 0
+    assert scan_geometry(9000, 512, 4, 4, 8).removers == "shared"
     with pytest.raises(ValueError, match="shared bytes"):
-        scan_geometry(MAX_CAPACITY, 1024, 4)
+        scan_geometry(2048, 4096, 4)
 
 
 def test_interop_stacked_tables_and_batches_round_trip():
