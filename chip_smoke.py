@@ -9,13 +9,14 @@ Drives the port's replay paths on the card, through
 measures on the JAX package, the row-model replay (``ColumnarReplica``,
 ``bench.py`` with ``BENCH_ENGINE=pallas``), the summary service's fold,
 the message-driven overlay replica, the deli sequencer (BASELINE
-config 5), SharedTree's batched rebase (BASELINE config 4), and the
+config 5), SharedTree's batched rebase (BASELINE config 4), the
 row-model scan under `KernelReplica` and the summary fold's ``kernel``
-backend.
+backend, the row model's zamboni, and the row model's scan engine
+(``bench.py`` with ``BENCH_ENGINE=scan``).
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
-2. builds the five CUDA kernels (nvcc, sm_90a) and the native stream
+2. builds the six CUDA kernels (nvcc, sm_90a) and the native stream
    engine (g++) from the checkout's sources, in parallel;
 3. holds the overlay chunk kernel against its plain PyTorch version on
    the card at the bench geometry (window 2048, 24 remover slots, 8 prop
@@ -199,12 +200,43 @@ Phases, in order; any failure exits non-zero:
    documents' records as messages: launches equal to the chunks, text,
    spans and error word equal to the same replica on the CPU (worker
    processes), and text and spans (equal-prop runs) to the overlay
-   message replica's.
+   message replica's;
+26. the zamboni kernel (`csrc/zamboni.cu`, five launches of one block a
+   tile of 1024 rows) against its plain version `zamboni_device_ref`,
+   run on CPU copies of the same inputs in worker processes, exactly
+   (int32, tolerance 0) on every field of the whole output table,
+   n_rows and error: the table that a scan-engine replay of the first
+   ZAMBONI_OPS headline ops leaves at bench.py's scan geometry with no
+   host compaction (watermark 1.1), at that replay's last MSN and at
+   MSN 0, and the edge tables of `testing/zamboni_edges.py` at C 1024,
+   16384 and 131072 (kept / dropped rows and run starts at rows T - 1,
+   T and T + 1 of the kernel's tile T, one run across several tiles, a
+   tile with every row dropped, n_rows above C, random tables); then its
+   time per call on the replica's table by CUDA events behind a spin,
+   beside its bound (bytes: rem_seq of the live rows, the merge test's
+   columns of the kept rows, the wide columns of the run firsts alone,
+   every row out) and the plain version's CPU time; and on the replica, the text unchanged and
+   n_rows not larger after it;
+27. the row model's scan engine: `ColumnarReplica(engine="scan",
+   device="cuda")` at bench.py's scan geometry (`BENCH_ENGINE=scan`:
+   capacity 131072, chunks of 256, 24 remover slots, 8 prop keys,
+   compaction watermark 0.7) replays the SCAN_ENGINE_OPS headline
+   prefix with the scan and zamboni launch counts set to 0 just before:
+   the scan launches must equal the chunk count, the zamboni's are
+   read (0: the reference's scan path never calls it), and the digest
+   must equal GOLDEN.json's stage digest; ops/s by the host clock, the
+   host compactions and the final capacity; the scan kernel against
+   `apply_op_batch_ref` on CPU copies, exactly, on the replay's first
+   chunk and on its last chunk with the table it was applied to; and a
+   second run, its stages wrapped from outside the replica with the
+   device synchronised around each, split into uploads, the scan
+   launches (CUDA events) and compact()'s pull, numpy work and push.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant). Every path
-(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24 and 25) is driven
-with kernel launch counts set to 0 just before it and read just after.
+(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25 and 27) is
+driven with kernel launch counts set to 0 just before it and read just
+after.
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
 shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
@@ -214,7 +246,9 @@ chunks, the launches of each path, and the fold's window groups with
 their layout; the sequencer's lists its checked chunks, the deli's
 per-pump split and records/s; the rebase's, both bounds, the call's
 split and op_rebases_per_sec; the scan's, its times at each capacity
-and D, the launches of each path and the kernel fold's runs), the
+and D, the launches of each path, the kernel fold's runs and the scan
+engine's run and split; the zamboni's, its launches on the scan
+engine's path and in the smoke), the
 nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
@@ -419,6 +453,32 @@ OP_NOOP_CODE = 3
 SCAN_REPLICA_LAUNCHES = {"replica_c4096": (1, 4096),
                          "replica_c8192": (3, 8192)}
 FOLD_PARTS_DOCS = 2  # documents of each timed variant held to plain
+# The row model's scan engine (bench.py with BENCH_ENGINE=scan,
+# bench.py:95-104: ROW_CAPACITY, chunks of CHUNK, N_REMOVERS, N_PROP_KEYS,
+# the reference's compaction watermark): phase 27 replays the
+# SCAN_ENGINE_OPS headline prefix (deeper, the reference's schedule
+# compacts after every chunk once the live rows pass the watermark;
+# tools/scan_engine_replay.py runs it alone at any depth).
+SCAN_ENGINE_OPS = 100_000
+SCAN_ENGINE_WATERMARK = 0.7
+# Phase 26: the zamboni kernel on the table that a scan-engine replay of
+# the first ZAMBONI_OPS headline ops leaves with no host compaction
+# (watermark 1.1: tombstones and split pieces stay), and on the edge
+# tables of testing/zamboni_edges.py at ZAMBONI_EDGE_CAPACITIES.
+ZAMBONI_OPS = 20_000
+ZAMBONI_EDGE_CAPACITIES = (1024, 16384, 131072)
+# The zamboni's int32 work: per live row the keep test (live, removed,
+# rem_seq <= MSN, and, not: 5); per kept row, besides its KK prop
+# compares, the pack's prefix add (1), settled (two compares, and: 3),
+# the merge test's end add, compare and ands (4) and the run and length
+# prefix adds (2); per run the length's subtract (1); and one select per
+# output int.
+ZAMBONI_OPS_LIVE, ZAMBONI_OPS_KEPT, ZAMBONI_OPS_RUN = 5, 10, 1
+# The scan engine's stages that phase 27's split run times from outside
+# the replica (`scan_engine_run(split=True)`): the chunk's upload, the
+# scan launch, and compact() with its pull and push.
+SCAN_STAGES = ("upload", "launch", "compact", "compact_pull",
+               "compact_push")
 # GPU cycles of the spin that holds the stream while the host enqueues
 # timed sequencer launches (~25 ms at 1.98 GHz; doubled when short).
 SPIN_CYCLES = 50_000_000
@@ -1927,6 +1987,300 @@ def scan_phases(dev, log, overlay_runs=None) -> dict:
     )
 
 
+def zamboni_plain(table: dict, min_seq: int):
+    """The zamboni's plain version on the CPU for one table (run in a
+    worker process, one torch thread): (the output table's fields as
+    numpy arrays, seconds by the host clock)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.ops.zamboni import zamboni_device_ref
+
+    torch.set_num_threads(1)
+    t = interop.segment_table_from_numpy(table, "cpu")
+    t0 = time.perf_counter()
+    out = zamboni_device_ref(t, min_seq)
+    return interop.segment_table_to_numpy(out), time.perf_counter() - t0
+
+
+def scan_engine_replica(stream, initial_len: int, dev, **kw):
+    """`ColumnarReplica(engine="scan")` at bench.py's scan geometry
+    (`BENCH_ENGINE=scan`, bench.py:95-104): capacity ROW_CAPACITY,
+    chunks of CHUNK, N_REMOVERS remover slots, N_PROP_KEYS prop keys."""
+    from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
+
+    return ColumnarReplica(stream, initial_len=initial_len, chunk_size=CHUNK,
+                           capacity=ROW_CAPACITY, n_removers=N_REMOVERS,
+                           n_prop_keys=N_PROP_KEYS, engine="scan",
+                           device=dev, **kw)
+
+
+def scan_engine_run(stream, initial_len: int, dev, want, keep=None,
+                    split: bool = False) -> dict:
+    """One scan-engine replay of `stream` on `dev` (`scan_engine_replica`,
+    watermark SCAN_ENGINE_WATERMARK) with the scan and zamboni kernels'
+    launch counts set to 0 just before and read just after; raises
+    unless the scan launches equal the chunks and the digest equals
+    `want` (None: not gated). `keep`, a dict, gets the (table, ops,
+    output) of the first and the last scan launch. With `split`, the
+    replica's stages are wrapped from outside, the device synchronised
+    around each, and their host-clock seconds returned as `stage_s`
+    (SCAN_STAGES; compact()'s numpy work is its time less the pull and
+    the push), with the scan launches' device time by CUDA events as
+    `launch_device_s`."""
+    import torch
+
+    from fluidframework_tpu_torch.core import columnar_replay as cr
+    from fluidframework_tpu_torch.ops.mergetree_scan import (
+        mergetree_scan_kernel,
+    )
+    from fluidframework_tpu_torch.ops.zamboni_kernel import zamboni_kernel
+    from fluidframework_tpu_torch.testing.digest import state_digest
+
+    rep = scan_engine_replica(stream, initial_len, dev,
+                              compact_watermark=SCAN_ENGINE_WATERMARK)
+    real_launch, real_push = cr.apply_op_batch, cr._device_table
+    stage_s = dict.fromkeys(SCAN_STAGES, 0.0)
+    events = []
+
+    def staged(name, fn):
+        def run(*args):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize(dev)
+            stage_s[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    def launch(table, ops):
+        if split:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        out = real_launch(table, ops)
+        if split:
+            ev[1].record()
+            events.append(ev)
+        if keep is not None:
+            keep.setdefault("first", (table, ops, out))
+            keep["last"] = (table, ops, out)
+        return out
+
+    wrapped = ("chunk_ops", "_host_table", "compact")
+    if split:
+        rep.chunk_ops = staged("upload", rep.chunk_ops)
+        rep._host_table = staged("compact_pull", rep._host_table)
+        rep.compact = staged("compact", rep.compact)
+        cr._device_table = staged("compact_push", real_push)
+    cr.apply_op_batch = staged("launch", launch) if split else launch
+    torch.cuda.synchronize()
+    mergetree_scan_kernel.launches = 0
+    zamboni_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rep.replay()
+    finally:
+        cr.apply_op_batch, cr._device_table = real_launch, real_push
+        for name in wrapped:
+            rep.__dict__.pop(name, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, z_launches = mergetree_scan_kernel.launches, zamboni_kernel.launches
+    rep.check_errors()
+    if launches != rep.n_chunks:
+        raise AssertionError(f"scan engine: {launches} scan launches != "
+                             f"{rep.n_chunks} chunks")
+    digest = state_digest(rep.annotated_spans())
+    if want is not None and digest != want:
+        raise AssertionError(f"scan engine digest {digest} != GOLDEN.json "
+                             f"{want}")
+    out = dict(ops=len(stream), seconds=seconds,
+               ops_per_s=len(stream) / seconds, launches=launches,
+               zamboni_launches=z_launches, compactions=rep.compactions,
+               capacity=rep.capacity, n_rows=int(rep.table.n_rows),
+               digest=digest, replica=rep)
+    if split:
+        stage_s["compact_numpy"] = (stage_s.pop("compact")
+                                    - stage_s["compact_pull"]
+                                    - stage_s["compact_push"])
+        out["stage_s"] = stage_s
+        out["launch_device_s"] = sum(a.elapsed_time(b)
+                                     for a, b in events) / 1e3
+    return out
+
+
+def row_scan_phases(dev, log, full=None, golden=None) -> tuple:
+    """Phases 26-27, the zamboni kernel (`csrc/zamboni.cu`) and the row
+    model's scan engine on `dev`: the kernel against its plain version
+    (on CPU copies, in worker processes, exactly, on the whole table)
+    and timed; the scan engine at bench.py's scan geometry on the
+    SCAN_ENGINE_OPS headline prefix, gated on GOLDEN.json, with the scan
+    kernel held against its plain version on its first and last chunk.
+    `full` is the 1M headline stream (generated here when None). Raises
+    on any mismatch; returns (the zamboni's kernels entry, the scan
+    engine's numbers for the scan's entry)."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
+    from fluidframework_tpu_torch.ops.zamboni import zamboni_device
+    from fluidframework_tpu_torch.ops.zamboni_kernel import zamboni_kernel
+    from fluidframework_tpu_torch.testing.golden import (
+        golden_digest, headline_stream, load_golden, stream_prefix,
+    )
+    from fluidframework_tpu_torch.testing.zamboni_edges import (
+        zamboni_edge_tables,
+    )
+
+    t26 = time.perf_counter()
+    golden = golden or load_golden()
+    full = full if full is not None else headline_stream(golden)
+    initial_len = golden["params"]["initial_len"]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+
+    # ---- 26. the zamboni kernel vs its plain version --------------------
+    rep = scan_engine_replica(stream_prefix(full, ZAMBONI_OPS), initial_len,
+                              dev, compact_watermark=1.1)
+    rep.replay()
+    rep.check_errors()
+    if rep.compactions or rep.capacity != ROW_CAPACITY:
+        raise AssertionError("phase 26's scan replica compacted or grew")
+    msn = rep._applied_min_seq
+    replay_np = interop.segment_table_to_numpy(rep.table)
+    tables = [(f"{ZAMBONI_OPS // 1000}k scan replica, MSN {msn}", replay_np,
+               msn),
+              (f"{ZAMBONI_OPS // 1000}k scan replica, MSN 0", replay_np, 0)]
+    for C in ZAMBONI_EDGE_CAPACITIES:
+        tables += [(f"C {C} {c['label']}", c["table"], c["min_seq"])
+                   for c in zamboni_edge_tables(C, N_REMOVERS, N_PROP_KEYS)]
+    zamboni_kernel.launches = 0
+    held = []
+    for label, table, m in tables:
+        got = zamboni_device(interop.segment_table_from_numpy(table, dev), m)
+        held.append((label, pool.submit(zamboni_plain, table, m),
+                     interop.segment_table_to_numpy(got)))
+    smoke_launches = zamboni_kernel.launches
+    plain_s, max_err = None, 0
+    for label, fut, got in held:
+        want, secs = fut.result()
+        if plain_s is None:  # the replica's table at its last MSN
+            plain_s, runs = secs, int(want["n_rows"])
+        for f in want:
+            diff = np.abs(got[f].astype(np.int64) - want[f].astype(np.int64))
+            max_err = max(max_err, int(diff.max()) if diff.size else 0)
+            if max_err:
+                raise AssertionError(f"zamboni {label}: {f} differs from the "
+                                     f"plain version (max |diff| {max_err})")
+    text = rep.get_text()
+    n_before = int(rep.table.n_rows)
+    msn_dev = torch.tensor(msn, dtype=torch.int32, device=dev)
+    ms = spin_time(lambda: zamboni_kernel(rep.table, msn_dev), SCAN_TIME_REPS)
+    rep.table = zamboni_device(rep.table, msn_dev)
+    n_after = int(rep.table.n_rows)
+    if rep.get_text() != text or n_after > n_before:
+        raise AssertionError("zamboni on the scan replica changed its text "
+                             "or added rows")
+    # The bound counts what this table needs: rem_seq of every live row
+    # (the keep test), buf_start, length, ins_seq and the props of the
+    # kept rows (the merge test), ins_client and the removers of the
+    # run firsts alone, all C rows written, and n_rows, error and the
+    # MSN in, n_rows and error out. `runs` is the plain version's n_rows.
+    C, KR, KK = ROW_CAPACITY, N_REMOVERS, N_PROP_KEYS
+    live = min(n_before, C)
+    cols = 5 + KR + KK
+    rem = replay_np["rem_seq"][:live]
+    kept = int(np.count_nonzero((rem == tmk.NOT_REMOVED) | (rem > msn)))
+    if runs != n_after:
+        raise AssertionError(f"zamboni on the scan replica: {n_after} rows, "
+                             f"the plain version {runs}")
+    b_s = 4 * (live + kept * (3 + KK) + runs * (1 + KR) + C * cols
+               + 5) / PEAK_BYTES_S
+    o_s = (ZAMBONI_OPS_LIVE * live + (ZAMBONI_OPS_KEPT + KK) * kept
+           + ZAMBONI_OPS_RUN * runs + C * cols) / PEAK_OPS_S
+    b_ms = max(b_s, o_s) * 1e3
+    b_by = "bytes" if b_s >= o_s else "operations"
+    log(f"zamboni == plain on {len(held)} tables, exactly (every field of "
+        f"the whole table, n_rows, error): the {ZAMBONI_OPS}-op scan replica's "
+        f"table (C {C}, KR {KR}, KK {KK}, {n_before} live rows, no host "
+        f"compaction) at MSN {msn} and 0, and the edge tables at C "
+        f"{ZAMBONI_EDGE_CAPACITIES}; on the replica: {n_before} -> {n_after} "
+        f"rows, the text unchanged")
+    log(f"zamboni per call (five launches; CUDA events behind a spin, "
+        f"{SCAN_TIME_REPS} calls) on the {ZAMBONI_OPS}-op table: {ms:.4f} ms "
+        f"(bound {b_ms:.6f}, {b_by}: {live} live rows, {kept} kept, "
+        f"{runs} runs in ({n_before} -> {n_after} rows), {C} rows out; "
+        f"share {b_ms / ms:.4f}); the plain version {plain_s * 1e3:.2f} ms "
+        f"(CPU, one thread); phase 26 {time.perf_counter() - t26:.2f}s")
+
+    # ---- 27. the scan engine at bench.py's scan geometry -----------------
+    t27 = time.perf_counter()
+    stream = stream_prefix(full, SCAN_ENGINE_OPS)
+    want = golden_digest(golden, SCAN_ENGINE_OPS)
+    keep = {}
+    run = scan_engine_run(stream, initial_len, dev, want, keep=keep)
+    holds = []
+    for name in ("first", "last"):
+        t, o, got = keep[name]
+        holds.append((name, pool.submit(
+            scan_plain, interop.segment_table_to_numpy(t),
+            interop.opbatch_to_numpy(o)), interop.segment_table_to_numpy(got),
+            int(t.n_rows)))
+    split = scan_engine_run(stream, initial_len, dev, want, split=True)
+    for name, fut, got, n_in in holds:
+        want_t, _ = fut.result()
+        n = int(want_t["n_rows"])
+        if (int(got["n_rows"]), int(got["error"])) != (
+                n, int(want_t["error"])):
+            raise AssertionError(f"scan engine's {name} chunk: n_rows / error "
+                                 f"differ from the plain version")
+        m = min(n, ROW_CAPACITY)
+        for f in SCAN_COLS:
+            if not np.array_equal(got[f][:m], want_t[f][:m]):
+                raise AssertionError(f"scan engine's {name} chunk: {f} "
+                                     f"differs from the plain version")
+    pool.shutdown()
+    st = split["stage_s"]
+    log(f"scan engine (bench.py BENCH_ENGINE=scan: capacity {ROW_CAPACITY}, "
+        f"chunks of {CHUNK}, KR {N_REMOVERS}, KK {N_PROP_KEYS}, watermark "
+        f"{SCAN_ENGINE_WATERMARK}): {SCAN_ENGINE_OPS} ops in "
+        f"{run['seconds']:.3f}s = {run['ops_per_s']:,.0f} ops/s (host clock; "
+        f"scan launches {run['launches']} = the chunks, zamboni launches "
+        f"{run['zamboni_launches']}); {run['compactions']} host compactions, "
+        f"final capacity {run['capacity']}, {run['n_rows']} live rows; digest "
+        f"{run['digest'][:8]}, GOLDEN.json's at {SCAN_ENGINE_OPS}; the scan "
+        f"kernel == plain "
+        f"exactly on the first chunk ({holds[0][3]} rows in) and the last "
+        f"({holds[1][3]} rows in)")
+    log(f"scan engine split (a second, timed run: the device synchronised "
+        f"between stages; {split['seconds']:.3f}s): uploads "
+        f"{st['upload']:.3f}s, scan launches {split['launch_device_s']:.3f}s "
+        f"on the card (CUDA events; the launch calls {st['launch']:.3f}s on "
+        f"the host), compact() pull {st['compact_pull']:.3f}s, numpy "
+        f"{st['compact_numpy']:.3f}s, push {st['compact_push']:.3f}s; "
+        f"phase 27 {time.perf_counter() - t27:.2f}s")
+    zamboni = dict(
+        launches=run["zamboni_launches"],
+        max_abs_err=max_err,
+        ms=ms,
+        plain_ms=plain_s * 1e3,
+        plain_on="cpu",
+        bound_ms=b_ms,
+        bound_by=b_by,
+        path_launches={"scan_engine": run["zamboni_launches"],
+                       "smoke": smoke_launches},
+        held_tables=len(held),
+    )
+    engine = {k: v for k, v in run.items() if k not in ("replica", "digest")}
+    engine["split"] = dict(st, launch_device_s=split["launch_device_s"],
+                           seconds=split["seconds"])
+    return zamboni, engine
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1985,6 +2339,7 @@ def main() -> int:
         sequencer_step_kernel,
     )
     from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
+    from fluidframework_tpu_torch.ops.zamboni_kernel import zamboni_kernel
     from fluidframework_tpu_torch.tree.rebase_kernel import rebase_kernel
     from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
     from fluidframework_tpu_torch.testing.digest import state_digest
@@ -2008,7 +2363,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name,
                   sequencer_step_kernel.name, rebase_kernel.name,
-                  mergetree_scan_kernel.name)
+                  mergetree_scan_kernel.name, zamboni_kernel.name)
     with concurrent.futures.ThreadPoolExecutor(len(cuda_names) + 1) as ex:
         f_cuda = [ex.submit(_build.load, name) for name in cuda_names]
         f_host = ex.submit(load_hostmerge)
@@ -2807,6 +3162,11 @@ def main() -> int:
     # ---- 22-25. the row-model scan, the kernel fold, KernelReplica -----
     scan = scan_phases(dev, log, fold["fold_runs"])
 
+    # ---- 26-27. the zamboni kernel, the row model's scan engine ---------
+    zamboni, scan_engine = row_scan_phases(dev, log, full, golden)
+    scan["path_launches"]["scan_engine"] = scan_engine["launches"]
+    scan["scan_engine"] = scan_engine
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -2890,6 +3250,14 @@ def main() -> int:
         "check": "exact",
         "plain_on": "cpu",
         **scan,
+    }, {
+        "name": zamboni_kernel.name,
+        "route": "cuda",
+        "source": zamboni_kernel.source,
+        "replaces": zamboni_kernel.replaces,
+        "library_ms": None,
+        "check": "exact",
+        **zamboni,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,7 +13,15 @@ Counterparts in fluidframework_tpu/ops/zamboni.py:
   `compact_gather_text` uses it.
 - `compact_gather_text` of the function of that name (line 185): the
   row-model replay's full compaction with the text re-gather.
-  `zamboni_device` is not ported.
+- `zamboni_device_ref` of `zamboni_device` (line 42): the compaction
+  without the text re-gather (tombstones removed at or below the MSN
+  dropped, settled neighbours merged where their text is contiguous in
+  the arena), in int32 tensor ops with no host sync. The dispatcher
+  `zamboni_device` sends a CUDA table to the hand-written kernel
+  ``csrc/zamboni.cu`` (`ops/zamboni_kernel.py`) or raises, and a CPU
+  table to the plain version. No path of the reference calls
+  `zamboni_device` (only its test does); the port's replays do not
+  either.
 """
 
 from __future__ import annotations
@@ -55,6 +63,32 @@ def pack_partition(
     return out
 
 
+def _drop_tombstones(table: SegmentTable, min_seq):
+    """The tombstone drop that both compactions start with: rows
+    ``idx < n_rows`` are live (every row, when n_rows passes C); a live
+    row survives unless it was removed at or below the MSN; a stable
+    partition packs the survivors to the front. Returns ``(min_seq as
+    an int32 tensor, idx, packed, valid, length)``: `packed` is the
+    ``[5 + KR + KK, C]`` stack of the packed columns (buf_start,
+    length, ins_seq, ins_client, rem_seq, the removers, the props),
+    `valid` marks the packed survivors and `length` is their lengths,
+    0 past them."""
+    C = table.length.shape[0]
+    dev = table.length.device
+    min_seq = torch.as_tensor(min_seq, dtype=I32, device=dev)
+    idx = torch.arange(C, dtype=I32, device=dev)
+    live = idx < table.n_rows
+    removed = table.rem_seq != NOT_REMOVED
+    keep = live & ~(removed & (table.rem_seq <= min_seq))
+    packed = pack_partition(~keep, torch.cat([
+        torch.stack([table.buf_start, table.length, table.ins_seq,
+                     table.ins_client, table.rem_seq]),
+        table.rem_clients.t(), table.props.t(),
+    ]))
+    valid = idx < torch.sum(keep, dtype=I32)
+    return min_seq, idx, packed, valid, torch.where(valid, packed[1], 0)
+
+
 def compact_gather_text(
     table: SegmentTable,
     min_seq,
@@ -81,30 +115,17 @@ def compact_gather_text(
        text offsets.
 
     Returns ``(table, new_doc_arena)``."""
-    C = table.length.shape[0]
     A = doc_arena.shape[0]
     S = stream_text.shape[0]
     KR = table.rem_clients.shape[1]
     KK = table.props.shape[1]
     dev = table.length.device
-    min_seq = torch.as_tensor(min_seq, dtype=I32, device=dev)
-    idx = torch.arange(C, dtype=I32, device=dev)
-    live = idx < table.n_rows
-    removed = table.rem_seq != NOT_REMOVED
 
     # ---- 1. tombstone drop
-    keep = live & ~(removed & (table.rem_seq <= min_seq))
-    n_keep = torch.sum(keep, dtype=I32)
-    packed = pack_partition(~keep, torch.cat([
-        torch.stack([table.buf_start, table.length, table.ins_seq,
-                     table.ins_client, table.rem_seq]),
-        table.rem_clients.t(), table.props.t(),
-    ]))
-    buf, length, iseq, iclient, rseq = packed[:5]
+    min_seq, idx, packed, valid, length = _drop_tombstones(table, min_seq)
+    buf, _, iseq, iclient, rseq = packed[:5]
     rcl = packed[5:5 + KR]
     props = packed[5 + KR:]
-    valid = idx < n_keep
-    length = torch.where(valid, length, 0)
 
     # ---- 2. text move
     new_off = torch.cumsum(length, 0, dtype=I32) - length
@@ -173,3 +194,78 @@ def compact_gather_text(
         error=table.error,
     )
     return out, new_arena
+
+
+def zamboni_device_ref(table: SegmentTable, min_seq) -> SegmentTable:
+    """Compact `table` under the applied MSN `min_seq` (an int or an
+    int32 scalar tensor) without touching text: the plain version of
+    ``csrc/zamboni.cu``, equal to the JAX `zamboni_device` on every row,
+    ``n_rows`` and ``error``. No host sync.
+
+    1. Rows ``idx < n_rows`` are live (every row, when n_rows passes
+       C); a live row survives unless it was removed at or below the
+       MSN. Survivors pack to the front in order.
+    2. A packed row is settled when it is not removed and was inserted
+       at or below the MSN. A settled row merges into the packed row
+       before it when that row is settled too, their props are equal
+       in every key, and the previous row's text ends where this row's
+       starts (``buf_start + length``, int32). Each run keeps its first
+       row's fields and the int32 sum of its rows' lengths.
+    3. Rows at and above the run count ``m`` take the empty-row fills;
+       ``n_rows`` is ``m``, ``error`` passes through."""
+    C = table.length.shape[0]
+    KR = table.rem_clients.shape[1]
+    dev = table.length.device
+
+    # ---- 1. tombstone drop (stable pack of the survivors)
+    min_seq, idx, packed, valid, length = _drop_tombstones(table, min_seq)
+    buf, _, iseq, _, rseq = packed[:5]
+
+    # ---- 2. coalescing of settled runs contiguous in the arena
+    settled = valid & (rseq == NOT_REMOVED) & (iseq <= min_seq)
+    props = packed[5 + KR:]
+    same_props = (props[:, 1:] == props[:, :-1]).all(0)
+    contiguous = (buf + length)[:-1] == buf[1:]
+    merge = torch.cat([settled.new_zeros(1),
+                       settled[1:] & settled[:-1] & same_props & contiguous])
+    start = valid & ~merge
+    m = torch.sum(start, dtype=I32)
+    run_id = torch.cumsum(start, 0, dtype=I32) - 1
+    run_len = torch.zeros(C + 1, dtype=I32, device=dev)
+    run_len.index_add_(0, torch.where(valid, run_id, C).to(torch.int64),
+                       length)
+    firsts = pack_partition(~start, packed)
+    final = idx < m
+
+    def take(row: torch.Tensor, fill: int) -> torch.Tensor:
+        return torch.where(final, row, fill)
+
+    def take2(rows: torch.Tensor, fill: int) -> torch.Tensor:
+        return torch.where(final[:, None], rows.t(), fill).contiguous()
+
+    return SegmentTable(
+        n_rows=m,
+        buf_start=take(firsts[0], 0),
+        length=take(run_len[:C], 0),
+        ins_seq=take(firsts[2], 0),
+        ins_client=take(firsts[3], NO_CLIENT),
+        rem_seq=take(firsts[4], NOT_REMOVED),
+        rem_clients=take2(firsts[5:5 + KR], NO_CLIENT),
+        props=take2(firsts[5 + KR:], PROP_ABSENT),
+        error=table.error,
+    )
+
+
+def zamboni_device(table: SegmentTable, min_seq) -> SegmentTable:
+    """`zamboni_device_ref`'s compaction by the table's device: a CUDA
+    table goes to the hand-written kernel ``csrc/zamboni.cu`` (or the
+    call raises), a CPU table to the plain version; no other device is
+    taken."""
+    kind = table.length.device.type
+    if kind == "cuda":
+        from .zamboni_kernel import zamboni_kernel
+
+        return zamboni_kernel(table, min_seq)
+    if kind == "cpu":
+        return zamboni_device_ref(table, min_seq)
+    raise ValueError(f"zamboni_device: unsupported device {kind}")

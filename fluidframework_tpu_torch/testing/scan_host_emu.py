@@ -174,13 +174,14 @@ def gxx_path() -> str:
     return found
 
 
-def build() -> str:
-    """The emulated kernel library, compiled if its source, the header
+def build(name: str = "mergetree_scan", rewrite=translate) -> str:
+    """The emulated library of ``csrc/<name>.cu`` (its source rewritten
+    for `EMU_HEADER` by `rewrite`), compiled if the source, the header
     or the flags changed."""
-    with open(os.path.join(_build.CSRC_DIR, "mergetree_scan.cu")) as f:
-        src = translate(f.read())
+    with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
+        src = rewrite(f.read())
     key = hashlib.sha256((src + EMU_HEADER + " ".join(GXX_FLAGS)).encode())
-    lib = os.path.join(EMU_DIR, f"mergetree_scan-{key.hexdigest()[:16]}.so")
+    lib = os.path.join(EMU_DIR, f"{name}-{key.hexdigest()[:16]}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(EMU_DIR, exist_ok=True)

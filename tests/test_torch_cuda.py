@@ -2,7 +2,8 @@
 and the port's paths on the card against the same paths on the CPU (the
 replays, the summary fold rounds, the message-driven replica, the
 summary folder against fold_golden.json on both fold backends, the
-deli, config 4's rebase against tree_golden.json, and `KernelReplica`).
+deli, config 4's rebase against tree_golden.json, `KernelReplica`, and
+the row model's scan engine).
 
 Marked ``cuda``: on a host without a CUDA device every test here skips
 with the reason. On the GPU run them with
@@ -37,7 +38,12 @@ from fluidframework_tpu_torch.core.kernel_replica import KernelReplica
 from fluidframework_tpu_torch.ops import mergetree_kernel as tmk
 from fluidframework_tpu_torch.ops import mergetree_scan as tms
 from fluidframework_tpu_torch.ops.mergetree_kernel import OpBatch, make_table
-from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
+from fluidframework_tpu_torch.ops import zamboni_kernel as tzk
+from fluidframework_tpu_torch.ops.zamboni import (
+    compact_gather_text,
+    zamboni_device,
+    zamboni_device_ref,
+)
 from fluidframework_tpu_torch.server.summary_fold import (
     SummaryFolder,
     _boot_mergetree,
@@ -66,6 +72,7 @@ from fluidframework_tpu_torch.testing.overlay_edges import (
 )
 from fluidframework_tpu_torch.testing.synthetic import generate_lagged_stream
 from fluidframework_tpu_torch.testing.tree_streams import all_streams
+from fluidframework_tpu_torch.testing.zamboni_edges import zamboni_edge_tables
 from fluidframework_tpu_torch.utils.devices import cuda_skip_reason
 
 pytestmark = pytest.mark.cuda
@@ -801,3 +808,73 @@ def test_cuda_kernel_replica_above_the_old_ceiling_matches_cpu(cuda):
     assert gpu.capacity == cpu.capacity == 16384
     assert gpu.get_text() == cpu.get_text()
     assert gpu.annotated_spans() == cpu.annotated_spans()
+
+
+def _assert_whole_table_equal(got, want, label=""):
+    """Every field of the whole table (the zamboni writes every row)."""
+    for f in ("n_rows", "error") + ROW_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()), (
+            f"{label}: {f}")
+
+
+@pytest.mark.parametrize("C,KR", [(1024, 4), (16384, 8), (131072, 24)])
+def test_zamboni_kernel_edge_tables(cuda, C, KR):
+    """Every edge table of `testing/zamboni_edges.py` (the tile edges at
+    C 16384 and 131072) through the kernel, against the plain version on
+    CPU copies, exactly; the input is left as it was."""
+    before = tzk.zamboni_kernel.launches
+    cases = zamboni_edge_tables(C, KR, 8)
+    for case in cases:
+        t = interop.segment_table_from_numpy(case["table"], cuda)
+        copy = interop.segment_table_from_numpy(case["table"], cuda)
+        got = zamboni_device(t, case["min_seq"])
+        want = zamboni_device_ref(t.to("cpu"), case["min_seq"])
+        _assert_whole_table_equal(got, want, case["label"])
+        _assert_whole_table_equal(t, copy, case["label"] + " (input)")
+    assert tzk.zamboni_kernel.launches - before == len(cases)
+
+
+def test_zamboni_kernel_on_a_scan_replica(cuda):
+    """The table a scan-engine replay leaves with no host compaction, at
+    its last MSN and at MSN 0 (the MSN a tensor on the card), against
+    the plain version; the text stays and no row is added."""
+    rep = ColumnarReplica(_stream(), initial_len=64, chunk_size=256,
+                          capacity=16384, n_removers=24,
+                          compact_watermark=1.1, engine="scan", device=cuda)
+    rep.replay()
+    rep.check_errors()
+    assert rep.compactions == 0
+    before = rep.get_text()
+    n = int(rep.table.n_rows)
+    for msn in (rep._applied_min_seq, 0):
+        got = tzk.zamboni_kernel(
+            rep.table, torch.tensor(msn, dtype=torch.int32, device=cuda))
+        want = zamboni_device_ref(rep.table.to("cpu"), msn)
+        _assert_whole_table_equal(got, want, f"MSN {msn}")
+    rep.table = zamboni_device(rep.table, rep._applied_min_seq)
+    assert rep.get_text() == before
+    assert int(rep.table.n_rows) < n
+
+
+def test_cuda_scan_engine_matches_cpu(cuda):
+    """The scan engine on the card (the scan kernel, one block a chunk)
+    against the same replica on the CPU, on the lagged 2000-op stream:
+    table rows, capacity, compactions, row bound, text and digest; one
+    launch a chunk."""
+    stream = generate_lagged_stream(2000, n_clients=64, seed=5, window=256,
+                                    initial_len=64)
+    kw = dict(initial_len=64, chunk_size=128, capacity=2048, n_removers=8,
+              n_prop_keys=8, engine="scan")
+    gpu = ColumnarReplica(stream, device=cuda, **kw)
+    before = tms.mergetree_scan_kernel.launches
+    gpu.replay()
+    assert tms.mergetree_scan_kernel.launches - before == gpu.n_chunks
+    cpu = ColumnarReplica(stream, device="cpu", **kw)
+    cpu.replay()
+    assert gpu.compactions == cpu.compactions > 0
+    assert (gpu.capacity, gpu._rows_bound) == (cpu.capacity, cpu._rows_bound)
+    _assert_row_tables_equal(gpu.table.to("cpu"), cpu.table)
+    assert np.array_equal(gpu.doc_text, cpu.doc_text)
+    assert state_digest(gpu.annotated_spans()) == state_digest(
+        cpu.annotated_spans())
+

@@ -295,3 +295,34 @@ def test_scan_no_silent_cpu_fallback(monkeypatch):
         tmk.apply_op_batch(table, ops)
     with pytest.raises(AssertionError, match="the plain version ran"):
         tmk.apply_op_batch_docs(tables, batches)
+
+
+def test_zamboni_and_scan_engine_no_silent_cpu_fallback(monkeypatch):
+    """The scan engine and the zamboni: `ColumnarReplica(engine="scan")`
+    given no device raises without CUDA; `zamboni_device` sends a CPU
+    table only to the plain version, another device never reaches it,
+    and the CUDA wrapper refuses CPU tensors without launching."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    from fluidframework_tpu_torch.ops import zamboni as tz
+    from fluidframework_tpu_torch.ops import zamboni_kernel as tzk
+
+    stream = generate_stream(64, n_clients=4, seed=1, initial_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ColumnarReplica(stream, initial_len=8, capacity=1024, engine="scan")
+    with pytest.raises(ValueError, match="engine"):
+        ColumnarReplica(stream, initial_len=8, engine="auto", device="cpu")
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    table = make_table(1024, 4, 8, device="cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tzk.zamboni_kernel(table, 0)
+    assert tzk.zamboni_kernel.launches == 0
+    monkeypatch.setattr(tz, "zamboni_device_ref", boom)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tz.zamboni_device(table.to("meta"), 0)
+    with pytest.raises(AssertionError, match="the plain version ran"):
+        tz.zamboni_device(table, 0)
+    assert tzk.zamboni_kernel.launches == 0
