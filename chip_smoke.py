@@ -11,8 +11,9 @@ measures on the JAX package, the row-model replay (``ColumnarReplica``,
 the message-driven overlay replica, the deli sequencer (BASELINE
 config 5), SharedTree's batched rebase (BASELINE config 4), the
 row-model scan under `KernelReplica` and the summary fold's ``kernel``
-backend, the row model's zamboni, and the row model's scan engine
-(``bench.py`` with ``BENCH_ENGINE=scan``).
+backend, the row model's zamboni, the row model's scan engine
+(``bench.py`` with ``BENCH_ENGINE=scan``), and the deli's supervised
+role over columnar and JSON file topics (BASELINE config 5).
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
@@ -230,11 +231,28 @@ Phases, in order; any failure exits non-zero:
    chunk and on its last chunk with the table it was applied to; and a
    second run, its stages wrapped from outside the replica with the
    device synchronised around each, split into uploads, the scan
-   launches (CUDA events) and compact()'s pull, numpy work and push.
+   launches (CUDA events) and compact()'s pull, numpy work and push;
+28. the deli's supervised role: BASELINE config 5's 1,280,000 raw
+   records written as a columnar raw topic in frames of 16384 (set-up)
+   in a temporary directory, then `KernelDeliRole(device="cuda",
+   log_format="columnar", batch=16384)` stepped until the topic is
+   drained, with the sequencer's launch count set to 0 just before: the
+   launches must equal the chunks (one a step), and the deltas digest
+   and counts and the final checkpoint's digest must equal
+   `fluidframework_tpu_torch/testing/deli_role_golden.json` (the JAX
+   scalar role's, `tools/deli_role_golden.py`); records/s by the host
+   clock, the split per step (polls and parse, `flush_batch` with
+   `SeqPool.times`' stages, the append, the checkpoint, the rest) and
+   how many records each plan took; then a crash run on a fresh topic
+   (the first owner stops after ROLE_CRASH_STEPS steps and releases the
+   lease, a second owner recovers and finishes; its first
+   ROLE_HELD_CHUNKS chunks held against the plain sequencer on CPU
+   copies, exactly) against the same digests, and the JSON-topic form
+   on the first 4 pumps' records against the prefix digest.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant). Every path
-(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25 and 27) is
+(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25, 27 and 28) is
 driven with kernel launch counts set to 0 just before it and read just
 after.
 
@@ -244,7 +262,8 @@ block, grid barriers per op), the kernels line (JSON; kernel A's entry
 also lists every layout it checked, the two layouts' times on the same
 chunks, the launches of each path, and the fold's window groups with
 their layout; the sequencer's lists its checked chunks, the deli's
-per-pump split and records/s; the rebase's, both bounds, the call's
+per-pump split and records/s, and the role's records/s, split and
+launches; the rebase's, both bounds, the call's
 split and op_rebases_per_sec; the scan's, its times at each capacity
 and D, the launches of each path, the kernel fold's runs and the scan
 engine's run and split; the zamboni's, its launches on the scan
@@ -482,6 +501,13 @@ SCAN_STAGES = ("upload", "launch", "compact", "compact_pull",
 # GPU cycles of the spin that holds the stream while the host enqueues
 # timed sequencer launches (~25 ms at 1.98 GHz; doubled when short).
 SPIN_CYCLES = 50_000_000
+# Phase 28, the supervised deli role: the steps the first owner of the
+# crash run takes before it "crashes", the role's stages that the phase
+# times from outside the role, and how many of the successor's chunks
+# are held against the plain sequencer.
+ROLE_CRASH_STEPS = 20
+ROLE_STAGES = ("poll_parse", "flush", "append", "checkpoint", "other")
+ROLE_HELD_CHUNKS = 2
 
 
 def log(msg: str) -> None:
@@ -2281,6 +2307,285 @@ def row_scan_phases(dev, log, full=None, golden=None) -> tuple:
     return zamboni, engine
 
 
+def deli_role_phases(dev, log) -> dict:
+    """Phase 28, the supervised deli, on `dev`: BASELINE config 5's
+    raw topic (columnar, frames of 16384) through `KernelDeliRole`
+    stepped until drained, gated on deli_role_golden.json (the deltas
+    digest and counts, the final checkpoint's digest); a crash after
+    ROLE_CRASH_STEPS steps taken over by a new owner, gated the same
+    way, with the successor's first ROLE_HELD_CHUNKS chunks held
+    against the plain sequencer on CPU copies; the JSON-topic form on
+    the first 4 pumps' records against the prefix digest. The topics
+    live in a temporary directory that is removed afterwards. Raises on
+    any mismatch; returns what the kernels line reports."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+    from fluidframework_tpu_torch.server import deli_kernel as tdk
+    from fluidframework_tpu_torch.server import supervisor as tsup
+    from fluidframework_tpu_torch.server.columnar_log import (
+        make_tail_reader, make_topic,
+    )
+    from fluidframework_tpu_torch.testing import deli_streams as ds
+
+    kernel = tsk.sequencer_step_kernel
+    cuda = dev.type == "cuda"
+    with open(os.path.join(ROOT, "fluidframework_tpu_torch", "testing",
+                           "deli_role_golden.json")) as f:
+        golden = json.load(f)
+    p = golden["params"]
+    batch, frame = p["batch"], p["frame"]
+    prefix = p["prefix_pumps"] * frame
+    t0 = time.perf_counter()
+    recs = ds.build_pipeline_workload(p["n_docs"], p["n_clients"],
+                                      p["ops_per_client"], seed=p["seed"])
+    log(f"deli role: {len(recs)} raw records built in "
+        f"{time.perf_counter() - t0:.2f}s; batch {batch}, frames of "
+        f"{frame}")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def make_role(shared, owner, fmt):
+        return tdk.KernelDeliRole(shared, owner=owner, ttl_s=3600.0,
+                                  batch=batch, log_format=fmt, device=dev)
+
+    def drive(role, max_steps=None) -> dict:
+        """`step()` until a step moves nothing (or `max_steps`), each
+        ROLE_STAGES stage wrapped from outside the role: the tail
+        reader's polls, `flush_batch`, the fenced output append and the
+        checkpoint; "other" is the rest of the steps (lease, heartbeat,
+        the idle wait)."""
+        stage = dict.fromkeys(ROLE_STAGES, 0.0)
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    stage[key] += time.perf_counter() - t
+            return run
+
+        make_reader = tsup.make_tail_reader
+
+        def reader(topic, offset):
+            r = make_reader(topic, offset)
+            for name in ("poll", "poll_batches"):
+                if hasattr(r, name):
+                    setattr(r, name, timed(getattr(r, name), "poll_parse"))
+            return r
+
+        role.flush_batch = timed(role.flush_batch, "flush")
+        role._append_outputs = timed(role._append_outputs, "append")
+        role.checkpoint = timed(role.checkpoint, "checkpoint")
+        tsup.make_tail_reader = reader
+        steps = pumps = moved = 0
+        t = time.perf_counter()
+        try:
+            while max_steps is None or steps < max_steps:
+                n = role.step()
+                steps += 1
+                if not n:
+                    break
+                pumps += 1
+                moved += n
+            sync()
+        finally:
+            tsup.make_tail_reader = make_reader
+        wall = time.perf_counter() - t
+        stage["other"] = wall - sum(stage.values())
+        return dict(steps=steps, pumps=pumps, records=moved, wall_s=wall,
+                    stage_s=stage)
+
+    def digest_of(shared, fmt) -> "ds.RoleDigest":
+        dg = ds.RoleDigest(prefix_off=prefix)
+        reader = make_tail_reader(make_topic(
+            os.path.join(shared, "topics", "deltas.jsonl"), fmt), 0)
+        while True:
+            got = reader.poll(frame)
+            if not got:
+                return dg
+            dg.update(r for _, r in got)
+
+    def gate(role, shared, label):
+        dg = digest_of(shared, "columnar")
+        cp = ds.checkpoint_digest({"offset": role.offset,
+                                   "docs": role.snapshot_state()})
+        if (dg.hexdigest(), dg.counts, cp) != (
+                golden["deltas_sha256"], golden["counts"],
+                golden["checkpoint_sha256"]):
+            raise AssertionError(
+                f"{label}: deltas {dg.hexdigest()} {dg.counts}, checkpoint "
+                f"{cp} differ from deli_role_golden.json")
+        return dg
+
+    held = {"chunks": 0, "max_abs_err": 0}
+    run_chunk = tdk.SeqPool.run_chunk
+
+    def holding(pool, kind, client, cseq, ref, groups, dedup, aborted=None):
+        """`SeqPool.run_chunk` with the first ROLE_HELD_CHUNKS chunks
+        held against the plain sequencer on CPU copies, exactly."""
+        if not cuda or held["chunks"] >= ROLE_HELD_CHUNKS:
+            return run_chunk(pool, kind, client, cseq, ref, groups, dedup,
+                             aborted)
+        if aborted is None:
+            aborted = tsk.no_aborts(pool.n_docs, pool.device)
+        st_in, ab_in = pool.state, aborted
+        res, ab = run_chunk(pool, kind, client, cseq, ref, groups, dedup,
+                            aborted)
+        sync()
+        want = tsk.sequence_batch_ref(
+            tsk.SequencerState(*(t.cpu() for t in st_in)), ab_in.cpu(),
+            tsk.SeqBatch(*(torch.from_numpy(c)
+                           for c in (kind, client, cseq, ref))),
+            torch.from_numpy(groups), dedup)
+        pairs = [*zip(tsk.SequencerState._fields, pool.state, want[0]),
+                 ("aborted", ab, want[1]),
+                 *zip(tsk.SeqResult._fields, res, want[2])]
+        for name, a, b in pairs:
+            a = torch.as_tensor(np.asarray(a.cpu() if torch.is_tensor(a)
+                                           else a))
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"role chunk: {name} is {a.dtype} "
+                                     f"{tuple(a.shape)}, plain {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+                if a.numel() else 0
+            held["max_abs_err"] = max(held["max_abs_err"], diff)
+            if diff:
+                raise AssertionError(f"role chunk {held['chunks']}: {name} "
+                                     f"differs from the plain version by "
+                                     f"{diff}")
+        held["chunks"] += 1
+        return res, ab
+
+    t28 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-deli-role-") as tmp:
+        # ---- (a) the main path: columnar topics at both ends --------
+        shared = os.path.join(tmp, "main")
+        t0 = time.perf_counter()
+        ds.write_raw_topic(shared, recs, frame, "columnar")
+        t_write = time.perf_counter() - t0
+        role = make_role(shared, "smoke-main", "columnar")
+        role.core.pool.times = tdk.new_times()
+        ck0 = role._m_ckpt_writes.value
+        sync()
+        kernel.launches = 0
+        run = drive(role)
+        launches = kernel.launches
+        pool = role.core.pool
+        if run["records"] != len(recs) or pool.chunks != p["steps"] \
+                or run["pumps"] != p["steps"] or (
+                cuda and launches != pool.chunks):
+            raise AssertionError(
+                f"deli role: {run['records']} records, {pool.chunks} "
+                f"chunks, {launches} launches")
+        times = pool.times
+        planned = dict(role.planned)
+        ckpt_writes = int(role._m_ckpt_writes.value - ck0)
+        gate(role, shared, "deli role")
+        del role, pool
+        log(f"deli role main path: {len(recs)} records in {run['steps']} "
+            f"steps in {run['wall_s']:.3f}s = "
+            f"{len(recs) / run['wall_s']:,.0f} records/s (host clock; raw "
+            f"topic written in {t_write:.2f}s, set-up); sequencer launches "
+            f"{launches} = chunks; planned per record "
+            f"{planned['record']}, as runs {planned['run']}; "
+            f"{ckpt_writes} checkpoints; deltas ({golden['counts']}) and "
+            f"checkpoint digests match deli_role_golden.json")
+        split = {k: v * 1e3 / run["pumps"] for k, v in
+                 run["stage_s"].items()}
+        pool_split = {k.rsplit("_", 1)[0]: v * 1e3 / run["pumps"]
+                      for k, v in times.items()}
+        log(f"  ms per pump ({run['pumps']} steps that moved records; host "
+            f"clock): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items())
+            + "; flush by SeqPool.times: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in pool_split.items()))
+
+        # ---- (b) a crash and a new owner -----------------------------
+        # on a copy of the main run's raw topic (its data file and
+        # committed-length sidecar; not the doorbell FIFOs)
+        topics = os.path.join(shared, "topics")
+        shared = os.path.join(tmp, "crash")
+        os.makedirs(os.path.join(shared, "topics"))
+        for name in os.listdir(topics):
+            src = os.path.join(topics, name)
+            if name.startswith("rawdeltas.jsonl") and os.path.isfile(src):
+                shutil.copyfile(src, os.path.join(shared, "topics", name))
+        kernel.launches = 0
+        first = make_role(shared, "smoke-g1", "columnar")
+        crash = drive(first, max_steps=ROLE_CRASH_STEPS)
+        env = first.ckpt.load(first.name)
+        ckpt_off = env["state"]["offset"] if env else 0
+        crashed_at, fence1 = first.offset, first.fence
+        first.leases.release(first.name)
+        del first
+        tdk.SeqPool.run_chunk = holding
+        try:
+            second = make_role(shared, "smoke-g2", "columnar")
+            rest = drive(second)
+        finally:
+            tdk.SeqPool.run_chunk = run_chunk
+        launches_crash = kernel.launches
+        if second.fence <= fence1 or (cuda and held["chunks"]
+                                      != ROLE_HELD_CHUNKS):
+            raise AssertionError(f"crash run: fence {second.fence} after "
+                                 f"{fence1}, {held['chunks']} chunks held")
+        gate(second, shared, "deli role crash run")
+        del second
+        log(f"deli role crash run: the first owner stopped after "
+            f"{crash['steps']} steps at input offset {crashed_at} "
+            f"(checkpoint at {ckpt_off}); the second owner recovered and "
+            f"finished in {rest['steps']} steps ({rest['wall_s']:.3f}s); "
+            f"sequencer launches {launches_crash}; {held['chunks']} of the "
+            f"second owner's chunks exact against the plain version "
+            f"(max_abs_err {held['max_abs_err']}); digests match "
+            f"deli_role_golden.json")
+
+        # ---- (c) JSON topics on the first pumps ----------------------
+        shared = os.path.join(tmp, "json")
+        ds.write_raw_topic(shared, recs[:prefix], frame, "json")
+        role = make_role(shared, "smoke-json", "json")
+        kernel.launches = 0
+        js = drive(role)
+        launches_json = kernel.launches
+        dg = digest_of(shared, "json")
+        want_counts = {"ops": prefix // 2, "joins": prefix // 2,
+                       "leaves": 0, "nacks": 0}
+        if (dg.hexdigest(), dg.counts) != (golden["prefix_sha256"],
+                                           want_counts):
+            raise AssertionError(f"deli role JSON prefix: {dg.hexdigest()} "
+                                 f"{dg.counts} differ from "
+                                 f"deli_role_golden.json's prefix")
+        del role
+        log(f"deli role JSON topics: {prefix} records in {js['steps']} "
+            f"steps in {js['wall_s']:.3f}s = {prefix / js['wall_s']:,.0f} "
+            f"records/s; sequencer launches {launches_json}; digest "
+            f"matches the golden prefix; phase 28 "
+            f"{time.perf_counter() - t28:.2f}s")
+    return dict(
+        launches=launches,
+        launches_crash=launches_crash,
+        launches_json=launches_json,
+        max_abs_err=held["max_abs_err"],
+        held_chunks=held["chunks"],
+        records_per_s=len(recs) / run["wall_s"],
+        json_records_per_s=prefix / js["wall_s"],
+        pump_ms=split,
+        flush_ms=pool_split,
+        pumps=run["pumps"],
+        checkpoints=ckpt_writes,
+        planned=planned,
+    )
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3167,6 +3472,12 @@ def main() -> int:
     scan["path_launches"]["scan_engine"] = scan_engine["launches"]
     scan["scan_engine"] = scan_engine
 
+    # ---- 28. the deli's supervised role ---------------------------------
+    role = deli_role_phases(dev, log)
+    deli["path_launches"].update(role=role["launches"],
+                                 role_crash=role["launches_crash"],
+                                 role_json=role["launches_json"])
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -3215,7 +3526,7 @@ def main() -> int:
         "source": sequencer_step_kernel.source,
         "replaces": sequencer_step_kernel.replaces,
         "launches": deli["launches"],
-        "max_abs_err": deli["max_abs_err"],
+        "max_abs_err": max(deli["max_abs_err"], role["max_abs_err"]),
         "ms": deli["ms"],
         "plain_ms": deli["plain_ms"],
         "bound_ms": deli["bound_ms"],
@@ -3232,6 +3543,7 @@ def main() -> int:
         "pool": deli["pool"],
         "pump_ms": deli["pump_ms"],
         "records_per_s": deli["records_per_s"],
+        "role": role,
     }, {
         "name": rebase_kernel.name,
         "route": "cuda",

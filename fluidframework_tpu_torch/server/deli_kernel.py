@@ -1,14 +1,16 @@
 """The batched deli on one GPU: the sequencer kernel in the in-proc
-ordering pipeline.
+ordering pipeline and in the supervised farm's deli role.
 
 Copied from fluidframework_tpu/server/deli_kernel.py: `_pow2` (:96),
 `_nack_reason` (:142), `SeqPool` (:158-652), `_FlatResults` (:654),
-`PackedDeliCore` (:672-841) and `KernelDeliLambda` (:849-1030), on one
-card. Left out: the mesh paths (``mesh=``, `_place`, `_grow_placed`,
+`PackedDeliCore` (:672-841), `KernelDeliLambda` (:849-1030),
+`_ScalarEmit` (:1043-1120) and `KernelDeliRole` (:1122-1639), with the
+pool's, core's and role's ``utils.metrics`` instruments, on one card.
+Left out: the mesh paths (``mesh=``, `_place`, `_grow_placed`,
 `_scatter_rows_placed`, `mesh_for_devices`, `mesh_for_plane`,
-``deli_devices``, ``device_plane``), the supervised `KernelDeliRole`
-with its columnar emit, and the ``utils/metrics`` instruments; see
-ROADMAP.md Queue 1 items 9 and 10.
+``deli_devices``, ``device_plane``, ``plane_column``: ROADMAP.md Queue
+1 item 3) and the farm wiring around the role (the other roles, the
+supervisor: Queue 1 item 4).
 
 The scalar deli tickets one raw record at a time through a per-document
 `DocumentSequencer`. Here a pump drains the raw topic in micro-batches,
@@ -27,6 +29,18 @@ Division of labour, as in the reference:
   verdicts. Checkpoints are pure host work in
   `DocumentSequencer.checkpoint()` format, so the scalar deli, the JAX
   kernel deli and this one restore each other's checkpoints.
+
+Two frontends wrap the shared `PackedDeliCore`:
+
+- `KernelDeliLambda`, the in-proc deli: same deltas entries
+  (`SequencedMessage` / `NackMessage`) and checkpoint shape as the
+  scalar `DeliLambda`;
+- `KernelDeliRole`, the supervised farm's deli (`supervisor._Role`):
+  the scalar `DeliRole`'s wire records, each with its input offset
+  (``inOff``), so the role's fenced exactly-once recovery holds. Over
+  a columnar topic it takes whole `RecordBatch` frames, plans runs of
+  plain ops as arrays, and emits `ColumnarRecords` parts whose op
+  contents pass through as the input's JSON bytes.
 
 Document slots grow by doubling and evict for free: parking a document
 frees its slot (the mirror is authoritative for parked documents);
@@ -57,6 +71,7 @@ from ..ops.sequencer_kernel import (
     SUB_OP,
     SUB_SYSTEM,
 )
+from ..protocol import record_batch as _rb
 from ..protocol.messages import (
     MessageType,
     NackMessage,
@@ -64,6 +79,8 @@ from ..protocol.messages import (
     trace_submit_ts,
 )
 from ..utils.devices import DeviceLike, resolve_device
+from ..utils.metrics import get_registry
+from .columnar_log import ColumnarFileTopic
 from .log import LogConsumer, MessageLog
 from .sequencer import (
     NACK_FUTURE_REFSEQ,
@@ -72,10 +89,11 @@ from .sequencer import (
     future_refseq_reason,
     out_of_order_reason,
     stale_refseq_reason,
-    unwrap_ranged_state,
 )
+from .supervisor import _Role, unwrap_ranged_state
 
-__all__ = ["KernelDeliLambda", "PackedDeliCore", "SeqPool"]
+__all__ = ["KernelDeliLambda", "KernelDeliRole", "PackedDeliCore",
+           "SeqPool"]
 
 SYSTEM_CLIENT = -1  # the scalar deli's system client id
 
@@ -143,6 +161,21 @@ class SeqPool:
         self.chunks = 0  # chunks run (one kernel launch each on the card)
         self.max_cols_seen = 0  # the widest chunk's B
         self.times: Optional[Dict[str, float]] = None
+        # Pool instruments: per-event counters here; the occupancy
+        # gauges are refreshed once per pump by the core.
+        m = get_registry()
+        self._m_grows = m.counter("deli_pool_grows_total")
+        self._m_evicts = m.counter("deli_pool_evictions_total")
+        # Which policy picked each eviction victim, how cold the
+        # resident set looked at decision time, and how many client
+        # columns compaction reclaimed.
+        self._m_evict_policy = {
+            p: m.counter("deli_pool_evictions_by_policy_total", policy=p)
+            for p in ("msn_cold", "lru")
+        }
+        self._m_cold = m.gauge("deli_pool_cold_resident_docs")
+        self._m_reclaims = m.counter("deli_pool_col_reclaims_total")
+        self._m_compactions = m.counter("deli_pool_compactions_total")
 
     # ------------------------------------------------------------ slots
 
@@ -198,24 +231,36 @@ class SeqPool:
             # and is the fallback when nothing is cold.
             victim = None
             victim_key = None
+            cold_resident = 0
             for doc_id, h in self.docs.items():
-                if h["slot"] is None or doc_id in self._active:
+                if h["slot"] is None:
                     continue
-                key = (not h["min_seq"] >= h["seq"], h["t"])
+                cold = h["min_seq"] >= h["seq"]
+                if cold:
+                    cold_resident += 1
+                if doc_id in self._active:
+                    continue
+                key = (not cold, h["t"])
                 if victim_key is None or key < victim_key:
                     victim, victim_key = doc_id, key
+            self._m_cold.set(cold_resident)
             if victim is not None:
-                self.park(victim)
+                self.park(
+                    victim,
+                    policy="lru" if victim_key[0] else "msn_cold",
+                )
         if not self.free:
             old = self.n_docs
             self.n_docs = max(8, old * 2)
             self.free.extend(range(self.n_docs - 1, old - 1, -1))
+            self._m_grows.inc()
         return self.free.pop()
 
-    def park(self, doc_id: str) -> None:
+    def park(self, doc_id: str, policy: Optional[str] = None) -> None:
         """Evict a document's slot. Free: the host mirror is complete,
         so the stale device row is abandoned until the slot's next
-        occupant scatters over it."""
+        occupant scatters over it. `policy` records which rule picked
+        the victim (msn_cold / lru) for the pool's counters."""
         h = self.docs[doc_id]
         slot = h["slot"]
         if slot is None:
@@ -228,6 +273,9 @@ class SeqPool:
             # occupant queues its own, and a stale one would race it in
             # the batched scatter (duplicate indices).
             self._loads = [(s, hh) for s, hh in self._loads if s != slot]
+        self._m_evicts.inc()
+        if policy is not None:
+            self._m_evict_policy[policy].inc()
 
     # ------------------------------------------------- column compaction
 
@@ -251,6 +299,8 @@ class SeqPool:
         }
         if h["slot"] is not None:
             self._loads.append((h["slot"], h))
+        self._m_reclaims.inc(reclaimed)
+        self._m_compactions.inc()
         return reclaimed
 
     def compact_all(self) -> int:
@@ -336,6 +386,10 @@ class SeqPool:
 
     def head(self, doc_id: str) -> int:
         return self.docs[doc_id]["seq"]
+
+    def connected_clients(self, doc_id: str) -> set:
+        h = self.docs.get(doc_id)
+        return set(h["clients"]) if h else set()
 
     def expected_cseq(self, doc_id: str, client_id: int) -> Optional[int]:
         st = self.docs[doc_id]["clients"].get(client_id)
@@ -431,6 +485,22 @@ class PackedDeliCore:
         self._segments: List[Any] = []
         self._n_subs = 0
         self._gctr: Dict[int, int] = {}
+        # Kernel-path instruments: one histogram observation and a
+        # handful of gauge and counter updates per pump, never per
+        # record.
+        m = get_registry()
+        self._m_pump = m.histogram(
+            "deli_pump_records",
+            buckets=(1, 4, 16, 64, 256, 1024, 4096, 16384),
+            impl="kernel",
+        )
+        self._m_nacks = m.counter("deli_nacks_total", impl="kernel")
+        self._m_skips = m.counter("deli_dedup_skips_total", impl="kernel")
+        self._m_resident = m.gauge("deli_pool_resident_docs")
+        self._m_slots = m.gauge("deli_pool_doc_slots")
+        self._m_fill = m.gauge("deli_pool_fill_ratio")
+        self._m_cols = m.gauge("deli_pool_client_cols")
+        self._m_devices = m.gauge("deli_pool_devices")
 
     def begin(self) -> None:
         self.pool.begin()
@@ -533,6 +603,19 @@ class PackedDeliCore:
             msn_o[sel] = res.min_seq[sl, ic]
             nack_o[sel] = res.nack[sl, ic]
             skip_o[sel] = res.skipped[sl, ic]
+        self._m_pump.observe(n)
+        nacks = int(np.count_nonzero(nack_o))
+        if nacks:
+            self._m_nacks.inc(nacks)
+        skips = int(np.count_nonzero(skip_o))
+        if skips:
+            self._m_skips.inc(skips)
+        resident = pool.resident_docs()
+        self._m_resident.set(resident)
+        self._m_slots.set(pool.n_docs)
+        self._m_fill.set(resident / pool.n_docs if pool.n_docs else 0.0)
+        self._m_cols.set(pool.n_clients)
+        self._m_devices.set(1)
         if as_arrays:
             out = _FlatResults(seq_o, msn_o, nack_o, skip_o)
         else:
@@ -576,6 +659,9 @@ class KernelDeliLambda:
         self.consumer = LogConsumer(log.topic(raw_topic), offset)
         self.deltas = log.topic("deltas")
         self.max_pump = max_pump
+        self._m_stage = get_registry().histogram(
+            "op_stage_ms", stage="submit_to_stamp"
+        )
 
     def pump(self, max_count: Optional[int] = None) -> int:
         """Drain up to `max_count` raw records (micro-batch cap: a deep
@@ -649,6 +735,7 @@ class KernelDeliLambda:
         seqs, msns, nacks, skips = res.seq, res.msn, res.nack, res.skipped
         apply_op = pool.apply_op
         ts = time.time()
+        observe_stage = self._m_stage.observe
         for doc_id, handle, tag, a, b in plan:
             if tag == "op":
                 if skips[handle]:
@@ -669,6 +756,7 @@ class KernelDeliLambda:
                 sub = trace_submit_ts(b.metadata)
                 if sub is not None:
                     tr.insert(0, ("submit", sub))
+                    observe_stage((ts - sub) * 1000.0)
                 emit({"doc": doc_id, "kind": "op",
                       "msg": SequencedMessage(
                           seq, msn, a, b.client_seq, b.ref_seq,
@@ -713,3 +801,612 @@ class KernelDeliLambda:
             "offset": self.consumer.checkpoint(),
             "docs": self.core.pool.checkpoint_docs(),
         }
+
+
+# ---------------------------------------------------------------------------
+# supervised-farm frontend (exactly-once recovery)
+# ---------------------------------------------------------------------------
+
+# Wire `type` codes the emit columns stamp (the K_SEQ_OP type column).
+_TC_OP = _rb._TYPE_CODE["op"]
+_TC_JOIN = _rb._TYPE_CODE["join"]
+_TC_LEAVE = _rb._TYPE_CODE["leave"]
+
+
+class _ScalarEmit:
+    """Scalar-record accumulator for the columnar emission path: the
+    records that still need per-record handling (nacks with their
+    reason text, joins/leaves, dict-ingested strays, boxcar members)
+    land as COLUMNS in stream order, so one pump's whole output is
+    `ColumnarRecords` parts end to end — never a per-record wire
+    dict. `flush()` closes the current accumulation into a part
+    appended to `out` (called before every vectorized span so parts
+    splice back in exact stream order)."""
+
+    __slots__ = ("docs", "doc_of", "kind", "tc", "didx", "client",
+                 "cseq", "ref", "seq", "msn", "inoff", "blobs")
+
+    def __init__(self):
+        self.docs: List[str] = []
+        self.doc_of: Dict[str, int] = {}
+        self.kind: List[int] = []
+        self.tc: List[int] = []
+        self.didx: List[int] = []
+        self.client: List[int] = []
+        self.cseq: List[int] = []
+        self.ref: List[int] = []
+        self.seq: List[int] = []
+        self.msn: List[int] = []
+        self.inoff: List[int] = []
+        self.blobs: List[bytes] = []
+
+    def _doc(self, doc: str) -> int:
+        di = self.doc_of.get(doc)
+        if di is None:
+            di = self.doc_of[doc] = len(self.docs)
+            self.docs.append(doc)
+        return di
+
+    def op(self, doc: str, tc: int, cid: int, cseq: int, ref: int,
+           seq: int, msn: int, inoff: int, contents: Any) -> None:
+        self.kind.append(_rb.K_SEQ_OP)
+        self.tc.append(tc)
+        self.didx.append(self._doc(doc))
+        self.client.append(cid)
+        self.cseq.append(cseq)
+        self.ref.append(ref)
+        self.seq.append(seq)
+        self.msn.append(msn)
+        self.inoff.append(inoff)
+        self.blobs.append(_rb._dumps(contents))  # JsonBlob rides raw
+
+    def member(self, doc: str, tc: int, cid: int, seq: int, msn: int,
+               inoff: int) -> None:
+        # join/leave wire shape: clientSeq 0, refSeq seq-1, contents=cid
+        self.op(doc, tc, cid, 0, seq - 1, seq, msn, inoff, cid)
+
+    def nack(self, doc: str, cid: int, cseq: int, code: int,
+             reason: str, inoff: int) -> None:
+        self.kind.append(_rb.K_NACK)
+        self.tc.append(_rb._NO_TYPE)
+        self.didx.append(self._doc(doc))
+        self.client.append(cid)
+        self.cseq.append(cseq)
+        self.ref.append(0)
+        self.seq.append(code)  # code rides the seq column
+        self.msn.append(0)
+        self.inoff.append(inoff)
+        self.blobs.append(_rb._dumps(reason))
+
+    def flush(self, out: List[Any]) -> None:
+        n = len(self.kind)
+        if not n:
+            return
+        blob_off = np.zeros(n + 1, np.uint32)
+        blob_off[1:] = np.cumsum([len(b) for b in self.blobs])
+        out.append(_rb.ColumnarRecords(
+            self.docs, self.kind, self.tc, self.didx, self.client,
+            self.cseq, self.ref, self.seq, self.msn, self.inoff,
+            blob_off, b"".join(self.blobs),
+        ))
+        self.__init__()
+
+
+class KernelDeliRole(_Role):
+    """The supervised farm's deli with the sequencing on the device: a
+    drop-in for the scalar `DeliRole`.
+
+    `process()` buffers validated records; `flush_batch()` (called by
+    the supervision step and by the recovery gap replay) packs them,
+    runs the sequencer, and emits the scalar role's wire records, each
+    carrying its input offset (``inOff``), so the fenced exactly-once
+    recovery holds unchanged: a restart mid-batch scans the durable
+    output prefix and silently replays the gap through the same
+    kernel path without re-emitting.
+
+    Over a columnar op-log (``log_format="columnar"``) the role ingests
+    whole `RecordBatch` frames (`process_batch`): doc ids come from the
+    batch dictionary, the int fields straight off the codec's columns,
+    and standalone ops' ``contents`` stay pre-encoded JSON blobs end to
+    end when the output topic is columnar too. Wire boxcar records
+    sequence atomically through the kernel's group machinery, matching
+    the scalar role bit for bit.
+
+    The role runs on ``cuda`` unless given ``device="cpu"`` (the plain
+    sequencer); given no device where there is no CUDA it raises. The
+    reference's multi-device options (``mesh``, ``deli_devices``,
+    ``device_plane``, ``plane_column``) raise ValueError: they are
+    ROADMAP.md Queue 1 item 3."""
+
+    name = "deli"
+    in_topic_name = "rawdeltas"
+    out_topic_name = "deltas"
+    ingest_batches = True  # _Role.step feeds RecordBatch frames whole
+
+    def __init__(self, *a, device: DeviceLike = None, mesh=None,
+                 deli_devices: Optional[int] = None, device_plane=None,
+                 plane_column: Optional[int] = None, **kw):
+        for opt, val in (("mesh", mesh), ("deli_devices", deli_devices),
+                         ("device_plane", device_plane),
+                         ("plane_column", plane_column)):
+            if val is not None:
+                raise ValueError(
+                    f"KernelDeliRole({opt}=...): the multi-device layer "
+                    f"is ROADMAP.md Queue 1 item 3; the port's role runs "
+                    f"on one device (device=)")
+        # Resolved before any lease, topic or heartbeat file is made, so
+        # a role that cannot run leaves nothing behind.
+        self.device = resolve_device(device)
+        super().__init__(*a, **kw)
+        self.core = PackedDeliCore(dedup=True, device=self.device)
+        self._pending: List[tuple] = []  # ("rec", off, dict) |
+        #                                 ("cols", start_off, RecordBatch)
+        # Blob pass-through is only legal when the output topic can
+        # carry raw JSON bytes (a columnar sibling); a JSON out topic
+        # needs decoded values for its json.dumps.
+        self.out_columnar = isinstance(self.out_topic, ColumnarFileTopic)
+        # Input records planned by each path: "run" through
+        # `_plan_op_run`'s arrays, "record" one by one.
+        self.planned = {"run": 0, "record": 0}
+
+    # ------------------------------------------------------------ state
+
+    def snapshot_state(self) -> Any:
+        # Checkpoint time doubles as the column-compaction sweep: the
+        # snapshot never names departed clients.
+        self.core.pool.compact_all()
+        return self.core.pool.checkpoint_docs()
+
+    def restore_state(self, state: Any) -> None:
+        core = PackedDeliCore(dedup=True, device=self.device)
+        core.pool.restore_docs(unwrap_ranged_state(state))
+        core.pool.times = self.core.pool.times  # the caller's accumulator
+        self.core = core
+
+    # ------------------------------------------------------------- pump
+
+    def process(self, line_idx: int, rec: Any, out: List[dict]) -> None:
+        if not isinstance(rec, dict) or "doc" not in rec:
+            return  # foreign/junk record: consume and move on
+        if rec.get("kind") not in ("join", "leave", "op", "boxcar"):
+            return
+        self._pending.append(("rec", line_idx, rec))
+
+    def process_batch(self, start_line: int, batch: Any,
+                      out: List[dict]) -> None:
+        """Columnar ingest: queue one `RecordBatch` whole (records
+        numbered start_line..start_line+n-1)."""
+        self._pending.append(("cols", start_line, batch))
+
+    def _plan_op(self, plan, add, line_idx, doc, slot, col, cid, cseq,
+                 ref, contents, group=NO_GROUP, sub_ts=None,
+                 adm_ts=None):
+        # `sub_ts`/`adm_ts` thread the client submit stamp (ingress
+        # "tr_sub") and the front door's admission stamp ("tr_adm")
+        # through the plan tuple so wire-trace mode can stamp and
+        # observe at emit time, as the scalar role does.
+        plan.append((line_idx, doc, "op",
+                     (cid, cseq, ref, contents, sub_ts, adm_ts),
+                     add(slot, SUB_OP, col, cseq, ref, group)))
+
+    def flush_batch(self, out: List[dict]) -> None:
+        if not self._pending:
+            return
+        core = self.core
+        pool = core.pool
+        t = pool.times
+        if t is not None:
+            t0 = time.perf_counter()
+        core.begin()
+        touch, add, col_of_join = core.touch, core.add, pool.col_of_join
+        docs_cache: Dict[str, tuple] = {}  # touch once per doc per pump
+        plan: List[tuple] = []
+        shadow: Dict[str, set] = {}
+        # Columnar emission (the pre-columnized emit path): legal when
+        # the out topic carries raw frames and nothing downstream needs
+        # per-record wire dicts — wire tracing adds a side "tr" key
+        # (generic schema), recovery's silent replay and the ranged
+        # fabric's predecessor drains post-process dict records
+        # (inOff filters, inSrc tags).
+        emit_cols = (self.out_columnar and not self.trace_wire
+                     and not self._recovering and not self._dict_emit)
+
+        def doc_entry(doc):
+            ent = docs_cache.get(doc)
+            if ent is None:
+                h = touch(doc)
+                ent = docs_cache[doc] = (h["slot"], h)
+            return ent
+
+        def plan_record(line_idx, rec):
+            doc = rec["doc"]
+            slot, h = doc_entry(doc)
+            kind = rec["kind"]
+            cid = rec["client"]
+            if kind == "op":
+                # Unknown/foreign client id -> scratch column -> the
+                # oracle's unknown-client nack, no state aliasing.
+                self._plan_op(
+                    plan, add, line_idx, doc, slot,
+                    h["cmap"].get(cid, 0), cid, rec["clientSeq"],
+                    rec.get("refSeq", 0), rec.get("contents"),
+                    sub_ts=rec.get("tr_sub"),
+                    adm_ts=rec.get("tr_adm"),
+                )
+            elif kind == "boxcar":
+                plan_boxcar(line_idx, doc, slot, h, cid, [
+                    (op["clientSeq"], op.get("refSeq", 0),
+                     op.get("contents"))
+                    for op in rec.get("ops") or []
+                ], sub_ts=rec.get("tr_sub"),
+                    adm_ts=rec.get("tr_adm"))
+            elif kind == "join":
+                conn = shadow.get(doc)
+                if conn is None:
+                    conn = shadow[doc] = pool.connected_clients(doc)
+                if cid in conn:
+                    return  # duplicate join (at-least-once ingress)
+                conn.add(cid)
+                plan.append((line_idx, doc, "join", cid,
+                             add(slot, SUB_JOIN, col_of_join(h, cid))))
+            else:  # leave
+                conn = shadow.get(doc)
+                if conn is None:
+                    conn = shadow[doc] = pool.connected_clients(doc)
+                conn.discard(cid)
+                plan.append((line_idx, doc, "leave", cid,
+                             add(slot, SUB_LEAVE, h["cmap"].get(cid, 0))))
+
+        def plan_boxcar(line_idx, doc, slot, h, cid, ops, sub_ts=None,
+                        adm_ts=None):
+            # One atomic group: a nack masks the group's tail in-kernel
+            # (resubmission dedup stays per-op and silent).
+            col = h["cmap"].get(cid, 0)
+            g = core.new_group(slot)
+            for cseq, ref, contents in ops:
+                self._plan_op(plan, add, line_idx, doc, slot, col, cid,
+                              cseq, ref, contents, group=g,
+                              sub_ts=sub_ts, adm_ts=adm_ts)
+
+        passthrough = self.out_columnar
+        for ent in self._pending:
+            if ent[0] == "rec":
+                self.planned["record"] += 1
+                plan_record(ent[1], ent[2])
+                continue
+            self._plan_cols(plan, ent[2], ent[1], doc_entry,
+                            plan_record, plan_boxcar, passthrough)
+        self._pending = []
+        if t is not None:
+            t["plan_s"] += time.perf_counter() - t0
+        res = core.run(as_arrays=emit_cols)
+        if t is not None:
+            t0 = time.perf_counter()
+        if emit_cols:
+            self._emit_columns(plan, res, out)
+        else:
+            self._emit_dicts(plan, res, out)
+        if t is not None:
+            t["emit_s"] += time.perf_counter() - t0
+
+    # ------------------------------------------------- columnar ingest
+
+    # Below this, a K_RAW_OP run takes the per-record tuple path: the
+    # per-run fixed cost (unique-doc touch, array builds, one emit
+    # part per span) only amortizes over real runs — a join-interleaved
+    # stream decomposes into length-1 "runs" that would otherwise pay
+    # it per record.
+    MIN_OP_RUN = 16
+
+    def _plan_cols(self, plan, rb, base, doc_entry, plan_record,
+                   plan_boxcar, passthrough) -> None:
+        """Queue one ingested `RecordBatch`: homogeneous K_RAW_OP runs
+        (at least `MIN_OP_RUN` long) go through
+        `PackedDeliCore.add_columns` as arrays (doc slots via one
+        touch per unique doc, dense client columns via one cmap probe
+        per record — no plan tuples, no per-record blob handles),
+        everything else (joins/leaves/boxcars/generic strays, short op
+        runs) through the per-record plan."""
+        n = rb.n
+        if n == 0:
+            return
+        docs = rb.docs
+        kinds_l = None
+        cseqs_l = refs_l = None
+        for run_is_op, lo, hi in _rb.mask_runs(rb.kind == _rb.K_RAW_OP):
+            if run_is_op and hi - lo >= self.MIN_OP_RUN:
+                self.planned["run"] += hi - lo
+                self._plan_op_run(plan, rb, lo, hi, base, doc_entry)
+                continue
+            self.planned["record"] += hi - lo
+            if kinds_l is None:
+                kinds_l = rb.kind.tolist()
+                doci = rb.doc_idx.tolist()
+                clients = rb.client.tolist()
+            for i in range(lo, hi):
+                k = kinds_l[i]
+                if k == _rb.K_RAW_OP:
+                    if cseqs_l is None:
+                        cseqs_l = rb.client_seq.tolist()
+                        refs_l = rb.ref_seq.tolist()
+                    doc = docs[doci[i]]
+                    slot, h = doc_entry(doc)
+                    cid = clients[i]
+                    contents: Any = _rb.JsonBlob(rb.blob(i))
+                    if not passthrough:
+                        contents = contents.value
+                    self._plan_op(
+                        plan, self.core.add, base + i, doc, slot,
+                        h["cmap"].get(cid, 0), cid, cseqs_l[i],
+                        refs_l[i], contents,
+                    )
+                elif k == _rb.K_RAW_BOXCAR:
+                    doc = docs[doci[i]]
+                    slot, h = doc_entry(doc)
+                    # v2 frames: per-op ints off the nested columns,
+                    # per-op contents as raw-blob handles end to end.
+                    ops = rb.boxcar(i)
+                    if not passthrough:
+                        ops = [
+                            (cs, rf, c.value
+                             if isinstance(c, _rb.JsonBlob) else c)
+                            for cs, rf, c in ops
+                        ]
+                    plan_boxcar(base + i, doc, slot, h, clients[i],
+                                ops)
+                elif k in (_rb.K_RAW_JOIN, _rb.K_RAW_LEAVE):
+                    plan_record(base + i, {
+                        "kind": "join" if k == _rb.K_RAW_JOIN
+                        else "leave",
+                        "doc": docs[doci[i]], "client": clients[i],
+                    })
+                else:
+                    # Generic / foreign record inside the frame: decode
+                    # this one record and route it the legacy way.
+                    rec = rb.record(i)
+                    if isinstance(rec, dict) and "doc" in rec and \
+                            rec.get("kind") in ("join", "leave", "op",
+                                                "boxcar"):
+                        plan_record(base + i, rec)
+
+    def _plan_op_run(self, plan, rb, lo, hi, base, doc_entry) -> None:
+        """Bulk-queue one contiguous K_RAW_OP run [lo, hi) through
+        `add_columns` — the pre-columnized ingest half finally on the
+        live path."""
+        docs = rb.docs
+        doci = rb.doc_idx[lo:hi]
+        slot_of: Dict[int, int] = {}
+        h_of: Dict[int, dict] = {}
+        for d in np.unique(doci).tolist():
+            slot, h = doc_entry(docs[d])
+            slot_of[d] = slot
+            h_of[d] = h
+        m = hi - lo
+        doci_l = doci.tolist()
+        clients_l = rb.client[lo:hi].tolist()
+        slots = np.fromiter((slot_of[d] for d in doci_l), np.int64, m)
+        cols = np.fromiter(
+            (h_of[d]["cmap"].get(c, 0)
+             for d, c in zip(doci_l, clients_l)),
+            np.int64, m,
+        )
+        j0 = self.core.add_columns(
+            slots, SUB_OP, cols, rb.client_seq[lo:hi],
+            rb.ref_seq[lo:hi],
+        )
+        plan.append((base, None, "run", (j0, rb, lo, hi, h_of), None))
+
+    # ----------------------------------------------------- emission
+
+    def _emit_dicts(self, plan, res, out: List[dict]) -> None:
+        """The per-record wire-dict emission (the differential-oracle
+        shape, and the path recovery / tracing / ranged drains use)."""
+        pool = self.core.pool
+        emit = out.append
+        seqs, msns, nacks, skips = res.seq, res.msn, res.nack, res.skipped
+        apply_op = pool.apply_op
+        # Wire-trace stamps: ONE clock read per flush (the kernel
+        # role's whole-pump philosophy — KernelDeliLambda stamps the
+        # same way), serving both the record stamp and the
+        # submit_to_stamp observe so the two surfaces agree exactly.
+        trace = self.trace_wire
+        now = time.time() if trace else 0.0
+
+        def emit_op(line_idx, doc, cid, cseq, ref, contents, sub_ts,
+                    adm_ts, handle):
+            if skips[handle]:
+                return  # deduped resubmission / aborted boxcar tail
+            seq, msn, nack = seqs[handle], msns[handle], nacks[handle]
+            if nack:
+                emit({"kind": "nack", "doc": doc, "client": cid,
+                      "clientSeq": cseq, "code": nack,
+                      "reason": _nack_reason(
+                          nack, ref, msn, pool.head(doc), cseq,
+                          pool.expected_cseq(doc, cid)),
+                      "inOff": line_idx})
+                return
+            apply_op(doc, cid, seq, msn, cseq, ref)
+            rec = {"kind": "op", "doc": doc, "seq": seq, "msn": msn,
+                   "client": cid, "clientSeq": cseq, "refSeq": ref,
+                   "type": "op", "contents": contents,
+                   "inOff": line_idx}
+            if trace:
+                tr = {"stamp": now}
+                if isinstance(sub_ts, (int, float)):
+                    tr["sub"] = sub_ts
+                    if not self._recovering:
+                        # Recovery's silent replay must not be
+                        # re-observed (crash-spanning durations) —
+                        # the scalar role's rule, kernel-side.
+                        self._observe_stage(
+                            "submit_to_stamp",
+                            (now - sub_ts) * 1000.0,
+                        )
+                if isinstance(adm_ts, (int, float)):
+                    # The front door's admission stamp: same flush
+                    # clock read, same recovery-silent rule — the
+                    # scalar role's admit_to_stamp, kernel-side.
+                    tr["adm"] = adm_ts
+                    if not self._recovering:
+                        self._observe_stage(
+                            "admit_to_stamp",
+                            (now - adm_ts) * 1000.0,
+                        )
+                rec["tr"] = tr
+            emit(rec)
+
+        for line_idx, doc, tag, payload, handle in plan:
+            if tag == "op":
+                cid, cseq, ref, contents, sub_ts, adm_ts = payload
+                emit_op(line_idx, doc, cid, cseq, ref, contents,
+                        sub_ts, adm_ts, handle)
+            elif tag == "run":
+                j0, rb, lo, hi, _h_of = payload
+                docs = rb.docs
+                doci = rb.doc_idx
+                clients = rb.client
+                cseqs = rb.client_seq
+                refs = rb.ref_seq
+                for i in range(lo, hi):
+                    contents: Any = _rb.JsonBlob(rb.blob(i))
+                    if not self.out_columnar:
+                        contents = contents.value
+                    emit_op(line_idx + i, docs[int(doci[i])],
+                            int(clients[i]), int(cseqs[i]),
+                            int(refs[i]), contents, None, None,
+                            j0 + i - lo)
+            elif tag == "join":
+                seq, msn = seqs[handle], msns[handle]
+                pool.apply_join(doc, payload, seq, msn)
+                rec = {"kind": "op", "doc": doc, "seq": seq, "msn": msn,
+                       "client": payload, "clientSeq": 0,
+                       "refSeq": seq - 1,
+                       "type": "join", "contents": payload,
+                       "inOff": line_idx}
+                if trace:
+                    rec["tr"] = {"stamp": now}
+                emit(rec)
+            else:  # leave
+                seq, msn = seqs[handle], msns[handle]
+                if seq == 0:
+                    continue  # unknown client: nothing stamped
+                pool.apply_leave(doc, payload, seq, msn)
+                rec = {"kind": "op", "doc": doc, "seq": seq, "msn": msn,
+                       "client": payload, "clientSeq": 0,
+                       "refSeq": seq - 1,
+                       "type": "leave", "contents": payload,
+                       "inOff": line_idx}
+                if trace:
+                    rec["tr"] = {"stamp": now}
+                emit(rec)
+
+    def _emit_columns(self, plan, res, out: List[Any]) -> None:
+        """The pre-columnized emission: verdict arrays flow into
+        `ColumnarRecords` parts (ingest blob bytes pass through as
+        whole heap spans), appended to `out` in exact stream order —
+        `ColumnarFileTopic.append_many` splices them into one frame
+        with zero per-record classification. The host mirror updates
+        from flat column lists (bookkeeping-from-results, no wire
+        dicts); nack reasons stay per-record (rare, text-only)."""
+        pool = self.core.pool
+        seqs, msns, nacks, skips = res.seq, res.msn, res.nack, res.skipped
+        sc = _ScalarEmit()
+        for line_idx, doc, tag, payload, handle in plan:
+            if tag == "run":
+                self._emit_run(payload, res, sc, out, line_idx)
+            elif tag == "op":
+                if skips[handle]:
+                    continue
+                seq = int(seqs[handle])
+                msn = int(msns[handle])
+                nack = int(nacks[handle])
+                cid, cseq, ref, contents, _sub, _adm = payload
+                if nack:
+                    sc.nack(doc, cid, cseq, nack, _nack_reason(
+                        nack, ref, msn, pool.head(doc), cseq,
+                        pool.expected_cseq(doc, cid)), line_idx)
+                    continue
+                pool.apply_op(doc, cid, seq, msn, cseq, ref)
+                sc.op(doc, _TC_OP, cid, cseq, ref, seq, msn, line_idx,
+                      contents)
+            elif tag == "join":
+                seq = int(seqs[handle])
+                msn = int(msns[handle])
+                pool.apply_join(doc, payload, seq, msn)
+                sc.member(doc, _TC_JOIN, payload, seq, msn, line_idx)
+            else:  # leave
+                seq = int(seqs[handle])
+                msn = int(msns[handle])
+                if seq == 0:
+                    continue  # unknown client: nothing stamped
+                pool.apply_leave(doc, payload, seq, msn)
+                sc.member(doc, _TC_LEAVE, payload, seq, msn, line_idx)
+        sc.flush(out)
+
+    def _emit_run(self, payload, res, sc: _ScalarEmit, out: List[Any],
+                  base: int) -> None:
+        """Emit one ingested K_RAW_OP run: contiguous ACCEPTED spans
+        become `ColumnarRecords` parts — verdict columns sliced
+        straight off the kernel result, contents blobs one heap memcpy
+        per span — while nacked records (rare) take the scalar path in
+        place, so the output order is exactly the scalar role's."""
+        j0, rb, lo, hi, h_of = payload
+        m = hi - lo
+        seqs = res.seq[j0:j0 + m]
+        msns = res.msn[j0:j0 + m]
+        nacks = res.nack[j0:j0 + m]
+        skips = res.skipped[j0:j0 + m]
+        # 0 = dropped (dedup), 1 = accepted, 2 = nacked.
+        cat = np.where(skips, 0,
+                       np.where(nacks == 0, 1, 2)).astype(np.int8)
+        pool = self.core.pool
+        for c, a, b in _rb.mask_runs(cat):
+            if c == 0:
+                continue  # deduped resubmissions: nothing emitted
+            rows = slice(lo + a, lo + b)
+            if c == 1:
+                off = rb._blob_off[lo + a:lo + b + 1]
+                heap = bytes(rb._heap[off[0]:off[-1]])
+                seq64 = seqs[a:b].astype(np.int64)
+                msn64 = msns[a:b].astype(np.int64)
+                w = b - a
+                part = _rb.ColumnarRecords(
+                    rb.docs,
+                    np.full(w, _rb.K_SEQ_OP, np.uint8),
+                    np.full(w, _TC_OP, np.uint8),
+                    rb.doc_idx[rows],
+                    rb.client[rows], rb.client_seq[rows],
+                    rb.ref_seq[rows],
+                    seq64, msn64,
+                    np.arange(base + lo + a, base + lo + b,
+                              dtype=np.int64),
+                    (off - off[0]).astype(np.uint32), heap,
+                )
+                sc.flush(out)  # strays before this span keep order
+                out.append(part)
+                # Mirror update from flat columns (last write wins per
+                # (doc, client) — order-equivalent within a span of
+                # plain ops, and spans run in stream order).
+                for d, cl, cs, rf, sq, mn in zip(
+                        rb.doc_idx[rows].tolist(),
+                        rb.client[rows].tolist(),
+                        rb.client_seq[rows].tolist(),
+                        rb.ref_seq[rows].tolist(),
+                        seq64.tolist(), msn64.tolist()):
+                    h = h_of[d]
+                    h["clients"][cl] = [rf, cs]
+                    h["seq"] = sq
+                    h["min_seq"] = mn
+            else:
+                docs = rb.docs
+                for i in range(lo + a, lo + b):
+                    j = i - lo
+                    doc = docs[int(rb.doc_idx[i])]
+                    cid = int(rb.client[i])
+                    cseq = int(rb.client_seq[i])
+                    ref = int(rb.ref_seq[i])
+                    nk = int(nacks[j])
+                    msn = int(msns[j])
+                    sc.nack(doc, cid, cseq, nk, _nack_reason(
+                        nk, ref, msn, pool.head(doc), cseq,
+                        pool.expected_cseq(doc, cid)), base + i)

@@ -1,16 +1,13 @@
-"""Nack codes and wording of the deli, and the checkpoint unwrap.
+"""Nack codes and wording of the deli.
 
 Copied from fluidframework_tpu/server/sequencer.py (:29-52: the nack
-codes and the three reason helpers) and from
-fluidframework_tpu/server/supervisor.py (:125-137: `unwrap_ranged_state`,
-the one piece of the supervisor that an in-proc restore needs). The
-scalar `DocumentSequencer` is not copied: the tests hold the port's
-deli against the reference's.
+codes and the three reason helpers). The scalar `DocumentSequencer` is
+not copied: the tests hold the port's deli against the reference's.
+The checkpoint unwrap, `unwrap_ranged_state`, lives in
+`server.supervisor`.
 """
 
 from __future__ import annotations
-
-from typing import Any
 
 NACK_STALE_REFSEQ = 400
 NACK_UNKNOWN_CLIENT = 403
@@ -33,15 +30,3 @@ def future_refseq_reason(ref_seq: int, head_seq: int) -> str:
 def out_of_order_reason(client_seq: int, expected: int) -> str:
     return f"clientSeq {client_seq}, expected {expected}"
 
-
-def unwrap_ranged_state(state: Any) -> Any:
-    """Deli checkpoint states come in two shapes: the classic per-doc
-    `DocumentSequencer` map, and the elastic fabric's ranged envelope
-    (``{"__ranged__": 1, "docs": {...}, "preds": {...}}``: the per-doc
-    map plus predecessor catch-up cursors). Every deli restore unwraps
-    through here, so a checkpoint written by a ranged role restores in
-    any frontend: the doc states mean the same thing everywhere."""
-    if (isinstance(state, dict) and state.get("__ranged__")
-            and "docs" in state):
-        return state.get("docs") or {}
-    return state

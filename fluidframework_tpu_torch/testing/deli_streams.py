@@ -12,7 +12,11 @@ Copies, so that the card can use them without the JAX package:
   submissions sprinkled in);
 - `gen_traffic` from tests/test_sequencer_kernel.py:37-83 (one
   document's submission list for the sequencer itself);
-- `norm_entry` from tests/test_deli_kernel.py:116-124.
+- `norm_entry` from tests/test_deli_kernel.py:116-124;
+- `gen_wire_traffic` (:401-431) and `gen_boxcar_wire` (:700-732) from
+  tests/test_deli_kernel.py (the supervised role's wire records:
+  duplicate joins, resubmissions, junk, unknown clients; boxcars with
+  mid-boxcar nacks and whole-boxcar resubmissions).
 
 New here: `to_inproc` (the wire dicts as the in-proc deli reads them),
 `edge_chunks` (grouped, chunked sequencer traffic with every nack
@@ -20,13 +24,17 @@ code, dedup resubmissions, system stamps and out-of-range client
 slots), `churn_raws` (a client-column set grown by churn), and the
 digests: `StreamDigest` over normalized deltas entries (no timestamps)
 and `checkpoint_digest` over a deli checkpoint without its
-``last_update`` times.
+``last_update`` times. For the supervised role: `RoleDigest` over the
+deltas topic's records in canonical form (testing/deli_bench.py:227's
+`_read_canonical`: ``reason`` dropped, ``inOff`` kept) and
+`write_raw_topic`, which writes a raw topic in frames (or lines).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import random
 from typing import Iterable, List, Optional
 
@@ -350,3 +358,127 @@ def checkpoint_digest(cp: dict) -> str:
     body = {"offset": int(cp["offset"]), "docs": docs}
     return hashlib.sha256(
         json.dumps(body, sort_keys=True).encode()).hexdigest()
+
+
+def gen_wire_traffic(seed: int, docs: int = 3, clients: int = 3,
+                     ops: int = 15) -> List[dict]:
+    """Wire records with duplicate joins, whole-batch resubmissions
+    (at-least-once ingress) and junk records. Every client's joins come
+    first, so each document's ops form long runs of plain ops."""
+    rng = random.Random(seed)
+    recs, sent = [], []
+    queues = {}
+    for d in range(docs):
+        doc = f"doc{d}"
+        for c in range(1, clients + 1):
+            recs.append({"kind": "join", "doc": doc, "client": c})
+            recs.append({"kind": "join", "doc": doc, "client": c})  # dup
+            queues[(doc, c)] = [
+                {"kind": "op", "doc": doc, "client": c, "clientSeq": i + 1,
+                 "refSeq": 0, "contents": {"v": rng.randint(0, 99)}}
+                for i in range(ops)
+            ]
+    keys = list(queues)
+    while keys:
+        k = rng.choice(keys)
+        r = queues[k].pop(0)
+        recs.append(r)
+        sent.append(r)
+        if rng.random() < 0.08:
+            recs.extend(rng.sample(sent, min(3, len(sent))))  # resubmit
+        if not queues[k]:
+            keys.remove(k)
+    recs.append({"junk": 1})
+    recs.append({"kind": "leave", "doc": "doc0", "client": 77})  # unknown
+    recs.append({"kind": "leave", "doc": "doc0", "client": 1})
+    return recs
+
+
+def gen_boxcar_wire(seed: int, docs: int = 2, clients: int = 3,
+                    ops: int = 12) -> List[dict]:
+    """Wire traffic in boxcar records, with mid-boxcar nacks (a
+    clientSeq gap) and whole-boxcar resubmissions."""
+    rng = random.Random(seed)
+    recs, queues = [], {}
+    for d in range(docs):
+        doc = f"doc{d}"
+        for c in range(1, clients + 1):
+            recs.append({"kind": "join", "doc": doc, "client": c})
+            queues[(doc, c)] = [
+                {"clientSeq": i + 1, "refSeq": 0,
+                 "contents": {"v": rng.randrange(99)}}
+                for i in range(ops)
+            ]
+    sent = []
+    keys = list(queues)
+    while keys:
+        doc, c = rng.choice(keys)
+        q = queues[(doc, c)]
+        n = min(len(q), rng.randint(1, 4))
+        box = [q.pop(0) for _ in range(n)]
+        if rng.random() < 0.15:  # a clientSeq gap: nack and abort
+            box[-1] = dict(box[-1], clientSeq=box[-1]["clientSeq"] + 3)
+        rec = {"kind": "boxcar", "doc": doc, "client": c, "ops": box}
+        recs.append(rec)
+        sent.append(rec)
+        if rng.random() < 0.12 and sent:  # lost-ack boxcar resubmit
+            recs.append(rng.choice(sent))
+        if not q:
+            keys.remove((doc, c))
+    return recs
+
+
+def canonical_role_record(rec: dict) -> dict:
+    """A deltas-topic record as the reference's pipeline bench compares
+    it: every key but the nack ``reason`` (``inOff`` kept)."""
+    return {k: v for k, v in rec.items() if k != "reason"}
+
+
+class RoleDigest:
+    """sha256 over a deli role's deltas records, one
+    ``json.dumps(canonical_role_record(r), sort_keys=True)`` line each,
+    fed in any number of pieces; counts ops (type "op"), joins, leaves
+    and nacks. Records with ``inOff`` below `prefix_off` also go into
+    the prefix digest (`prefix_hexdigest`): the outputs of the inputs
+    before that offset."""
+
+    def __init__(self, prefix_off: Optional[int] = None):
+        self._h = hashlib.sha256()
+        self._p = hashlib.sha256()
+        self.prefix_off = prefix_off
+        self.counts = {"ops": 0, "joins": 0, "leaves": 0, "nacks": 0}
+
+    def update(self, records: Iterable[dict]) -> "RoleDigest":
+        h, p, cut, counts = self._h, self._p, self.prefix_off, self.counts
+        for r in records:
+            line = json.dumps(canonical_role_record(r),
+                              sort_keys=True).encode() + b"\n"
+            h.update(line)
+            if cut is not None and r["inOff"] < cut:
+                p.update(line)
+            if r["kind"] == "nack":
+                counts["nacks"] += 1
+            else:
+                counts[{"op": "ops", "join": "joins",
+                        "leave": "leaves"}[r["type"]]] += 1
+        return self
+
+    def hexdigest(self) -> str:
+        return self._h.hexdigest()
+
+    def prefix_hexdigest(self) -> str:
+        return self._p.hexdigest()
+
+
+def write_raw_topic(shared_dir: str, records: List[dict], frame: int,
+                    log_format: str = "columnar") -> str:
+    """Write `records` as the raw topic (``topics/rawdeltas.jsonl``) of
+    `shared_dir`: one append of `frame` records at a time (a columnar
+    frame each, or that many JSON lines). Returns the topic's path."""
+    from ..server.columnar_log import make_topic
+
+    path = os.path.join(shared_dir, "topics", "rawdeltas.jsonl")
+    topic = make_topic(path, log_format)
+    for lo in range(0, len(records), frame):
+        topic.append_many(records[lo:lo + frame])
+    return path

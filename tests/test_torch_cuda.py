@@ -878,3 +878,78 @@ def test_cuda_scan_engine_matches_cpu(cuda):
     assert state_digest(gpu.annotated_spans()) == state_digest(
         cpu.annotated_spans())
 
+
+
+# -------------------------------------------------------- the deli's role
+
+
+def _role_deltas(shared, fmt):
+    import os
+
+    from fluidframework_tpu_torch.server.columnar_log import make_topic
+    from fluidframework_tpu_torch.testing.deli_streams import (
+        canonical_role_record,
+    )
+
+    return [canonical_role_record(r) for r in make_topic(
+        os.path.join(shared, "topics", "deltas.jsonl"), fmt).read_from(0)]
+
+
+def _role_run(shared, recs, dev, fmt, frame, batch):
+    """`KernelDeliRole` on `dev` over `recs` written as the raw topic of
+    `shared`: (deltas, final snapshot, sequencer launches)."""
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+    from fluidframework_tpu_torch.server.deli_kernel import KernelDeliRole
+    from fluidframework_tpu_torch.testing.deli_streams import write_raw_topic
+
+    write_raw_topic(shared, recs, frame, fmt)
+    role = KernelDeliRole(shared, owner="t", ttl_s=3600.0, batch=batch,
+                          log_format=fmt, device=dev)
+    before = tsk.sequencer_step_kernel.launches
+    while role.step():
+        pass
+    launches = tsk.sequencer_step_kernel.launches - before
+    if dev != "cpu":
+        assert launches == role.core.pool.chunks > 0
+    return (_role_deltas(shared, fmt), role.snapshot_state(), launches,
+            dict(role.planned))
+
+
+@pytest.mark.parametrize("fmt", ["json", "columnar"])
+def test_cuda_deli_role_matches_cpu_role(cuda, fmt, tmp_path):
+    """`KernelDeliRole` on the card and on the CPU over the role's wire
+    traffic (duplicate joins, resubmissions, junk, unknown clients,
+    boxcars with aborts, long op runs with nacks): the same deltas and
+    snapshots, on JSON and columnar topics."""
+    from fluidframework_tpu_torch.testing.deli_streams import (
+        gen_boxcar_wire,
+        gen_wire_traffic,
+    )
+
+    recs = gen_wire_traffic(31, docs=4, clients=4, ops=30) + \
+        gen_boxcar_wire(3)
+    recs.insert(200, dict(recs[199], clientSeq=recs[199].get(
+        "clientSeq", 0) + 9))
+    gpu = _role_run(str(tmp_path / "gpu"), recs, cuda, fmt, 64, 256)
+    cpu = _role_run(str(tmp_path / "cpu"), recs, "cpu", fmt, 64, 256)
+    assert gpu[0] == cpu[0] and gpu[1] == cpu[1] and gpu[3] == cpu[3]
+    if fmt == "columnar":
+        assert gpu[3]["run"] > 0
+
+
+def test_cuda_deli_role_config5_first_pump(cuda, tmp_path):
+    """The first pump of BASELINE config 5 (16,384 records, one frame)
+    through the role on the card and on the CPU: the same deltas and
+    snapshot, one launch."""
+    from fluidframework_tpu_torch.testing.deli_streams import (
+        build_pipeline_workload,
+    )
+
+    recs = build_pipeline_workload(10_000, 64, 1, seed=5, limit=16384)
+    gpu = _role_run(str(tmp_path / "gpu"), recs, cuda, "columnar", 16384,
+                    16384)
+    cpu = _role_run(str(tmp_path / "cpu"), recs, "cpu", "columnar", 16384,
+                    16384)
+    assert gpu[2] == 1
+    assert len(gpu[0]) == 16384
+    assert gpu[0] == cpu[0] and gpu[1] == cpu[1]

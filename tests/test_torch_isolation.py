@@ -326,3 +326,25 @@ def test_zamboni_and_scan_engine_no_silent_cpu_fallback(monkeypatch):
     with pytest.raises(AssertionError, match="the plain version ran"):
         tz.zamboni_device(table, 0)
     assert tzk.zamboni_kernel.launches == 0
+
+
+def test_deli_role_no_silent_cpu_fallback(tmp_path):
+    """The supervised deli: `KernelDeliRole` and the port's `main`
+    given no device raise without CUDA, before any lease, topic or
+    heartbeat file is made."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    from fluidframework_tpu_torch.server import supervisor as tsup
+    from fluidframework_tpu_torch.server.deli_kernel import KernelDeliRole
+
+    shared = str(tmp_path / "farm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KernelDeliRole(shared, owner="x")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KernelDeliRole(shared, owner="x", log_format="columnar")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsup.main(["--role", "deli", "--impl", "kernel", "--dir", shared,
+                   "--log-format", "columnar"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsup.serve_role(shared, "deli", "x")
+    assert not os.path.exists(shared)
