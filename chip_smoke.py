@@ -12,13 +12,16 @@ the message-driven overlay replica, the deli sequencer (BASELINE
 config 5), SharedTree's batched rebase (BASELINE config 4), the
 row-model scan under `KernelReplica` and the summary fold's ``kernel``
 backend, the row model's zamboni, the row model's scan engine
-(``bench.py`` with ``BENCH_ENGINE=scan``), and the deli's supervised
-role over columnar and JSON file topics (BASELINE config 5).
+(``bench.py`` with ``BENCH_ENGINE=scan``), the deli's supervised
+role over columnar and JSON file topics (BASELINE config 5), and the
+summary service's supervised role with its catch-up read (config10,
+and config15's documents through the role).
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
 2. builds the six CUDA kernels (nvcc, sm_90a) and the native stream
-   engine (g++) from the checkout's sources, in parallel;
+   engine (g++) from the checkout's sources, in parallel, and generates
+   the headline stream in a worker process beside them (set-up);
 3. holds the overlay chunk kernel against its plain PyTorch version on
    the card at the bench geometry (window 2048, 24 remover slots, 8 prop
    keys, chunks of 256 ops): the first 16 chunks of the seed-7 lagged
@@ -32,8 +35,9 @@ Phases, in order; any failure exits non-zero:
    on the checked chunks;
 4. the main path: `OverlayDeviceReplica(device="cuda")` replays the
    seed-7 lagged stream (1024 clients, collab window 1024, initial
-   length 64; 1M ops by default) with the kernel launch count reset
-   just before; the launches must equal the chunk count, and the final
+   length 64; the first 500k of its 1M ops by default, cut to keep the
+   whole smoke inside its time limit since phase 29; `--ops 1000000`
+   replays it whole) with the kernel launch count reset just before; the launches must equal the chunk count, and the final
    state's digest must equal GOLDEN.json (the full digest at 1M ops,
    else the native stage digest of that prefix length);
 5. holds the row-model chunk kernel against `apply_chunk_ref` on the
@@ -248,13 +252,49 @@ Phases, in order; any failure exits non-zero:
    lease, a second owner recovers and finishes; its first
    ROLE_HELD_CHUNKS chunks held against the plain sequencer on CPU
    copies, exactly) against the same digests, and the JSON-topic form
-   on the first 4 pumps' records against the prefix digest.
+   on the first 4 pumps' records against the prefix digest;
+29. the summary service's role (`server/summarizer.SummarizerRole`),
+   with the scan and kernel A's launch counts set to 0 just before each
+   role run: (a) config10's catch-up (`testing/catchup_streams.
+   run_catchup`: prefixes of 10k, 30k and 100k ops of
+   `build_mergetree_stream(100000, n_clients=4)`, a summary every 2000
+   records, reads of 4096) on JSON and columnar topics with the kernel
+   backend, every manifest field, the summary join's tail and the cold
+   replay's digest equal to `fluidframework_tpu_torch/testing/
+   summary_role_golden.json` (the JAX role's and readers',
+   `tools/summary_role_golden.py`); per L and format the full replay's
+   and the summary join's ms, the speedup, the join's flatness, the
+   role's records/s and its ms per round split into process, encode,
+   fold (with its device time by CUDA events), canonical rows, reboot,
+   put, append and checkpoint; (b) the 100k columnar run on the overlay
+   backend, every manifest equal to the same golden; (c) config15's 132
+   documents (3000 ops from 4 clients, `fold_golden.json`'s seeds)
+   interleaved record by record into one columnar deltas topic, through
+   the role on both backends with a summary every 375 records: every
+   blob's rows equal to `fold_golden.json`, 8 rounds of 132 stacked
+   documents, emissions/s and the split; (d) a crash: a first owner
+   checkpoints at a quarter of (a)'s 100k columnar topic and is
+   abandoned near half, a second recovers after the lease's TTL and
+   finishes: (a)'s manifests but their byteOff, no (doc, seq) twice,
+   and every summary plus a tail of SUMMARY_TAIL ops (the last one's
+   to the log's end) equal to the cold replay there; the full replay
+   of (a) runs on the JSON sweep and stands for both formats (it reads
+   no topic); (e) the first stacked round of (c) on each
+   backend held against the plain versions on the CPU (worker
+   processes), exactly: the tables, fold records and error words.
+
+Phases 28 and 29 (c, e) run in a worker process that starts after
+phase 12: phase 28 (host-bound, launching only the sequencer's 20 µs
+kernel) beside phases 13-27, and phase 29 (c, e), whose rounds make
+many small copies, only once the main process's timed phases are done,
+beside phase 29 (a, b, d); their log lines follow phase 29 (a, b, d)'s.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
-replays in at most 300 s; it is 1M (see the constant). Every path
-(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25, 27 and 28) is
-driven with kernel launch counts set to 0 just before it and read just
-after.
+replays in at most 300 s; it is 1M (see the constant), and phase 6
+replays min(ROW_OPS, --ops). Every path
+(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25, 27, 28
+and 29's role runs) is driven with kernel launch counts set to 0 just
+before it and read just after.
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
 shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
@@ -263,12 +303,12 @@ also lists every layout it checked, the two layouts' times on the same
 chunks, the launches of each path, and the fold's window groups with
 their layout; the sequencer's lists its checked chunks, the deli's
 per-pump split and records/s, and the role's records/s, split and
-launches; the rebase's, both bounds, the call's
-split and op_rebases_per_sec; the scan's, its times at each capacity
-and D, the launches of each path, the kernel fold's runs and the scan
-engine's run and split; the zamboni's, its launches on the scan
-engine's path and in the smoke), the
-nvidia-smi line, and last the
+launches; the rebase's, both bounds, the call's split and
+op_rebases_per_sec; the scan's, its times at each capacity and D, the
+launches of each path, the kernel fold's runs, the scan engine's run
+and split, and the summary role's runs (phase 29; kernel A's entry has
+their overlay launches); the zamboni's, its launches on the scan
+engine's path and in the smoke), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
 """
@@ -276,6 +316,7 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import dataclasses
 import hashlib
@@ -508,6 +549,15 @@ SPIN_CYCLES = 50_000_000
 ROLE_CRASH_STEPS = 20
 ROLE_STAGES = ("poll_parse", "flush", "append", "checkpoint", "other")
 ROLE_HELD_CHUNKS = 2
+# phase 29, the summary service's role (config10's catch-up, config15's
+# documents through the role, a crash, the first stacked round held)
+SUMMARY_STAGES = ("poll", "process", "encode", "fold", "canonical_rows",
+                  "reboot", "put", "append", "checkpoint", "other")
+SUMMARY_BATCH = 4096  # `_drive_summarizer`'s reads, and the crash run's
+SUMMARY_STACK_DOCS = 132
+SUMMARY_CRASH_TTL = 2.0  # the first owner's lease, waited out
+SUMMARY_TAIL = 256  # ops of tail each summary of the crash run boots with
+SUMMARY_PLAIN_WORKERS = 3  # (e)'s CPU workers, beside the main process
 
 
 def log(msg: str) -> None:
@@ -541,6 +591,66 @@ def spin_time(launch, reps: int) -> float:
         cycles *= 2
     raise AssertionError("spin_time: the spin never outlasted the host's "
                          "enqueue")
+
+
+def timed_call(fn, *args):
+    """(fn(*args), its seconds by the host clock): for a worker process,
+    whose time the caller cannot see."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    t = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t
+
+
+def build_and_stream(golden: dict, log):
+    """Phase 2: the six CUDA kernels (one nvcc each) and the native
+    stream engine (g++) built in parallel from the checkout's sources,
+    with GOLDEN.json's headline stream generated beside them in a
+    worker process (the generator is a Python loop over the native
+    engine; the builds leave the host's cores to it). Returns the
+    stream."""
+    from fluidframework_tpu_torch.native import load_hostmerge
+    from fluidframework_tpu_torch.ops import _build
+    from fluidframework_tpu_torch.ops.mergetree_chunk import (
+        mergetree_chunk_kernel,
+    )
+    from fluidframework_tpu_torch.ops.mergetree_scan import (
+        mergetree_scan_kernel,
+    )
+    from fluidframework_tpu_torch.ops.overlay import overlay_chunk_kernel
+    from fluidframework_tpu_torch.ops.sequencer_kernel import (
+        sequencer_step_kernel,
+    )
+    from fluidframework_tpu_torch.ops.zamboni_kernel import zamboni_kernel
+    from fluidframework_tpu_torch.testing.golden import headline_stream
+    from fluidframework_tpu_torch.tree.rebase_kernel import rebase_kernel
+
+    t0 = time.perf_counter()
+    cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name,
+                  sequencer_step_kernel.name, rebase_kernel.name,
+                  mergetree_scan_kernel.name, zamboni_kernel.name)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as gen, \
+            concurrent.futures.ThreadPoolExecutor(len(cuda_names) + 1) as ex:
+        f_stream = gen.submit(timed_call, headline_stream, golden)
+        f_cuda = [ex.submit(_build.load, name) for name in cuda_names]
+        f_host = ex.submit(load_hostmerge)
+        for f in f_cuda:
+            f.result()
+        if f_host.result() is None:
+            raise RuntimeError("g++ build of the native stream engine failed")
+        log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x{len(cuda_names)} "
+            f"+ g++ in parallel)")
+        full, t_gen = f_stream.result()
+    for name in cuda_names:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    log(f"stream: {golden['params']['n_ops']} lagged ops generated in "
+        f"{t_gen:.2f}s (in a worker beside the build; "
+        f"{time.perf_counter() - t0:.2f}s from the build's start)")
+    return full
 
 
 def doc_readout(stream, geometry: dict, table: dict, log, counts):
@@ -2586,6 +2696,702 @@ def deli_role_phases(dev, log) -> dict:
     )
 
 
+def summary_round_plain(backend: str, inputs: list) -> tuple:
+    """One emission round of the summarizer's fold through the plain
+    versions on the CPU (run in a worker process, one torch thread):
+    each ``(doc, rows, msn, records)`` of `inputs` booted from its
+    canonical rows, its records encoded, all folded in one stacked
+    call, as `SummaryEmitter._emit_round` folds them. Returns ({doc:
+    its state, `summary_state`}, seconds by the host clock)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+
+    from fluidframework_tpu_torch.core.overlay_fold import (
+        OverlayFoldReplica, boot_overlay, fold_jobs_overlay,
+    )
+    from fluidframework_tpu_torch.server import summary_fold as sf
+
+    torch.set_num_threads(1)
+    boot = boot_overlay if backend == "overlay" else sf._boot_mergetree
+    jobs, docs = [], []
+    for doc, rows, msn, take in inputs:
+        rep = boot(rows, msn, device="cpu")
+        sf._encode_fold(rep, take)
+        jobs.append((rep, take))
+        docs.append(doc)
+    records = {}
+    apply_round = OverlayFoldReplica.apply_round
+
+    def keep(rep, table, log, counts):
+        records[id(rep)] = fold_records(log, counts)
+        return apply_round(rep, table, log, counts)
+
+    t0 = time.perf_counter()
+    if backend == "overlay":
+        OverlayFoldReplica.apply_round = keep
+        try:
+            fold_jobs_overlay(jobs)
+        finally:
+            OverlayFoldReplica.apply_round = apply_round
+    else:
+        sf._fold_jobs(jobs)
+    secs = time.perf_counter() - t0
+    return ({d: summary_state(rep, records.get(id(rep)))
+             for d, (rep, _) in zip(docs, jobs)}, secs)
+
+
+def fold_records(log, counts) -> dict:
+    """An overlay fold round's records: the used rows of its log and
+    the count a chunk."""
+    import numpy as np
+
+    counts = np.asarray(counts).copy()
+    return {"counts": counts, "log": np.asarray(log)[:int(counts.sum())]
+            .copy()}
+
+
+def summary_state(rep, records=None) -> dict:
+    """A summarizer fold replica's state as host arrays: its table's
+    counts, error word and rows [:n_rows] (the `KernelReplica` table,
+    or the overlay table with its settled length and the host settled
+    text, props and attribution), its arena text, and the round's fold
+    records (overlay)."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.core.kernel_replica import (
+        read_segment_table,
+    )
+    from fluidframework_tpu_torch.core.overlay_fold import _read_table
+
+    overlay = hasattr(rep, "settled_t")
+    t = vars((_read_table if overlay else read_segment_table)(rep.table))
+    n = int(t["n_rows"])
+    out = {k: (np.asarray(v) if np.ndim(v) == 0 else np.asarray(v)[:n])
+           for k, v in t.items()}
+    out["text"] = rep.arena.snapshot()
+    if overlay:
+        out.update(settled_t=rep.settled_t, settled_p=rep.settled_p,
+                   settled_a=rep.settled_a)
+        if records is not None:
+            out.update(fold_counts=records["counts"],
+                       fold_log=records["log"])
+    return out
+
+
+class RoleSplits:
+    """Phase 29's per-round split of summarizer roles: `instrument`
+    wraps each SUMMARY_STAGES stage of a role from outside (the role's
+    `process`, `summary_fold._encode_fold`, the fold dispatch with its
+    CUDA-event device time, the canonical rows, the reboots, the store's
+    puts, the output appends and the checkpoints) and counts its
+    emission rounds; `per_round` gives ms a round; `restore` puts the
+    module's encoder back."""
+
+    def __init__(self):
+        from fluidframework_tpu_torch.server import summary_fold as sf
+
+        self.sf = sf
+        self.encode = sf._encode_fold
+        self.splits: dict = {}
+
+    def instrument(self, role, key) -> None:
+        from fluidframework_tpu_torch.ops.mergetree_scan import (
+            mergetree_scan_kernel,
+        )
+        from fluidframework_tpu_torch.ops.overlay import overlay_chunk_kernel
+
+        sp = self.splits[key] = {
+            "s": dict.fromkeys(SUMMARY_STAGES[:-1], 0.0), "rounds": 0,
+            "device_ms": 0.0}
+        # the path's launch counts start at 0 just before each role run
+        mergetree_scan_kernel.launches = overlay_chunk_kernel.launches = 0
+
+        def timed(fn, stage):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    sp["s"][stage] += time.perf_counter() - t
+            return run
+
+        for attr, stage in (("process", "process"),
+                            ("_rows_of", "canonical_rows"),
+                            ("_boot_rep", "reboot"),
+                            ("checkpoint", "checkpoint")):
+            setattr(role, attr, timed(getattr(role, attr), stage))
+        role.store.put = timed(role.store.put, "put")
+        role.out_topic.append_many = timed(role.out_topic.append_many,
+                                           "append")
+        self.sf._encode_fold = timed(self.encode, "encode")
+        dispatch, emit_round = timed(role._dispatch_fold, "fold"), \
+            role._emit_round
+
+        def fold(jobs):
+            groups = dispatch(jobs)
+            sp["device_ms"] += sum(g["device_ms"] or 0.0 for g in groups)
+            return groups
+
+        def emit(*a):
+            sp["rounds"] += 1
+            return emit_round(*a)
+
+        role._dispatch_fold, role._emit_round = fold, emit
+
+    def restore(self) -> None:
+        self.sf._encode_fold = self.encode
+
+    def per_round(self, key, wall_s, poll_s=0.0) -> dict:
+        """ms a round of each stage (`poll_s`: the reads, timed by the
+        drive), "other" the rest of `wall_s`."""
+        self.restore()
+        sp = self.splits[key]
+        sp["s"]["poll"] = poll_s
+        n = max(1, sp["rounds"])
+        ms = {k: v * 1e3 / n for k, v in sp["s"].items()}
+        ms["other"] = (wall_s - sum(sp["s"].values())) * 1e3 / n
+        ms["fold_device"] = sp["device_ms"] / n
+        return ms
+
+    def rounds(self, key) -> int:
+        return self.splits[key]["rounds"]
+
+
+def fmt_split(ms) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+
+
+def first_diff(got, want) -> str:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            keys = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+            return f"manifest {i}: {keys} {a} != {b}"
+    return f"{len(got)} manifests, {len(want)} in the golden"
+
+
+def load_summary_golden() -> dict:
+    with open(os.path.join(ROOT, "fluidframework_tpu_torch", "testing",
+                           "summary_role_golden.json")) as f:
+        return json.load(f)
+
+
+def summary_catchup_phases(dev, log) -> dict:
+    """Phase 29 (a), (b) and (d), the summary service's role on config10's
+    log, on `dev`: (a) config10's catch-up (`testing/catchup_streams.
+    run_catchup`) at 10k, 30k and 100k ops on JSON and columnar topics,
+    kernel backend, gated on summary_role_golden.json (every manifest
+    field, the tail length, the cold digest of both joins); (b) the 100k
+    columnar run on the overlay backend, the same manifests; (d) a crash
+    near half of (a)'s 100k columnar topic and a new owner after the
+    lease's TTL: (a)'s manifests but ``byteOff``, and every manifest's
+    summary + a SUMMARY_TAIL-op tail equal to the cold replay there. The
+    topics live in a temporary directory that is removed afterwards.
+    Raises on any mismatch; returns what the kernels line reports."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fluidframework_tpu_torch.server.summarizer import (
+        SummarizerRole, SummaryReplica, open_summary_store, read_catchup,
+    )
+    from fluidframework_tpu_torch.testing import catchup_streams as cs
+    from fluidframework_tpu_torch.testing import fold_streams as fs
+
+    cuda = dev.type == "cuda"
+    t29 = time.perf_counter()
+    golden = load_summary_golden()
+    p = golden["params"]
+    lengths = tuple(p["log_lengths"])
+    top = lengths[-1]
+    rs = RoleSplits()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-summary-role-")
+    try:
+        # ---- (a) config10's catch-up, kernel backend, both formats ------
+        catchup, first = {}, None
+        for fmt in p["formats"]:
+            # the full replay reads no topic: run once, on the first
+            # format, and stands for both
+            res = first = cs.run_catchup(
+                lengths, p["summary_ops"], p["n_clients"], fmt, device=dev,
+                fold_backend="kernel",
+                setup=lambda role, L, fmt=fmt: rs.instrument(role, (fmt, L)),
+                cold=first, work_dir=os.path.join(tmp, f"catchup-{fmt}"))
+            rows = []
+            for r in res["runs"]:
+                L = r["log_len"]
+                g = golden["runs"][fmt][str(L)]
+                if r["manifests"] != g["manifests"]:
+                    raise AssertionError(
+                        f"catch-up {fmt} L={L}: "
+                        f"{first_diff(r['manifests'], g['manifests'])}")
+                if (r["digest"], r["tail_ops"], r["summary_seq"]) != (
+                        g["digest"], g["tail_ops"], g["summary_seq"]):
+                    raise AssertionError(
+                        f"catch-up {fmt} L={L}: digest {r['digest']}, tail "
+                        f"{r['tail_ops']}, summary seq {r['summary_seq']} "
+                        f"differ from summary_role_golden.json")
+                lr = r["launches"]
+                if cuda and (lr["role"]["scan"] < r["summaries"]
+                             or lr["cold"]["scan"] < 1
+                             or lr["join"]["scan"] < 1
+                             or any(v["overlay"] for v in lr.values())):
+                    raise AssertionError(f"catch-up {fmt} L={L}: launches "
+                                         f"{lr}")
+                split = rs.per_round((fmt, L), r["summarize_s"], r["poll_s"])
+                shared_cold = ("" if fmt == p["formats"][0] else
+                               f"; the {p['formats'][0]} run's")
+                rows.append(dict(
+                    log_len=L, full_replay_ms=r["full_replay_ms"],
+                    summary_join_ms=r["summary_join_ms"],
+                    join_split_ms=r["join_split_ms"],
+                    speedup=r["speedup"], tail_ops=r["tail_ops"],
+                    blob_bytes=r["blob_bytes"], summaries=r["summaries"],
+                    role_s=r["summarize_s"],
+                    role_records_per_s=r["records"] / r["summarize_s"],
+                    rounds=rs.rounds((fmt, L)), round_ms=split,
+                    launches=lr))
+                log(f"summary role {fmt} L={L}: {r['records']} records in "
+                    f"{r['summarize_s']:.3f}s = "
+                    f"{r['records'] / r['summarize_s']:,.0f} records/s, "
+                    f"{r['summaries']} summaries (scan launches "
+                    f"{lr['role']['scan']}); full replay "
+                    f"{r['full_replay_ms']:.2f} ms (scan launches "
+                    f"{lr['cold']['scan']}{shared_cold}), summary join "
+                    f"{r['summary_join_ms']:.2f} ms ({r['tail_ops']} tail "
+                    f"ops, {r['blob_bytes']} blob bytes; scan launches "
+                    f"{lr['join']['scan']}), speedup {r['speedup']:.2f}; "
+                    f"manifests, tail and digests equal "
+                    f"summary_role_golden.json")
+                log(f"  ms per round ({rs.rounds((fmt, L))} rounds; host "
+                    f"clock, fold_device by CUDA events): "
+                    f"{fmt_split(split)}; the join's ms: "
+                    f"{fmt_split(r['join_split_ms'])}")
+            catchup[fmt] = dict(runs=rows, speedup=res["speedup"],
+                                join_flatness=res["join_flatness"])
+            log(f"summary catch-up {fmt}: speedup {res['speedup']:.2f} at "
+                f"{top} ops, join flatness {res['join_flatness']:.3f} "
+                f"({lengths[0]} to {top})")
+
+        # ---- (b) the 100k run on the overlay backend ---------------------
+        records = fs.build_mergetree_stream(
+            top, n_clients=p["n_clients"], seed=p["seed"],
+            window=p["window"], target_len=p["target_len"])
+        shared = os.path.join(tmp, "overlay")
+        cs.write_deltas(shared, records, "columnar")
+        r = cs.drive_summarizer(
+            shared, "columnar", p["summary_ops"], batch=p["batch"],
+            device=dev, fold_backend="overlay",
+            setup=lambda role: rs.instrument(role, ("overlay", top)))
+        mans = cs.manifests_of(shared, "columnar")
+        want = golden["runs"]["columnar"][str(top)]["manifests"]
+        if mans != want:
+            raise AssertionError(f"overlay backend at {top}: "
+                                 f"{first_diff(mans, want)}")
+        lr = r["launches"]
+        if cuda and (lr["overlay"] < r["summaries"] or lr["scan"]):
+            raise AssertionError(f"overlay backend: role launches {lr}")
+        split = rs.per_round(("overlay", top), r["seconds"], r["poll_s"])
+        overlay_run = dict(
+            log_len=top, role_s=r["seconds"],
+            role_records_per_s=r["records"] / r["seconds"],
+            summaries=r["summaries"], launches=lr,
+            rounds=rs.rounds(("overlay", top)), round_ms=split)
+        log(f"summary role overlay backend, columnar L={top}: "
+            f"{r['records']} records in {r['seconds']:.3f}s = "
+            f"{r['records'] / r['seconds']:,.0f} records/s (kernel A "
+            f"launches {lr['overlay']}, scan 0); every manifest, handles "
+            f"included, equals the kernel backend's golden")
+        log(f"  ms per round ({overlay_run['rounds']} rounds): "
+            f"{fmt_split(split)}")
+
+        # ---- (d) a crash and a new owner on the 100k columnar topic -------
+        # (a)'s 100k columnar deltas topic (its data file and sidecars)
+        shared = os.path.join(tmp, "crash")
+        os.makedirs(os.path.join(shared, "topics"))
+        src = os.path.join(tmp, "catchup-columnar", f"L{top}", "topics")
+        for name in os.listdir(src):
+            if name.startswith("deltas.jsonl") and os.path.isfile(
+                    os.path.join(src, name)):
+                shutil.copyfile(os.path.join(src, name),
+                                os.path.join(shared, "topics", name))
+
+        def owner(name, **kw):
+            role = SummarizerRole(
+                shared, owner=name, ttl_s=SUMMARY_CRASH_TTL,
+                batch=SUMMARY_BATCH, log_format="columnar",
+                summary_ops=p["summary_ops"], fold_backend="kernel",
+                device=dev, **kw)
+            rs.instrument(role, ("crash", name))
+            return role
+
+        # The first owner checkpoints once, at a quarter of the topic, and
+        # stops near half: the new owner restores the checkpoint and
+        # replays the quarter after it silently before it goes on.
+        first = owner("smoke-s1", ckpt_interval_s=3600.0,
+                      ckpt_bytes=1 << 40)
+        before = cs.kernel_launches()
+        t0 = time.perf_counter()
+        while first.offset < len(records) * 0.45:
+            first.step()
+            if first.offset >= len(records) // 4 and first.ckpt.load(
+                    first.name) is None:
+                first.checkpoint()
+        t_first = time.perf_counter() - t0
+        env = first.ckpt.load(first.name)
+        ckpt_off = env["state"]["offset"] if env else 0
+        crashed_at, fence1 = first.offset, first.fence
+        del first  # abandoned: its lease runs out
+        time.sleep(SUMMARY_CRASH_TTL + 0.25)
+        second = owner("smoke-s2")
+        t0 = time.perf_counter()
+        deadline = time.time() + 600
+        while second.fence is None or second.offset < len(records):
+            second.step()
+            if time.time() > deadline:
+                raise AssertionError("crash run: the new owner never "
+                                     "finished")
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t_second = time.perf_counter() - t0
+        rs.restore()
+        after = cs.kernel_launches()
+        launches_crash = {k: after[k] - before[k] for k in after}
+        mans = cs.manifests_of(shared, "columnar")
+
+        def but_byte_off(ms):
+            return [{k: v for k, v in m.items() if k != "byteOff"}
+                    for m in ms]
+
+        keys = [(m["doc"], m["seq"]) for m in mans]
+        if but_byte_off(mans) != but_byte_off(want) \
+                or len(set(keys)) != len(keys) or second.fence <= fence1:
+            raise AssertionError(
+                f"crash run: "
+                f"{first_diff(but_byte_off(mans), but_byte_off(want))}; "
+                f"fences {fence1} then {second.fence}")
+        floors = sum(isinstance(m["byteOff"], int) for m in mans)
+        store = open_summary_store(shared)
+        cold = SummaryReplica(None, device=dev)
+        seqs = [m["seq"] for m in mans]
+        t0 = time.perf_counter()
+        lo = 0
+        tails = 0
+        for k, m in enumerate(mans):
+            # each summary boots with a tail of SUMMARY_TAIL ops (the
+            # last one's, read by `read_catchup`, runs to the log's end)
+            last = k + 1 == len(mans)
+            hi = (len(records) if last else
+                  min(seqs[k + 1] - 1, m["seq"] + SUMMARY_TAIL))
+            cold.apply_records(records[lo:hi])  # record i has seq i + 1
+            lo = hi
+            if last:
+                cu = read_catchup(shared, "doc0", "columnar", store=store)
+                blob, tail = cu["blob"], cu["ops"]
+                if cu["manifest"]["seq"] != m["seq"]:
+                    raise AssertionError("crash run: read_catchup found "
+                                         "another summary than the last")
+            else:
+                blob = json.loads(store.get(m["handle"]).decode())
+                tail = records[m["seq"]:hi]
+            boot = SummaryReplica(blob, device=dev)
+            boot.apply_records(tail)
+            tails += len(tail)
+            if boot.state_digest() != cold.state_digest():
+                raise AssertionError(f"crash run: the summary at seq "
+                                     f"{m['seq']} + its tail to {hi} "
+                                     f"differs from the cold replay")
+        if cold.state_digest() != golden["runs"]["columnar"][str(top)][
+                "digest"]:
+            raise AssertionError("crash run: the cold replay's digest "
+                                 "differs from summary_role_golden.json")
+        t_boots = time.perf_counter() - t0
+        crash = dict(crashed_at=crashed_at, checkpoint_at=ckpt_off,
+                     first_s=t_first, second_s=t_second,
+                     manifests=len(mans), byte_off_floors=floors,
+                     launches=launches_crash, boots_s=t_boots,
+                     tail_ops=tails)
+        log(f"summary role crash run (columnar, {len(records)} records): "
+            f"the first owner stopped at input offset {crashed_at} "
+            f"(checkpoint at {ckpt_off}) after {t_first:.3f}s; the second "
+            f"owner recovered after the lease's {SUMMARY_CRASH_TTL}s and "
+            f"finished in {t_second:.3f}s; scan launches "
+            f"{launches_crash['scan']}; {len(mans)} manifests equal (a)'s "
+            f"but byteOff ({floors} carry one), no (doc, seq) repeated; "
+            f"every summary + its tail (up to {SUMMARY_TAIL} ops, the last "
+            f"one's to the log's end; {tails} tail ops in all) equals the "
+            f"cold replay there ({t_boots:.2f}s)")
+    finally:
+        rs.restore()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 29 (a, b, d) {time.perf_counter() - t29:.2f}s")
+    return dict(catchup=catchup, overlay=overlay_run, crash=crash)
+
+
+def summary_stack_phases(dev, log, workers: int) -> dict:
+    """Phase 29 (c) and (e) on `dev`: (c) config15's 132 documents
+    interleaved record by record into one columnar deltas topic, through
+    the summarizer role on both backends, every blob's rows gated on
+    fold_golden.json; (e) the first stacked round of (c) on each backend
+    held against the plain versions on the CPU (`workers` worker
+    processes), exactly: tables, fold records, error words. The topics
+    live in a temporary directory that is removed afterwards. Raises on
+    any mismatch; returns what the kernels line reports."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fluidframework_tpu_torch.server.summarizer import open_summary_store
+    from fluidframework_tpu_torch.testing import catchup_streams as cs
+    from fluidframework_tpu_torch.testing import fold_streams as fs
+
+    cuda = dev.type == "cuda"
+    t29 = time.perf_counter()
+    rs = RoleSplits()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-summary-stack-")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        fgold = fs.load_fold_golden()
+        step = fgold["params"]["summary_ops"]
+        streams = fs.golden_streams(fgold, SUMMARY_STACK_DOCS)
+        want_rows = {d["doc"]: d["rows_sha256"] for d in fgold["docs"]}
+        inter = []
+        for i in range(max(len(v) for v in streams.values())):
+            inter.extend(v[i] for v in streams.values() if i < len(v))
+        n_whole = min(len(v) for v in streams.values()) // step
+        stacked, plain_jobs = {}, {}
+        t0 = time.perf_counter()
+        stack_topics = os.path.join(tmp, "stack-topics")
+        cs.write_deltas(stack_topics, inter, "columnar")
+        t_write = time.perf_counter() - t0
+        for backend in ("kernel", "overlay"):
+            shared = os.path.join(tmp, f"stack-{backend}")
+            shutil.copytree(stack_topics, shared,
+                            ignore=shutil.ignore_patterns("*.bells"))
+            held: dict = {}
+
+            def setup(role, backend=backend, held=held):
+                rs.instrument(role, ("stack", backend))
+                hold_first_round(role, held)
+
+            run = cs.drive_summarizer(shared, "columnar", step,
+                                      batch=SUMMARY_BATCH, device=dev,
+                                      fold_backend=backend, setup=setup)
+            split = rs.per_round(("stack", backend), run["seconds"],
+                                 run["poll_s"])
+            mans = cs.manifests_of(shared, "columnar")
+            store = open_summary_store(shared)
+            got_rows, got_man = {}, {}
+            for m in mans:
+                blob = json.loads(store.get(m["handle"]).decode())
+                got_rows.setdefault(m["doc"], []).append(hashlib.sha256(
+                    json.dumps(blob["rows"], sort_keys=True).encode())
+                    .hexdigest())
+                got_man.setdefault(m["doc"], []).append(
+                    [m["seq"], m["count"], m["handle"]])
+            for doc in streams:
+                if got_rows.get(doc) != want_rows[doc][:n_whole]:
+                    raise AssertionError(f"stacked role {backend}: {doc}'s "
+                                         f"blob rows differ from "
+                                         f"fold_golden.json")
+            for doc, ms in fgold["manifests"].items():
+                if doc in streams and got_man[doc] != ms:
+                    raise AssertionError(f"stacked role {backend}: {doc}'s "
+                                         f"manifests differ from "
+                                         f"fold_golden.json")
+            lr = run["launches"]
+            kernel_key = "scan" if backend == "kernel" else "overlay"
+            rounds = rs.rounds(("stack", backend))
+            if rounds != n_whole or (cuda and not lr[kernel_key]) \
+                    or "inputs" not in held:
+                raise AssertionError(f"stacked role {backend}: {rounds} "
+                                     f"rounds, launches {lr}")
+            stacked[backend] = dict(
+                docs=len(streams), records=run["records"],
+                emissions=len(mans), seconds=run["seconds"],
+                emissions_per_s=len(mans) / run["seconds"],
+                records_per_s=run["records"] / run["seconds"],
+                launches=lr, rounds=rounds, round_ms=split,
+                first_round_launches=held["launches"])
+            log(f"summary role stacked, {backend} backend: "
+                f"{len(streams)} documents x {len(inter) // len(streams)} "
+                f"records interleaved ({run['records']} records, columnar "
+                f"topic written in {t_write:.2f}s, set-up) in "
+                f"{run['seconds']:.3f}s = "
+                f"{len(mans) / run['seconds']:.1f} emissions/s, "
+                f"{run['records'] / run['seconds']:,.0f} records/s; "
+                f"{rounds} rounds of {len(streams)} stacked documents, "
+                f"{kernel_key} launches {lr[kernel_key]} "
+                f"({held['launches'][kernel_key]} in the first round); every "
+                f"blob's rows and the first {len(fgold['manifests'])} "
+                f"documents' manifests equal fold_golden.json")
+            log(f"  ms per round: {fmt_split(split)}")
+            # (e), the CPU half: the first stacked round's inputs
+            # through the plain versions, in worker processes
+            ins = held["inputs"]
+            plain_jobs[backend] = (held, [
+                pool.submit(summary_round_plain, backend, ins[w::workers])
+                for w in range(workers)])
+
+        # ---- (e) the first stacked round vs the plain versions ------------
+        plain = {}
+        for backend, (held, futs) in plain_jobs.items():
+            cpu, secs = {}, 0.0
+            for fut in futs:
+                states, s = fut.result()
+                cpu.update(states)
+                secs += s
+            err = 0
+            for doc, want_st in cpu.items():
+                got = held["device"][doc]
+                if set(got) != set(want_st):
+                    raise AssertionError(f"first round {backend} {doc}: "
+                                         f"fields {sorted(got)}")
+                for key, b in want_st.items():
+                    a = got[key]
+                    if key == "text":
+                        if a != b:
+                            raise AssertionError(f"first round {backend} "
+                                                 f"{doc}: text differs")
+                        continue
+                    a, b = np.asarray(a), np.asarray(b)
+                    if a.shape != b.shape or a.dtype != b.dtype:
+                        raise AssertionError(
+                            f"first round {backend} {doc}: {key} is "
+                            f"{a.dtype} {a.shape}, plain {b.dtype} "
+                            f"{b.shape}")
+                    d = int(np.abs(a.astype(np.int64)
+                                   - b.astype(np.int64)).max()) \
+                        if a.size else 0
+                    err = max(err, d)
+                    if d:
+                        raise AssertionError(f"first round {backend} "
+                                             f"{doc}: {key} differs from "
+                                             f"the plain version by {d}")
+            if len(cpu) != len(held["device"]):
+                raise AssertionError(f"first round {backend}: "
+                                     f"{len(cpu)} documents held")
+            plain[backend] = dict(docs=len(cpu), max_abs_err=err,
+                                  plain_s=secs,
+                                  launches=held["launches"])
+            log(f"summary role first stacked round, {backend} backend: "
+                f"{len(cpu)} documents' tables, error words"
+                + (", settled state and fold records" if backend ==
+                   "overlay" else "")
+                + f" equal the plain version's on the CPU (max_abs_err "
+                f"{err}; plain {secs:.2f}s summed over {workers} worker "
+                f"processes)")
+    finally:
+        rs.restore()
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 29 (c, e) {time.perf_counter() - t29:.2f}s")
+    return dict(stacked=stacked, first_round=plain)
+
+
+def side_phases(go, out) -> None:
+    """Phase 28, then phase 29 (c, e) once `go` is set, in a worker
+    process that the smoke starts after phase 12. Phase 28 is host-bound
+    and launches only the sequencer's 20 µs kernel, so it runs beside
+    the main process's phases 13-27 without disturbing their kernel
+    timings; phase 29 (c, e) folds 132 documents a round (many small
+    copies), so the main process sets `go` only when its timed phases
+    are done, and it runs beside phase 29 (a, b, d). Puts ("ok", phase
+    28's result, 29 (c, e)'s, the log lines) on `out`, or ("error", the
+    traceback, None, the lines so far)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    lines = []
+    try:
+        import torch
+
+        dev = torch.device("cuda", 0)  # kernels load at first launch
+        t = time.perf_counter()
+        role = deli_role_phases(dev, lines.append)
+        lines.append(f"phase 28 in the worker process "
+                     f"{time.perf_counter() - t:.2f}s")
+        go.wait()
+        stack = summary_stack_phases(dev, lines.append,
+                                     SUMMARY_PLAIN_WORKERS)
+        out.put(("ok", role, stack, lines))
+    except BaseException:
+        import traceback
+
+        out.put(("error", traceback.format_exc(), None, lines))
+        raise
+
+
+def side_result(proc, out) -> tuple:
+    """`side_phases`'s message from `out`, raising if it failed or its
+    process died without one."""
+    import queue
+
+    while True:
+        try:
+            status, a, b, lines = out.get(timeout=5)
+            break
+        except queue.Empty:
+            if not proc.is_alive():
+                raise RuntimeError(f"the worker process of phases 28 and "
+                                   f"29 (c, e) died (exit code "
+                                   f"{proc.exitcode})")
+    proc.join()
+    if status != "ok":
+        for line in lines:
+            log(line)
+        raise RuntimeError(f"phases 28 / 29 (c, e) failed in the worker "
+                           f"process:\n{a}")
+    return a, b, lines
+
+
+def hold_first_round(role, held: dict) -> None:
+    """Wrap `role._dispatch_fold` so that its first stacked round (two
+    or more documents) keeps in `held` its inputs (each document's
+    canonical rows, MSN and records), its launches, and each document's
+    state after the fold (`summary_state`, with the fold records of an
+    overlay round); later rounds pass through."""
+    from fluidframework_tpu_torch.core.overlay_fold import (
+        OverlayFoldReplica,
+    )
+    from fluidframework_tpu_torch.testing.catchup_streams import (
+        kernel_launches,
+    )
+
+    dispatch = role._dispatch_fold
+
+    def first(fold_jobs):
+        if "inputs" in held or len(fold_jobs) < 2:
+            return dispatch(fold_jobs)
+        doc_of = {id(rep): doc for doc, rep in role._reps.items()}
+        held["inputs"] = [
+            (doc_of[id(rep)], role.docs[doc_of[id(rep)]]["rows"],
+             role.docs[doc_of[id(rep)]]["base_msn"], list(take))
+            for rep, take in fold_jobs]
+        records = {}
+        apply_round = OverlayFoldReplica.apply_round
+
+        def keep(rep, table, log, counts):
+            records[id(rep)] = fold_records(log, counts)
+            return apply_round(rep, table, log, counts)
+
+        before = kernel_launches()
+        OverlayFoldReplica.apply_round = keep
+        try:
+            groups = dispatch(fold_jobs)
+        finally:
+            OverlayFoldReplica.apply_round = apply_round
+        after = kernel_launches()
+        held["launches"] = {k: after[k] - before[k] for k in after}
+        held["device"] = {doc_of[id(rep)]: summary_state(
+            rep, records.get(id(rep))) for rep, _ in fold_jobs}
+        return groups
+
+    role._dispatch_fold = first
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2597,9 +3403,10 @@ def smi_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ops", type=int, default=1_000_000,
-                    help="ops of the main-path replay (a multiple of "
-                         "100000 below 1M is gated on its stage digest)")
+    ap.add_argument("--ops", type=int, default=500_000,
+                    help="ops of the main-path and row-model replays (a "
+                         "multiple of 100000 below 1M is gated on its "
+                         "stage digest; 1000000 replays the whole stream)")
     args = ap.parse_args()
 
     import torch
@@ -2618,8 +3425,6 @@ def main() -> int:
     from fluidframework_tpu_torch.core.overlay_replay import (
         OverlayDeviceReplica, replay_docs, restore_shard, stack_replicas,
     )
-    from fluidframework_tpu_torch.native import load_hostmerge
-    from fluidframework_tpu_torch.ops import _build
     from fluidframework_tpu_torch.interop import (
         opbatch_from_numpy, segment_table_from_numpy, table_from_numpy,
         table_to_numpy as interop_table,
@@ -2652,8 +3457,7 @@ def main() -> int:
         overlay_edge_chunks, widen_prop_slots,
     )
     from fluidframework_tpu_torch.testing.golden import (
-        DOC_SEEDS, golden_digest, headline_stream, lagged_stream, load_golden,
-        stream_prefix,
+        DOC_SEEDS, golden_digest, lagged_stream, load_golden, stream_prefix,
     )
 
     # ---- 1. device ---------------------------------------------------
@@ -2664,28 +3468,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
-    # ---- 2. build ----------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name,
-                  sequencer_step_kernel.name, rebase_kernel.name,
-                  mergetree_scan_kernel.name, zamboni_kernel.name)
-    with concurrent.futures.ThreadPoolExecutor(len(cuda_names) + 1) as ex:
-        f_cuda = [ex.submit(_build.load, name) for name in cuda_names]
-        f_host = ex.submit(load_hostmerge)
-        for f in f_cuda:
-            f.result()
-        if f_host.result() is None:
-            raise RuntimeError("g++ build of the native stream engine failed")
-    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc x{len(cuda_names)} "
-        f"+ g++ in parallel)")
-    for name in cuda_names:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
-
-    # ---- stream ------------------------------------------------------
     golden = load_golden()
-    n_golden = golden["params"]["n_ops"]
     initial_len = golden["params"]["initial_len"]
     row_ops = min(args.ops, ROW_OPS)
     want, want_row = golden_digest(golden, args.ops), golden_digest(
@@ -2694,11 +3477,9 @@ def main() -> int:
         raise AssertionError(
             f"GOLDEN.json pins no digest at {args.ops} or {row_ops} ops")
 
-    t0 = time.perf_counter()
-    full = headline_stream(golden)
+    # ---- 2. build, and the headline stream beside it -----------------
+    full = build_and_stream(golden, log)
     stream = stream_prefix(full, args.ops)
-    log(f"stream: {n_golden} lagged ops generated in "
-        f"{time.perf_counter() - t0:.2f}s; replaying the first {args.ops}")
 
     def replica() -> OverlayDeviceReplica:
         return OverlayDeviceReplica(
@@ -3455,6 +4236,19 @@ def main() -> int:
         f"included; kernel launches {launches_stream}); digest matches "
         f"GOLDEN.json at {DOC_OPS}")
 
+    # ---- 28, 29 (c, e): a worker process beside phases 13-29 ----------
+    ctx = multiprocessing.get_context("spawn")
+    side_go, side_out = ctx.Event(), ctx.Queue()
+    side = ctx.Process(target=side_phases, args=(side_go, side_out))
+    side.start()
+
+    def stop_side():  # a failing phase must not leave it running
+        if side.is_alive():
+            side.terminate()
+            side.join()
+
+    atexit.register(stop_side)
+
     # ---- 13-16. the summary service's fold, the message replica -------
     fold = fold_phases(dev, hold, lambda pairs: time_overlay(pairs, 5), log)
 
@@ -3472,11 +4266,36 @@ def main() -> int:
     scan["path_launches"]["scan_engine"] = scan_engine["launches"]
     scan["scan_engine"] = scan_engine
 
-    # ---- 28. the deli's supervised role ---------------------------------
-    role = deli_role_phases(dev, log)
+    # ---- 29 (a, b, d), with 29 (c, e) in the worker process -------------
+    side_go.set()  # the timed phases are done
+    summary = summary_catchup_phases(dev, log)
+
+    # ---- 28, 29 (c, e) from the worker process -----------------------------
+    t0 = time.perf_counter()
+    role, stack, lines = side_result(side, side_out)
+    log(f"phase 28 (beside phases 13-27) and phase 29 (c, e) (beside 29 "
+        f"(a, b, d)), run in a worker process (waited "
+        f"{time.perf_counter() - t0:.2f}s for it here):")
+    for line in lines:
+        log(line)
+    summary.update(stack)
     deli["path_launches"].update(role=role["launches"],
                                  role_crash=role["launches_crash"],
                                  role_json=role["launches_json"])
+    summary_paths = {
+        f"summary_{fmt}_{r['log_len']}": r["launches"]
+        for fmt, c in summary["catchup"].items() for r in c["runs"]}
+    summary_paths["summary_overlay_100000"] = {
+        "role": summary["overlay"]["launches"]}
+    for backend, st in summary["stacked"].items():
+        summary_paths[f"summary_stacked_{backend}"] = st["launches"]
+    summary_paths["summary_crash"] = summary["crash"]["launches"]
+    scan["path_launches"].update({
+        k: {stage: v[stage]["scan"] for stage in v}
+        if "role" in v else v["scan"] for k, v in summary_paths.items()})
+    scan["summary_role"] = summary
+    scan["max_abs_err"] = max(scan["max_abs_err"],
+                              summary["first_round"]["kernel"]["max_abs_err"])
 
     kernels = [{
         "name": overlay_chunk_kernel.name,
@@ -3484,7 +4303,8 @@ def main() -> int:
         "source": overlay_chunk_kernel.source,
         "replaces": overlay_chunk_kernel.replaces,
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err,
+                           summary["first_round"]["overlay"]["max_abs_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -3501,6 +4321,9 @@ def main() -> int:
             "summary_folder": fold["summary_folder"],
             "fold": fold["fold_sweep"],
             "message_replica": fold["message_replica"],
+            **{k: {stage: v[stage]["overlay"] for stage in v}
+               if "role" in v else v["overlay"]
+               for k, v in summary_paths.items()},
         },
         "fold_groups": fold["fold_groups"],
         "fold_shape": fold["fold_shape"],

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
@@ -75,8 +76,12 @@ def build(name: str) -> Tuple[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library, building it on first use."""
+    """The loaded kernel library, building it on first use. One lock a
+    kernel: threads loading different kernels run their nvcc builds
+    side by side."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _libs:
             path, log = build(name)
             build_logs[name] = log

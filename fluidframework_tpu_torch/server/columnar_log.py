@@ -3,9 +3,9 @@
 Copied from fluidframework_tpu/server/columnar_log.py: the truncation
 header (`_pack_trunc`, :87-109), `default_log_format` (:111),
 `make_topic` (:121), `make_tail_reader` (:129), `ColumnarFileTopic`
-(:136) and `ColumnarTailReader` (:525) with `poll_batches`. Left out:
-`tail_records_reverse` (:663-760), the summary catch-up's backward scan
-(ROADMAP.md Queue 1 item 4, with the summarizer's role).
+(:136) and `ColumnarTailReader` (:525) with `poll_batches`, and the summary
+catch-up's backward scan: `_frame_ops_reverse` (:667) and
+`tail_records_reverse` (:709-860).
 
 One `ColumnarFileTopic` append writes ONE fence-gated, CRC-guarded
 record-batch frame (`protocol.record_batch`) instead of one JSON line
@@ -41,7 +41,14 @@ import zlib
 from typing import Any, List, Optional, Tuple
 
 from ..protocol.record_batch import (
+    HEADER,
+    K_GENERIC,
+    K_SEQ_OP,
+    MAGIC,
+    MAX_BATCH_BYTES,
+    RecordBatch,
     count_records,
+    decode_batch,
     encode_batch,
     iter_units,
 )
@@ -56,6 +63,7 @@ __all__ = [
     "default_log_format",
     "make_tail_reader",
     "make_topic",
+    "tail_records_reverse",
 ]
 
 LOG_FORMATS = ("json", "columnar")
@@ -626,3 +634,211 @@ class ColumnarTailReader:
             else:
                 out.append((unit[1], unit[2]))
         return out
+
+
+# ---------------------------------------------------------------------------
+# backward tail scan (summary catch-up's O(tail) read, frame edition)
+# ---------------------------------------------------------------------------
+
+# How far back one frame boundary can possibly sit from a known one: a
+# frame larger than this cannot exist, so a backward chain that finds
+# no anchoring frame inside the window is provably in a non-frame
+# region (JSON-era lines) and the caller falls forward.
+HEADER_MAX_EXTENT = HEADER.size + MAX_BATCH_BYTES
+_REV_BLOCK = 1 << 16
+
+
+def _frame_ops_reverse(batch: RecordBatch, doc: str, base: int,
+                       upto: Optional[int]):
+    """One frame's contribution to a reverse tail scan: `doc`'s
+    kind=="op" records (forward order within the frame), and whether
+    an own-doc record at/below `base` proves the scan may stop.
+    Column-first: a frame whose doc dictionary lacks `doc` is skipped
+    on the dictionary alone (no record decode), K_SEQ_OP rows gather
+    by mask, and only K_GENERIC rows pay a per-record decode."""
+    import numpy as np
+
+    ops: List[dict] = []
+    stop = False
+    gen_rows = np.flatnonzero(batch.kind == K_GENERIC)
+    if doc in batch.docs:
+        di = batch.docs.index(doc)
+        rows = np.flatnonzero(
+            (batch.kind == K_SEQ_OP) & (batch.doc_idx == di)
+        )
+        for i in rows.tolist():
+            s = int(batch.seq[i])
+            if s <= base:
+                stop = True
+                continue
+            if upto is None or s <= upto:
+                ops.append(batch.record(i))
+    elif gen_rows.shape[0] == 0:
+        return ops, stop
+    for i in gen_rows.tolist():
+        rec = batch.record(i)
+        if not isinstance(rec, dict) or rec.get("doc") != doc \
+                or rec.get("kind") != "op":
+            continue
+        s = int(rec["seq"])
+        if s <= base:
+            stop = True
+        elif upto is None or s <= upto:
+            ops.append(rec)
+    if len(ops) > 1:
+        ops.sort(key=lambda r: int(r["seq"]))  # generics interleave
+    return ops, stop
+
+
+def tail_records_reverse(topic: ColumnarFileTopic, doc: str, base: int,
+                         upto: Optional[int],
+                         stop_at: Optional[int] = None
+                         ) -> Optional[List[dict]]:
+    """`doc`'s op records with ``base < seq [<= upto]`` read BACKWARD
+    from the topic's end — the frame-log twin of the summarizer's
+    JSONL `_tail_records_reverse`, so summary catch-up on columnar
+    topics costs O(tail + interleave) instead of the O(log-bytes)
+    forward skip.
+
+    Frames are length-prefixed forward structures, so the walk anchors
+    on the committed-length sidecar and CHAINS backward: a MAGIC
+    candidate is trusted only when its frame decodes (header+payload
+    CRC) AND ends exactly at an already-trusted boundary — later
+    boundaries validate first, so false MAGICs inside blob heaps can
+    never mis-frame the walk. Returns None when it cannot anchor (no
+    sidecar, or a non-frame region — a JSON-era prefix mid-chain);
+    the caller falls back to the forward walk, slower but always
+    correct.
+
+    ``stop_at`` (LOGICAL byte position — a summary manifest's
+    ``byteOff``) bounds the chain: every own-doc record below it is
+    known to be at/below `base`, so the walk never descends past it —
+    O(tail) even when the doc's records are arbitrarily sparse in the
+    interleave. A truncated topic anchors the same way; its header
+    maps logical to physical and the chain floors at the header."""
+    # ONE consistent snapshot: sidecar, then fd, then an inode check.
+    # A concurrent truncate_prefix atomically renames a new file over
+    # the path (sidecar deleted before, rewritten after) — mixing the
+    # new base with the old contents would map `stop_at` through the
+    # wrong base and silently drop tail records. Reading the sidecar
+    # BEFORE the stability check makes every interleaving safe: a
+    # sidecar deleted mid-truncate reads None (fall forward), a
+    # rewritten one implies the rename already landed and the inode
+    # check catches it; once stable, the held fd pins one complete
+    # file version for the size, the header, and every byte the scan
+    # reads.
+    while True:
+        try:
+            fh = open(topic.path, "rb")
+        except OSError:
+            return None
+        committed = topic._read_committed()
+        if committed is None:
+            fh.close()
+            return None  # pre-sidecar file (migrated JSONL): fall fwd
+        if not topic._inode_stable(fh):
+            fh.close()
+            continue  # truncate swapped the file mid-probe: re-probe
+        break
+    size = os.fstat(fh.fileno()).st_size
+    fh.seek(0)
+    _base_r, base_b, hlen = topic._parse_base(fh.read(TRUNC_HEADER_LEN))
+    committed = max(min(committed, size), hlen)
+    floor = hlen
+    if stop_at is not None:
+        floor = max(floor, min(hlen + max(0, stop_at - base_b), size))
+    from ..utils.metrics import get_registry
+
+    m_bytes = get_registry().counter(
+        "catchup_tail_scan_bytes_total", mode="reverse-columnar"
+    )
+    groups: List[List[dict]] = []  # per-unit op lists, newest first
+    with fh as f:
+        # 1. The post-sidecar suffix (at most the appends whose
+        # sidecar update a crash dropped, or one append in flight):
+        # parse FORWARD — torn-unit rules apply, complete units count.
+        f.seek(committed)
+        tail = f.read()
+        m_bytes.inc(len(tail))
+        done = False
+        fwd: List[List[dict]] = []
+        for kind, _idx, _cnt, payload, _end in iter_units(tail):
+            if kind == "batch" and payload is not None:
+                ops, stop = _frame_ops_reverse(payload, doc, base, upto)
+                fwd.append(ops)
+                done = done or stop
+            elif kind == "line":
+                line = payload.strip()
+                if line:
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    if isinstance(rec, dict) and rec.get("doc") == doc \
+                            and rec.get("kind") == "op":
+                        s = int(rec["seq"])
+                        if s <= base:
+                            done = True
+                        elif upto is None or s <= upto:
+                            fwd.append([rec])
+        groups.extend(reversed(fwd))
+        # 2. Chain BACKWARD from the sidecar boundary, frame by frame,
+        # flooring at the truncation header (records below the base
+        # are reclaimed — a caller holding a summary never needs them)
+        # and at `stop_at` (records below it are provably <= base).
+        lo = committed
+        buf = b""
+        buf_start = committed
+        while lo > floor and not done:
+            # Grow the window until a frame ending exactly at `lo`
+            # appears (or the region is provably not a frame). While
+            # `lo` is fixed, a rejected candidate's verdict can never
+            # change when only EARLIER bytes arrive, so after each
+            # front growth only the newly prepended block (+3 bytes of
+            # straddle) is searched — the fallback on a non-frame
+            # region stays linear, not quadratic. A new anchor moves
+            # `lo`, which CAN validate previously rejected candidates;
+            # the outer loop therefore re-searches the (truncated)
+            # remainder from scratch per anchor.
+            anchored = None
+            fresh_hi = len(buf)  # unsearched-prefix bound, this `lo`
+            while anchored is None:
+                pos = min(fresh_hi, len(buf))
+                while pos > 0:
+                    cand = buf.rfind(MAGIC, 0, pos)
+                    if cand < 0:
+                        break
+                    try:
+                        batch, end, cnt = decode_batch(buf, cand)
+                    except ValueError:
+                        pos = cand + 3
+                        continue
+                    if cnt >= 0 and buf_start + end == lo:
+                        # A CRC-failed frame (batch None) still
+                        # anchors the chain — its records are the
+                        # skip-but-count slots every reader skips.
+                        anchored = (buf_start + cand, batch)
+                        break
+                    pos = cand + 3
+                if anchored is not None:
+                    break
+                if buf_start <= hlen or \
+                        lo - buf_start > HEADER_MAX_EXTENT:
+                    return None  # non-frame region: fall forward
+                step = min(_REV_BLOCK, buf_start - hlen)
+                f.seek(buf_start - step)
+                buf = f.read(step) + buf
+                m_bytes.inc(step)
+                buf_start -= step
+                fresh_hi = step + 3  # the new block + MAGIC straddle
+            b_at, batch = anchored
+            if batch is not None:
+                ops, stop = _frame_ops_reverse(batch, doc, base, upto)
+                groups.append(ops)
+                done = done or stop
+            lo = b_at
+            buf = buf[:lo - buf_start]
+    out: List[dict] = []
+    for ops in reversed(groups):
+        out.extend(ops)
+    return out

@@ -5,27 +5,33 @@ decide what a summary holds: `_decode_mt_op` (:179), `_boot_mergetree`
 (:192), `_encode_fold` (:251), `_fold_jobs` (:308), `_canonical_rows`
 (:371), the engine decision and cadence triggers of
 `SummarizerRole.process` (:626-670), `_freeze` (:674), the round
-grouping of `flush_batch` (:703-718) and `_emit_round` (:760-837), with
-`supervisor.canonical_record` (:140). Two fold backends, with
-byte-identical blobs by contract:
+grouping of `flush_batch` (:703-718) and `_emit_round` (:760-837). Two
+fold backends, with byte-identical blobs by contract:
 
 - ``overlay`` (`SummaryFolder`'s default): `core.overlay_fold`, every
   document that summarizes in one emission round stacked into one
   kernel A launch per chunk and window group;
-- ``kernel`` (the JAX role's default): the row-model `KernelReplica`
+- ``kernel`` (the role's default): the row-model `KernelReplica`
   (`_boot_mergetree`), its documents grouped by (capacity, chunk) and
   each group's chunk of every document applied by one launch of the
   scan kernel (`_fold_jobs`), serialized by `_canonical_rows`. The
-  role's ``plane=`` placement over a device mesh is not ported.
+  reference's ``plane=`` placement over a device mesh is not ported.
 
-`SummaryFolder` is that datapath without the role's supervision: no
-fenced lease, heartbeat, checkpoint, topics, castore or metrics, and
-no environment knobs (the role's ``FLUID_SUMMARY_OPS`` and
-``FLUID_FOLD_*`` belong to the role). Its contract is the role's: for
-the same deltas records it emits the same summaries, with blob bytes
-``json.dumps(blob, sort_keys=True, separators=(",", ":"))`` and the
-content-addressed handle the sha256 hex digest of those bytes
-(`server/castore.py:53`).
+`SummaryEmitter` holds the emission logic once: the engine decision,
+the triggers, the round grouping, the fold dispatch, the freeze and
+the emit. Two classes run it:
+
+- `SummaryFolder`, the datapath alone: no fenced lease, heartbeat,
+  checkpoint, topics, castore or metrics, and no environment knobs;
+  its blobs go to a dict;
+- `server.summarizer.SummarizerRole`, the supervised role over the
+  port's `_Role`: blobs into the content-addressed store, manifests
+  onto the ``summaries`` topic, the GC pin around each round.
+
+For the same deltas records both emit the same summaries, with blob
+bytes ``json.dumps(blob, sort_keys=True, separators=(",", ":"))`` and
+the content-addressed handle the sha256 hex digest of those bytes
+(`server/castore.py`).
 
 Two blob forms, decided per document from its first op: ``mergetree``
 (the op contents parse as merge-tree wire ops; the blob holds the
@@ -39,7 +45,7 @@ from __future__ import annotations
 
 import hashlib
 import json
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,9 +76,11 @@ from ..protocol.constants import NO_CLIENT, UNIVERSAL_SEQ
 from ..protocol.mergetree_ops import op_from_json
 from ..protocol.messages import MessageType, SequencedMessage
 from ..utils.devices import DeviceLike, resolve_device
+from ..utils.metrics import NullRegistry
+from .supervisor import canonical_record
 
-__all__ = ["DEFAULT_SUMMARY_OPS", "FOLD_BACKENDS", "SummaryFolder",
-           "canonical_record"]
+__all__ = ["DEFAULT_SUMMARY_OPS", "FOLD_BACKENDS", "SummaryEmitter",
+           "SummaryFolder", "canonical_record"]
 
 # Default emission cadence: one summary per doc every N sequenced
 # records (the role's default).
@@ -90,17 +98,6 @@ def _pow2(n: int, lo: int = _MIN_CAP) -> int:
     while c < n:
         c *= 2
     return c
-
-
-def canonical_record(rec: dict) -> dict:
-    """A sequenced record minus transport bookkeeping (`inOff`, worker
-    tags): the form digests and convergence checks compare."""
-    return {
-        k: rec[k]
-        for k in ("kind", "doc", "seq", "msn", "client", "clientSeq",
-                  "refSeq", "type", "contents")
-        if k in rec
-    }
 
 
 def _decode_mt_op(contents: Any):
@@ -272,40 +269,62 @@ def _encode_fold(rep, records: List[dict]) -> None:
         rep.min_seq = max(rep.min_seq, int(rec["msn"]))
 
 
-class SummaryFolder:
-    """deltas records in, summaries out: the summary role's fold and
-    emission, on the ``overlay`` fold backend (the default here) or the
-    ``kernel`` one (the JAX role's default), with the same blobs.
+class SummaryEmitter:
+    """The summary service's emission logic, shared by `SummaryFolder`
+    and `summarizer.SummarizerRole`: `_take` notes a trigger every
+    `summary_ops` records of a document (as the role's `process`
+    does), `_emit_triggers` folds and emits every pending trigger (the
+    role's `flush_batch`).
 
-    `process(rec)` takes sequenced deltas records one at a time (as
-    the role's `process` does; anything but ``kind == "op"`` records
-    with a ``doc`` is ignored) and notes a trigger every
-    `summary_ops` records of a document. `flush()` folds and emits
-    every pending trigger (the role's `flush_batch`) and returns the
-    manifests ``{doc, seq, msn, count, form, handle, bytes}`` in
-    trigger order; `blobs` maps each handle to its bytes. `device` is
-    ``cuda`` by default (raising when there is none) or an explicit
-    ``"cpu"``."""
+    A subclass calls `_init_emitter` and may override three hooks:
+    `_round_start` (before a round's folds), `_put_blob` (store the
+    bytes, return the handle) and `_manifest` (the output record of one
+    emission).
+    Instruments are the role's, under the reference's names; the
+    folder counts into a `NullRegistry`."""
 
-    def __init__(self, summary_ops: int = DEFAULT_SUMMARY_OPS,
-                 device: DeviceLike = None, fold_backend: str = "overlay"):
+    _log_name = "summary fold"
+
+    def _init_emitter(self, summary_ops: int, fold_backend: str,
+                      device: DeviceLike, metrics, labels: dict) -> None:
         if fold_backend not in FOLD_BACKENDS:
             raise ValueError(f"fold_backend {fold_backend!r} not in "
                              f"{FOLD_BACKENDS}")
-        self.fold_backend = fold_backend
-        self.device = resolve_device(device)
         self.summary_ops = int(summary_ops)
         if self.summary_ops < 1:
             raise ValueError(f"summary_ops must be >= 1: {summary_ops}")
+        self._backend = fold_backend
+        self.device = resolve_device(device)
         # doc -> fold dict (JSON-serializable; live replicas cached
         # separately and rebuilt from the serialized rows).
         self.docs: Dict[str, dict] = {}
         self._reps: Dict[str, Any] = {}
-        # (doc, window_upto, records_upto, seq, msn, count): the
-        # pending emission points, folded and emitted by `flush`.
+        # (doc, line_idx, window_upto, records_upto, seq, msn, count,
+        # byte_off): the pending emission points, folded and emitted
+        # by `_emit_triggers`.
         self._triggers: List[tuple] = []
-        self.blobs: Dict[str, bytes] = {}
         self.frozen: Dict[str, str] = {}  # doc -> why
+        m = metrics
+        self._m_summaries = m.counter("summaries_emitted_total", **labels)
+        self._m_blob_bytes = m.counter("summary_blob_bytes_total",
+                                       **labels)
+        self._m_fold_ops = m.counter("summary_fold_ops_total", **labels)
+        self._m_stacked = m.counter("summary_stacked_folds_total",
+                                    **labels)
+        self._m_frozen = m.counter("summary_docs_frozen_total", **labels)
+        self._m_docs = m.gauge("summary_docs", **labels)
+
+    # ------------------------------------------------------------- hooks
+
+    def _round_start(self) -> None:
+        """Before each emission round."""
+
+    def _put_blob(self, payload: bytes) -> str:
+        raise NotImplementedError
+
+    def _manifest(self, man: dict, line_idx: Optional[int],
+                  byte_off: Optional[int]) -> dict:
+        return man
 
     # ------------------------------------------------------------- fold
 
@@ -318,10 +337,11 @@ class SummaryFolder:
                 "base": 0, "base_msn": 0, "rows": [],
                 "last": None,
             }
+            self._m_docs.set(len(self.docs))
         return f
 
     def _boot_rep(self, rows: List[list], msn: int):
-        if self.fold_backend == "overlay":
+        if self._backend == "overlay":
             return boot_overlay(rows, msn, device=self.device)
         return _boot_mergetree(rows, msn, device=self.device)
 
@@ -333,11 +353,24 @@ class SummaryFolder:
 
     def _rows_of(self, rep, msn: int) -> List[list]:
         """Canonical rows at `msn`, identical bytes on either backend."""
-        if self.fold_backend == "overlay":
+        if self._backend == "overlay":
             return rep.canonical_rows(msn)
         return _canonical_rows(rep, msn)
 
-    def process(self, rec: Any) -> None:
+    def _dispatch_fold(self, fold_jobs: List[Tuple[Any, list]]
+                       ) -> List[dict]:
+        """Fold a round's jobs on the backend; its groups' summaries
+        (`_fold_jobs` / `fold_jobs_overlay`: launches and device ms)."""
+        if self._backend == "overlay":
+            return fold_jobs_overlay(fold_jobs)
+        return _fold_jobs(fold_jobs)
+
+    def _take(self, rec: Any, line_idx: Optional[int],
+              byte_off: Optional[int]) -> None:
+        """One sequenced deltas record: anything but ``kind == "op"``
+        records with a ``doc`` is ignored. `line_idx` is its input
+        offset and `byte_off` the input batch's start byte (the role's;
+        None for the folder)."""
         if not isinstance(rec, dict) or rec.get("kind") != "op" \
                 or "doc" not in rec:
             return  # nacks / junk: summaries fold sequenced ops only
@@ -361,34 +394,38 @@ class SummaryFolder:
         if f["engine"] in ("mergetree", "ops") and \
                 f["count"] % self.summary_ops == 0:
             # Snapshot the fold-prefix lengths AT the trigger: records
-            # after it belong to the NEXT summary. A cadence point
-            # reached while the engine is still undecided (only
-            # joins/leaves so far) is skipped, as the role does.
+            # after it belong to the NEXT summary, and a blob cut
+            # anywhere else would depend on pump boundaries. A cadence
+            # point reached while the engine is still undecided (only
+            # joins/leaves so far) is skipped outright: deterministic,
+            # and joins/leaves carry no state beyond the head.
             self._triggers.append((
-                rec["doc"], len(f["window"]), len(f["records"]),
-                f["seq"], f["msn"], f["count"],
+                rec["doc"], line_idx, len(f["window"]),
+                len(f["records"]), f["seq"], f["msn"], f["count"],
+                byte_off,
             ))
 
     # ------------------------------------------------------- emission
 
     def _freeze(self, doc: str, f: dict, why: str) -> None:
-        """A doc whose stream stopped folding stops emitting summaries:
-        it falls back to longer tails, never to a wrong summary."""
+        """A doc whose stream stopped folding (undecodable op, kernel
+        error, prop overflow) stops emitting summaries: it falls back
+        to longer tails, never to a wrong summary."""
         f["engine"] = "frozen"
         f["window"] = []
         f["rows"] = []
         self._reps.pop(doc, None)
         self.frozen[doc] = why
-        print(f"summary fold: froze {doc} ({why})", flush=True)
+        self._m_frozen.inc()
+        print(f"{self._log_name}: froze {doc} ({why})", flush=True)
 
-    def flush(self) -> List[dict]:
-        """Fold and emit every pending trigger. Consecutive triggers of
-        DISTINCT docs make one stacked fold round; a doc triggering
-        twice starts a new round (its second fold depends on its
-        first)."""
+    def _emit_triggers(self, out: List[dict]) -> None:
+        """Fold and emit every pending trigger into `out`. Consecutive
+        triggers of DISTINCT docs make one stacked fold round; a doc
+        triggering twice starts a new round (its second fold depends
+        on its first)."""
         triggers, self._triggers = self._triggers, []
         consumed: Dict[str, int] = {}
-        out: List[dict] = []
         i = 0
         while i < len(triggers):
             round_docs: set = set()
@@ -398,12 +435,13 @@ class SummaryFolder:
                 j += 1
             self._emit_round(triggers[i:j], consumed, out)
             i = j
-        return out
 
     def _emit_round(self, round_jobs: List[tuple],
                     consumed: Dict[str, int], out: List[dict]) -> None:
+        self._round_start()
         fold_jobs: List[Tuple[Any, list]] = []
-        for doc, upto, _rupto, _seq, _msn, _count in round_jobs:
+        for doc, _line, upto, _rupto, _seq, _msn, _count, _bo \
+                in round_jobs:
             f = self.docs[doc]
             if f["engine"] != "mergetree":
                 continue
@@ -415,13 +453,14 @@ class SummaryFolder:
             except (ValueError, TypeError) as exc:
                 self._freeze(doc, f, repr(exc))
                 continue
+            self._m_fold_ops.inc(len(take))
             fold_jobs.append((rep, take))
+        if len(fold_jobs) > 1:
+            self._m_stacked.inc(len(fold_jobs))
         if fold_jobs:
-            if self.fold_backend == "overlay":
-                fold_jobs_overlay(fold_jobs)
-            else:
-                _fold_jobs(fold_jobs)
-        for doc, upto, rec_upto, seq, msn, count in round_jobs:
+            self._dispatch_fold(fold_jobs)
+        for doc, line_idx, upto, rec_upto, seq, msn, count, byte_off \
+                in round_jobs:
             f = self.docs[doc]
             if f["engine"] == "frozen":
                 continue
@@ -455,11 +494,51 @@ class SummaryFolder:
             payload = json.dumps(
                 blob, sort_keys=True, separators=(",", ":")
             ).encode()
-            handle = hashlib.sha256(payload).hexdigest()
-            self.blobs[handle] = payload
+            handle = self._put_blob(payload)
             f["last"] = {"seq": seq, "handle": handle}
-            out.append({
+            self._m_summaries.inc()
+            self._m_blob_bytes.inc(len(payload))
+            out.append(self._manifest({
                 "doc": doc, "seq": seq, "msn": msn, "count": count,
                 "form": blob["form"], "handle": handle,
                 "bytes": len(payload),
-            })
+            }, line_idx, byte_off))
+
+
+class SummaryFolder(SummaryEmitter):
+    """deltas records in, summaries out: the summary role's fold and
+    emission without its supervision, on the ``overlay`` fold backend
+    (the default here) or the ``kernel`` one (the role's default), with
+    the same blobs.
+
+    `process(rec)` takes sequenced deltas records one at a time (as
+    the role's `process` does; anything but ``kind == "op"`` records
+    with a ``doc`` is ignored) and notes a trigger every
+    `summary_ops` records of a document. `flush()` folds and emits
+    every pending trigger (the role's `flush_batch`) and returns the
+    manifests ``{doc, seq, msn, count, form, handle, bytes}`` in
+    trigger order; `blobs` maps each handle to its bytes. `device` is
+    ``cuda`` by default (raising when there is none) or an explicit
+    ``"cpu"``."""
+
+    def __init__(self, summary_ops: int = DEFAULT_SUMMARY_OPS,
+                 device: DeviceLike = None, fold_backend: str = "overlay"):
+        self._init_emitter(summary_ops, fold_backend, device,
+                           NullRegistry(), {})
+        self.fold_backend = fold_backend
+        self.blobs: Dict[str, bytes] = {}
+
+    def _put_blob(self, payload: bytes) -> str:
+        handle = hashlib.sha256(payload).hexdigest()
+        self.blobs[handle] = payload
+        return handle
+
+    def process(self, rec: Any) -> None:
+        self._take(rec, None, None)
+
+    def flush(self) -> List[dict]:
+        """Fold and emit every pending trigger; the manifests in
+        trigger order."""
+        out: List[dict] = []
+        self._emit_triggers(out)
+        return out

@@ -1,16 +1,18 @@
 """The supervised role: a fenced, exactly-once consume / transform /
 append loop over shared file topics, and the child-process entry that
-serves the kernel deli in it.
+serves the port's roles in it.
 
 Copied from fluidframework_tpu/server/supervisor.py: `EXIT_DEPOSED`,
 `EXIT_FENCED` (:101-102), `trace_wire_enabled` (:112-118),
 `_topic_path` (:121), `unwrap_ranged_state` (:125), `canonical_record`
 (:140), `_Role` (:156-685, whole), `partitioned_role_class` (:1296),
-and `serve_role` (:1323) and `main` (:1964) cut to the one role the
-port has: ``--role deli --impl kernel`` (`deli_kernel.KernelDeliRole`),
-with a new ``--device`` (default ``cuda``). Every other role, the
-scalar deli, ``--deli-devices`` and ``--device-plane`` are refused with
-a ValueError that names the ROADMAP.md item that ports them.
+and `serve_role` (:1323) and `main` (:1964) cut to the two roles the
+port has: ``--role deli --impl kernel`` (`deli_kernel.KernelDeliRole`)
+and ``--role summarizer`` (`summarizer.SummarizerRole`, with
+``--summary-ops`` and ``--fold-backend kernel|overlay``), each with a
+new ``--device`` (default ``cuda``). Every other role, the scalar
+deli, ``--deli-devices`` and ``--device-plane`` are refused with a
+ValueError that names the ROADMAP.md item that ports them.
 `ServiceSupervisor` is not copied.
 
 A role holds a FENCED lease on its name (`queue.LeaseManager`), renews
@@ -25,10 +27,12 @@ owner is rejected at the write path with `FencedError`. Lease,
 heartbeat, checkpoint and topic files are in the reference's formats,
 so a role of either package takes over from the other.
 
-Run the kernel deli on the card::
+Run the kernel deli and the summarizer on the card::
 
     python -c "from fluidframework_tpu_torch.server.supervisor import main; main()" \
         --role deli --impl kernel --dir DIR --log-format columnar
+    python -c "from fluidframework_tpu_torch.server.supervisor import main; main()" \
+        --role summarizer --fold-backend kernel --dir DIR --log-format columnar
 """
 
 from __future__ import annotations
@@ -685,13 +689,13 @@ def partitioned_role_class(base: type, partition: int) -> type:
 # Where the roles, impls and options that the port does not serve yet
 # are to be ported (ROADMAP.md Queue 1).
 _NOT_PORTED_ROLE = (
-    "the port serves only --role deli --impl kernel; the other roles "
-    "(summarizer, scriptorium, scribe, broadcaster, ingress, retention) "
-    "are ROADMAP.md Queue 1 item 4"
+    "the port serves only --role deli --impl kernel and --role "
+    "summarizer; the other roles (scriptorium, scribe, broadcaster, "
+    "ingress, retention) are ROADMAP.md Queue 1 item 4"
 )
 _NOT_PORTED_DEVICES = (
     "is the multi-device layer, ROADMAP.md Queue 1 item 3; the port's "
-    "deli runs on one device (--device)"
+    "roles run on one device (--device)"
 )
 
 
@@ -705,15 +709,21 @@ def serve_role(shared_dir: str, role: str, owner: str,
                partition: Optional[int] = None,
                deli_devices: Optional[int] = None,
                hb_interval_s: Optional[float] = None,
+               summary_ops: Optional[int] = None,
                device_plane: Optional[str] = None,
+               fold_backend: Optional[str] = None,
                device: Optional[str] = None) -> None:
-    """Child-process entry: run the kernel deli until killed, deposed
-    or fenced. With `partition`, the role serves that partition's topic
-    pair under its partition-suffixed lease. `device` is the torch
-    device the sequencer runs on (None: ``cuda``, which raises where
-    there is none). Raises ValueError for a role, impl or device option
-    the port does not serve."""
-    if role != "deli" or deli_impl != "kernel":
+    """Child-process entry: run the kernel deli or the summarizer until
+    killed, deposed or fenced. With `partition`, the role serves that
+    partition's topic pair under its partition-suffixed lease.
+    `summary_ops` and `fold_backend` ("kernel" | "overlay") are the
+    summarizer's cadence and fold engine (``FLUID_SUMMARY_OPS`` and
+    ``FLUID_FOLD_BACKEND`` are the process-wide forms). `device` is the
+    torch device the role's kernels run on (None: ``cuda``, which
+    raises where there is none). Raises ValueError for a role, impl or
+    option the port does not serve."""
+    if not (role == "summarizer"
+            or (role == "deli" and deli_impl == "kernel")):
         raise ValueError(
             f"role={role!r} impl={deli_impl!r}: {_NOT_PORTED_ROLE}"
         )
@@ -723,15 +733,24 @@ def serve_role(shared_dir: str, role: str, owner: str,
     if device_plane is not None:
         raise ValueError(f"device_plane={device_plane!r} "
                          f"{_NOT_PORTED_DEVICES}")
-    from .deli_kernel import KernelDeliRole
+    for knob, val in (("fold_backend", fold_backend),
+                      ("summary_ops", summary_ops)):
+        if val is not None and role != "summarizer":
+            raise ValueError(f"{knob}={val!r} is a summarizer knob "
+                             f"(got role={role!r})")
+    kw: Dict[str, Any] = {}
+    if role == "deli":
+        from .deli_kernel import KernelDeliRole as cls
+    else:
+        from .summarizer import SummarizerRole as cls
 
-    cls = KernelDeliRole
+        kw = dict(summary_ops=summary_ops, fold_backend=fold_backend)
     if partition is not None:
         cls = partitioned_role_class(cls, partition)
     r = cls(
         shared_dir, owner, ttl_s=ttl_s, batch=batch,
         ckpt_interval_s=ckpt_interval_s, ckpt_bytes=ckpt_bytes,
-        log_format=log_format, ckpt_duty=ckpt_duty, device=device,
+        log_format=log_format, ckpt_duty=ckpt_duty, device=device, **kw,
     )
     if hb_interval_s is not None:
         r.hb_interval_s = hb_interval_s
@@ -778,17 +797,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     devices_s = _take("--deli-devices")
     hb_interval_s = _take("--hb-interval")
     device_plane_s = _take("--device-plane")
+    summary_ops_s = _take("--summary-ops")
+    fold_backend_s = _take("--fold-backend")
     device = _take("--device", "cuda")
     if (role is None or shared_dir is None or args
             or (log_format is not None and log_format not in LOG_FORMATS)
             or (partition_s is not None and not partition_s.isdigit())
-            or (devices_s is not None and not devices_s.isdigit())):
+            or (devices_s is not None and not devices_s.isdigit())
+            or (summary_ops_s is not None
+                and not summary_ops_s.isdigit())
+            or (fold_backend_s is not None
+                and fold_backend_s not in ("kernel", "overlay"))):
         print(
             "usage: python -c \"from fluidframework_tpu_torch.server."
-            "supervisor import main; main()\" --role deli --impl kernel "
-            "--dir D [--owner O] [--ttl S] [--batch N] "
+            "supervisor import main; main()\" --role deli|summarizer "
+            "[--impl kernel] --dir D [--owner O] [--ttl S] [--batch N] "
             "[--log-format json|columnar] [--partition K] "
             "[--device cuda|cpu] [--hb-interval S] "
+            "[--summary-ops N] [--fold-backend kernel|overlay] "
             "[--ckpt-interval S] [--ckpt-bytes N] [--ckpt-duty F]",
             file=sys.stderr,
         )
@@ -801,4 +827,6 @@ def main(argv: Optional[List[str]] = None) -> None:
                deli_devices=int(devices_s) if devices_s else None,
                hb_interval_s=float(hb_interval_s)
                if hb_interval_s else None,
-               device_plane=device_plane_s, device=device)
+               summary_ops=int(summary_ops_s) if summary_ops_s else None,
+               device_plane=device_plane_s,
+               fold_backend=fold_backend_s, device=device)

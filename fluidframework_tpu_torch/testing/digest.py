@@ -1,9 +1,11 @@
 """Canonical document-state digests for cross-implementation identity.
 
-Copied from fluidframework_tpu/testing/digest.py. `normalize_spans`
+Copied from fluidframework_tpu/testing/digest.py, with `char_spans`
+from fluidframework_tpu/testing/farm.py (:148). `normalize_spans`
 reduces a (content, props) span list to maximal runs of identical
 props; `state_digest` hashes that form, so the port's digests compare
-directly with GOLDEN.json and the JAX engines.
+directly with GOLDEN.json and the JAX engines. `char_spans` is the
+character-wise form the summary service's `state_digest` hashes.
 """
 
 from __future__ import annotations
@@ -45,3 +47,15 @@ def state_digest(spans: List[Tuple[Any, Optional[dict]]]) -> str:
         [[t, p] for t, p in norm], sort_keys=True, ensure_ascii=True
     )
     return hashlib.sha256(payload.encode()).hexdigest()
+
+
+def char_spans(annotated_spans):
+    """Character-wise (char, props) stream from (content, props) spans:
+    segment boundaries may legitimately differ across replicas;
+    per-character state may not."""
+    out = []
+    for content, props in annotated_spans:
+        norm = tuple(sorted(props.items())) if props else ()
+        for ch in content:
+            out.append((ch, norm))
+    return out

@@ -953,3 +953,74 @@ def test_cuda_deli_role_config5_first_pump(cuda, tmp_path):
     assert gpu[2] == 1
     assert len(gpu[0]) == 16384
     assert gpu[0] == cpu[0] and gpu[1] == cpu[1]
+
+
+# -------------------------------------------------- the summarizer's role
+
+
+def _summary_files(shared):
+    import os
+
+    out = {}
+    for sub in ("topics", "store", "checkpoints"):
+        for root, _dirs, names in os.walk(os.path.join(shared, sub)):
+            for n in names:
+                rel = os.path.relpath(os.path.join(root, n), shared)
+                if ".bell" in rel or rel.endswith(".lock"):
+                    continue
+                with open(os.path.join(root, n), "rb") as f:
+                    out[rel] = f.read()
+    return out
+
+
+@pytest.mark.parametrize("backend", ["kernel", "overlay"])
+@pytest.mark.parametrize("fmt", ["json", "columnar"])
+def test_cuda_summarizer_role_matches_cpu_role(cuda, fmt, backend, tmp_path):
+    """`SummarizerRole` stepped on the card and on the CPU over three
+    interleaved merge-tree documents (stacked rounds): the same
+    manifests, blobs and checkpoint, and the card's launches."""
+    from fluidframework_tpu_torch.ops.mergetree_scan import (
+        mergetree_scan_kernel,
+    )
+    from fluidframework_tpu_torch.ops.overlay import overlay_chunk_kernel
+    from fluidframework_tpu_torch.server.summarizer import SummarizerRole
+    from fluidframework_tpu_torch.testing.catchup_streams import write_deltas
+    from fluidframework_tpu_torch.testing.fold_streams import (
+        build_mergetree_stream,
+    )
+
+    streams = [build_mergetree_stream(400, n_clients=3, seed=s,
+                                      doc=f"d{s}") for s in (1, 2, 3)]
+    recs = [r for i in range(max(map(len, streams))) for r in
+            (s[i] for s in streams if i < len(s))]
+    files = {}
+    for dev in (cuda, "cpu"):
+        shared = str(tmp_path / str(dev))
+        write_deltas(shared, recs, fmt, frame=128)
+        role = SummarizerRole(shared, owner="t", ttl_s=3600.0, batch=256,
+                              ckpt_interval_s=0.0, log_format=fmt,
+                              summary_ops=100, fold_backend=backend,
+                              device=dev)
+        kernel = (mergetree_scan_kernel if backend == "kernel"
+                  else overlay_chunk_kernel)
+        before = kernel.launches
+        while role.step() or role.fence is None:
+            pass
+        if dev is cuda:
+            assert kernel.launches > before
+        files[str(dev)] = _summary_files(shared)
+    assert files[str(cuda)] == files["cpu"]
+
+
+def test_cuda_summary_join_matches_cpu(cuda, tmp_path):
+    """config10's loop at a small size on the card: every length's
+    manifests and digest equal the CPU run's."""
+    from fluidframework_tpu_torch.testing.catchup_streams import run_catchup
+
+    got = [run_catchup((600, 1200), log_format="columnar", device=dev,
+                       warm=False, work_dir=str(tmp_path / str(dev)))
+           for dev in (cuda, "cpu")]
+    for a, b in zip(*(g["runs"] for g in got)):
+        assert (a["manifests"], a["digest"]) == (b["manifests"],
+                                                 b["digest"])
+        assert a["launches"]["role"]["scan"] > 0

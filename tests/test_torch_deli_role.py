@@ -354,7 +354,7 @@ def test_role_refusals(tmp_path):
                {"device_plane": "2x2"}, {"plane_column": 0}):
         with pytest.raises(ValueError, match="Queue 1 item 3"):
             KernelDeliRole(str(tmp_path), owner="x", device="cpu", **kw)
-    for role, impl in (("summarizer", "kernel"), ("scribe", "kernel"),
+    for role, impl in (("retention", "kernel"), ("scribe", "kernel"),
                        ("deli", "scalar")):
         with pytest.raises(ValueError, match="Queue 1 item 4"):
             tsup.serve_role(str(tmp_path), role, "x", deli_impl=impl,

@@ -31,7 +31,12 @@ from fluidframework_tpu_torch.core.overlay_replay import (
 from fluidframework_tpu_torch.ops import mergetree_chunk as tmc
 from fluidframework_tpu_torch.ops import overlay as tov
 from fluidframework_tpu_torch.ops.mergetree_kernel import make_table
+from fluidframework_tpu_torch.server import castore as tcas
+from fluidframework_tpu_torch.server import historian as thist
+from fluidframework_tpu_torch.server import retention as tret
+from fluidframework_tpu_torch.server import summarizer as tsum
 from fluidframework_tpu_torch.server.summary_fold import SummaryFolder
+from fluidframework_tpu_torch.testing import catchup_streams as tcatch
 from fluidframework_tpu_torch.testing.synthetic import generate_stream
 from fluidframework_tpu_torch.utils.devices import resolve_device
 
@@ -348,3 +353,30 @@ def test_deli_role_no_silent_cpu_fallback(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsup.serve_role(shared, "deli", "x")
     assert not os.path.exists(shared)
+
+
+def test_summary_service_no_silent_cpu_fallback(tmp_path):
+    """The summary service: the role (and its child entry), the reader
+    replica and config10's loop given no device raise without CUDA, the
+    role before it makes a lease, heartbeat or topic file; the store
+    refuses the native backend instead of falling back; the pins and
+    the historian need no device."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    from fluidframework_tpu_torch.server import supervisor as tsup
+
+    shared = str(tmp_path / "farm")
+    for make in (lambda: tsum.SummarizerRole(shared, owner="x"),
+                 lambda: tsum.SummarizerRole(shared, owner="x",
+                                             fold_backend="overlay"),
+                 lambda: tsup.serve_role(shared, "summarizer", "x"),
+                 lambda: tsum.SummaryReplica(None),
+                 lambda: tcatch.run_catchup((64,), work_dir=shared)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert not os.path.exists(os.path.join(shared, "hb"))
+    with pytest.raises(ValueError, match="not ported"):
+        tcas.ContentAddressedStore(prefer_native=True)
+    cache = thist.HistorianCache(tcas.ContentAddressedStore(), name="iso")
+    assert cache.get(cache.put(b"x")) == b"x"
+    assert tret.live_pin_floor(shared) is None
