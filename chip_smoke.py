@@ -44,7 +44,11 @@ Phases, in order; any failure exits non-zero:
    card at the bench geometry (capacity 131072, 24 remover slots, 8
    prop keys, chunks of 256 ops), exactly (tolerance 0) on n_rows,
    error and rows [:n_rows]: the first 16 chunks of the same stream
-   with `compact_gather_text` every 4 chunks as the replica runs it, a
+   with a compaction every 4 chunks as the replica runs it (each one
+   the compaction kernel, `compact_gather_text`'s three launches of
+   `csrc/zamboni.cu`, held against its plain version
+   `compact_gather_text_ref` on the card, exactly: the whole table,
+   n_rows, error and the whole new arena), a
    full-table chunk (ERR_CAPACITY, the insert at the document's end
    included), a chunk with positions past the document (ERR_BAD_POS),
    and the block-edge chunks of `testing/block_edges.py` for the
@@ -60,11 +64,15 @@ Phases, in order; any failure exits non-zero:
    stop falls where the replay compacts anyway, so the timed run keeps
    the schedule of one uninterrupted replay (plus one scalar read when
    it resumes), and the table the first call leaves is kept. The
-   launches must equal the chunk count and the digest must equal
+   launches must equal the chunk count, the compaction kernel's
+   launches the compactions times three, and the digest must equal
    GOLDEN.json's stage digest at that depth;
 7. the chunks from k to the end of that replay, on the kept table
    (tens of thousands of rows), kernel against plain version again,
-   exactly; both are timed there.
+   exactly; both are timed there. Then the replay's compaction after
+   chunk k + 4: the compaction kernel against its plain version again,
+   exactly, and both timed (the kernel behind a spin, and both by CUDA
+   events around back-to-back calls) beside the kernel's bound.
 
 8. (in the background, from here on) lagged streams of 100k ops for
    many documents: the DOC_SEEDS of `testing/golden.py` with the
@@ -206,8 +214,8 @@ Phases, in order; any failure exits non-zero:
    spans and error word equal to the same replica on the CPU (worker
    processes), and text and spans (equal-prop runs) to the overlay
    message replica's;
-26. the zamboni kernel (`csrc/zamboni.cu`, five launches of one block a
-   tile of 1024 rows) against its plain version `zamboni_device_ref`,
+26. the zamboni kernel (`csrc/zamboni.cu`, two launches of one block a
+   tile of 512 rows) against its plain version `zamboni_device_ref`,
    run on CPU copies of the same inputs in worker processes, exactly
    (int32, tolerance 0) on every field of the whole output table,
    n_rows and error: the table that a scan-engine replay of the first
@@ -308,7 +316,8 @@ op_rebases_per_sec; the scan's, its times at each capacity and D, the
 launches of each path, the kernel fold's runs, the scan engine's run
 and split, and the summary role's runs (phase 29; kernel A's entry has
 their overlay launches); the zamboni's, its launches on the scan
-engine's path and in the smoke), the nvidia-smi line, and last the
+engine's path and in the smoke; the compaction's, its launches on the
+row replay, three a compaction), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
 """
@@ -2346,7 +2355,9 @@ def row_scan_phases(dev, log, full=None, golden=None) -> tuple:
         f"compaction) at MSN {msn} and 0, and the edge tables at C "
         f"{ZAMBONI_EDGE_CAPACITIES}; on the replica: {n_before} -> {n_after} "
         f"rows, the text unchanged")
-    log(f"zamboni per call (five launches; CUDA events behind a spin, "
+    log(f"zamboni per call ({zamboni_kernel.LAUNCHES} launches; CUDA events "
+        f"behind a "
+        f"spin, "
         f"{SCAN_TIME_REPS} calls) on the {ZAMBONI_OPS}-op table: {ms:.4f} ms "
         f"(bound {b_ms:.6f}, {b_by}: {live} live rows, {kept} kept, "
         f"{runs} runs in ({n_before} -> {n_after} rows), {C} rows out; "
@@ -3409,6 +3420,7 @@ def main() -> int:
                          "stage digest; 1000000 replays the whole stream)")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -3426,7 +3438,8 @@ def main() -> int:
         OverlayDeviceReplica, replay_docs, restore_shard, stack_replicas,
     )
     from fluidframework_tpu_torch.interop import (
-        opbatch_from_numpy, segment_table_from_numpy, table_from_numpy,
+        opbatch_from_numpy, segment_table_from_numpy,
+        segment_table_to_numpy as interop_segment, table_from_numpy,
         table_to_numpy as interop_table,
     )
     from fluidframework_tpu_torch.ops.mergetree_chunk import (
@@ -3448,8 +3461,12 @@ def main() -> int:
     from fluidframework_tpu_torch.ops.sequencer_kernel import (
         sequencer_step_kernel,
     )
-    from fluidframework_tpu_torch.ops.zamboni import compact_gather_text
-    from fluidframework_tpu_torch.ops.zamboni_kernel import zamboni_kernel
+    from fluidframework_tpu_torch.ops.zamboni import (
+        STREAM_BASE as STREAM_BASE_C, compact_gather_text_ref,
+    )
+    from fluidframework_tpu_torch.ops.zamboni_kernel import (
+        compaction_kernel, zamboni_kernel,
+    )
     from fluidframework_tpu_torch.tree.rebase_kernel import rebase_kernel
     from fluidframework_tpu_torch.testing.block_edges import block_edge_chunks
     from fluidframework_tpu_torch.testing.digest import state_digest
@@ -3712,6 +3729,35 @@ def main() -> int:
                     f"{label}: column {name} differs first at row {row}")
         return out_k, n_r, e_r
 
+    max_err_c, held_c = 0, 0
+
+    def compare_compaction(tin: SegmentTable, msn: int, arena_in, text,
+                           label: str):
+        """The compaction kernel against `compact_gather_text_ref` on the
+        card, exactly: every field of the whole table (the kernel writes
+        every row), n_rows, error and the whole new arena."""
+        nonlocal max_err_c, held_c
+        out_k, arena_k = compaction_kernel(tin, msn, arena_in, text)
+        out_r, arena_r = compact_gather_text_ref(tin, msn, arena_in, text)
+        torch.cuda.synchronize()
+        for name in ("n_rows", "error", "buf_start", "length", "ins_seq",
+                     "ins_client", "rem_seq", "rem_clients", "props"):
+            a = getattr(out_k, name).to(torch.int64)
+            b = getattr(out_r, name).to(torch.int64)
+            diff = int((a - b).abs().max()) if a.numel() else 0
+            max_err_c = max(max_err_c, diff)
+            if diff:
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     f"plain version (max |diff| {diff})")
+        diff = int((arena_k.to(torch.int64) - arena_r).abs().max())
+        max_err_c = max(max_err_c, diff)
+        if diff:
+            at = int((arena_k != arena_r).nonzero()[0])
+            raise AssertionError(f"{label}: the new arena differs from the "
+                                 f"plain version first at element {at}")
+        held_c += 1
+        return out_k, arena_k
+
     rrep = row_replica()
     rrep._prepare_text()
     row_ops_dev = rrep.op_segment(0, row_ops)  # NOOP-padded past row_ops
@@ -3730,10 +3776,14 @@ def main() -> int:
         table_b = out
         if (ci + 1) % ROW_SYNC == 0:
             msn = int(row_stream.min_seq[(ci + 1) * CHUNK - 1])
-            table_b, arena = compact_gather_text(
-                table_b, msn, arena, rrep.stream_text)
+            table_b, arena = compare_compaction(
+                table_b, msn, arena, rrep.stream_text,
+                f"compaction after row chunk {ci}")
     log(f"row kernel == plain on {len(early)} stream chunks (rows up to "
-        f"{max(int(t.n_rows) for t, _ in early)} in)")
+        f"{max(int(t.n_rows) for t, _ in early)} in); compaction kernel == "
+        f"compact_gather_text_ref on the card at its {held_c} compactions, "
+        f"exactly (the whole table, n_rows, error and the whole arena of "
+        f"{arena.shape[0]} ints)")
 
     # A full table: C rows of one character, then inserts at the end
     # (no landing row: the Pallas kernel's silent drop, flagged here)
@@ -3814,22 +3864,31 @@ def main() -> int:
     deep_lo = (n_chunks_b - DEEP_CHUNKS) // ROW_SYNC * ROW_SYNC
     torch.cuda.synchronize()
     mergetree_chunk_kernel.launches = 0
+    compaction_kernel.launches = 0
     t0 = time.perf_counter()
     rrep.replay(limit_chunks=deep_lo)
-    deep_table = rrep.table
+    deep_table, deep_arena = rrep.table, rrep.arena
     rrep.replay()
     torch.cuda.synchronize()
     t_row = time.perf_counter() - t0
     launches_b = mergetree_chunk_kernel.launches
+    launches_c = compaction_kernel.launches
     if launches_b != n_chunks_b:
         raise AssertionError(
             f"row kernel launches {launches_b} != chunks {n_chunks_b}")
+    if (launches_c != rrep.compactions * compaction_kernel.LAUNCHES
+            or not launches_c):
+        raise AssertionError(
+            f"compaction kernel launches {launches_c} != {rrep.compactions} "
+            f"compactions x {compaction_kernel.LAUNCHES}")
     rrep.check_errors()
     log(f"row replay: {row_ops} ops in {t_row:.3f}s = "
         f"{row_ops / t_row:,.0f} ops/s, {t_row * 1e3 / n_chunks_b:.4f} "
         f"ms/chunk over {n_chunks_b} chunks (kernel launches {launches_b}, "
-        f"compactions {rrep.compactions}); final rows "
-        f"{int(rrep.table.n_rows)} of capacity {rrep.capacity}")
+        f"compactions {rrep.compactions}, compaction kernel launches "
+        f"{launches_c} = {compaction_kernel.LAUNCHES} a compaction); final "
+        f"rows "
+        f"{int(rrep.table.n_rows)} of capacity {rrep.capacity}; {smi}")
     t0 = time.perf_counter()
     rrep.verify_invariants()
     digest_b = state_digest(rrep.annotated_spans())
@@ -3842,6 +3901,7 @@ def main() -> int:
     # ---- 7. the deep chunks: kernel vs plain, timed ---------------------
     deep = []
     table_b = deep_table
+    comp_at = min(deep_lo + ROW_SYNC, n_chunks_b)  # the replay compacts here
     for ci in range(deep_lo, n_chunks_b):
         batch = row_chunk(ci)
         out, n, e = compare_row(table_b, batch, f"row deep chunk {ci}")
@@ -3849,6 +3909,8 @@ def main() -> int:
         if e:
             raise AssertionError(f"row deep chunk {ci}: error flags {e}")
         table_b = out
+        if ci + 1 == comp_at:
+            comp_in = table_b
     log(f"row kernel == plain on the last {len(deep)} chunks (rows "
         f"{int(deep[0][0].n_rows)} in)")
 
@@ -3896,6 +3958,65 @@ def main() -> int:
         f"{len(deep)} chunks (kernel, CUDA events; {early_ms_b:.4f} ms on "
         f"the first {len(early)}), plain {plain_ms_b:.2f} ms/chunk, bound "
         f"{bound_ms_b:.6f} ms ({bound_by_b})")
+
+    # The replay's compaction after the first deep chunks: kernel against
+    # the plain version again, then each timed (the kernel behind a spin;
+    # both also by CUDA events around back-to-back calls, the host's
+    # enqueue included, as on the path).
+    comp_msn = int(row_stream.min_seq[min(comp_at * CHUNK, row_ops) - 1])
+    comp_args = (comp_in, comp_msn, deep_arena, rrep.stream_text)
+    comp_out, _ = compare_compaction(*comp_args,
+                                     f"deep compaction after chunk {comp_at}")
+
+    def events_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    comp_ms = spin_time(lambda: compaction_kernel(*comp_args), SCAN_TIME_REPS)
+    comp_path_ms = events_ms(lambda: compaction_kernel(*comp_args),
+                             SCAN_TIME_REPS)
+    comp_plain_ms = events_ms(lambda: compact_gather_text_ref(*comp_args),
+                              SCAN_TIME_REPS)
+    comp_launches_per_call = compaction_kernel.LAUNCHES
+    host_in = interop_segment(comp_in)
+    live_c = min(int(host_in["n_rows"]), ROW_CAPACITY)
+    rem_c = host_in["rem_seq"][:live_c]
+    kept_mask = (rem_c == NOT_REMOVED) | (rem_c > comp_msn)
+    kept_c = int(np.count_nonzero(kept_mask))
+    runs_c = int(comp_out.n_rows)
+    buf_c = host_in["buf_start"][:live_c][kept_mask].astype(np.int64)
+    len_c = host_in["length"][:live_c][kept_mask].astype(np.int64)
+    A_c, S_c = deep_arena.shape[0], rrep.stream_text.shape[0]
+    in_doc = (buf_c >= 0) & (buf_c < A_c)
+    in_st = (buf_c >= STREAM_BASE_C) & (buf_c < STREAM_BASE_C + S_c)
+    moved_c = int(np.minimum(len_c, A_c - buf_c)[in_doc].sum()
+                  + np.minimum(len_c, STREAM_BASE_C + S_c - buf_c)[in_st]
+                  .sum())
+    cols_c = 5 + N_REMOVERS + N_PROP_KEYS
+    b_c = 4 * (live_c + kept_c * (3 + N_PROP_KEYS) + runs_c
+               * (1 + N_REMOVERS) + ROW_CAPACITY * cols_c + moved_c + A_c
+               + 5) / PEAK_BYTES_S
+    o_c = (ZAMBONI_OPS_LIVE * live_c + (ZAMBONI_OPS_KEPT + N_PROP_KEYS)
+           * kept_c + ZAMBONI_OPS_RUN * runs_c + ROW_CAPACITY * cols_c
+           + A_c) / PEAK_OPS_S
+    comp_bound_ms = max(b_c, o_c) * 1e3
+    comp_bound_by = "bytes" if b_c >= o_c else "operations"
+    log(f"compaction per call (compact_gather_text, {comp_launches_per_call} "
+        f"launches; the replay's compaction after chunk {comp_at}: C "
+        f"{ROW_CAPACITY}, {live_c} live rows, {kept_c} kept, {runs_c} runs, "
+        f"{moved_c} text ints moved into an arena of {A_c}): kernel "
+        f"{comp_ms:.6f} ms (CUDA events behind a spin, {SCAN_TIME_REPS} "
+        f"calls), {comp_path_ms:.6f} ms back to back; the plain version "
+        f"(torch ops on the card, the parent's path) {comp_plain_ms:.6f} ms "
+        f"back to back; bound {comp_bound_ms:.6f} ms ({comp_bound_by}), "
+        f"share {comp_bound_ms / comp_ms:.4f}; {smi}")
 
     n_ins_d = sum(int((b.op_type == OP_INSERT).sum()) for _, b in deep)
     n_rng_d = sum(int(((b.op_type == OP_REMOVE)
@@ -4393,6 +4514,25 @@ def main() -> int:
         "library_ms": None,
         "check": "exact",
         **zamboni,
+    }, {
+        "name": compaction_kernel.name,
+        "route": "cuda",
+        "source": compaction_kernel.source,
+        "replaces": compaction_kernel.replaces,
+        "launches": launches_c,
+        "max_abs_err": max_err_c,
+        "ms": comp_ms,
+        "plain_ms": comp_plain_ms,
+        "bound_ms": comp_bound_ms,
+        "bound_by": comp_bound_by,
+        "library_ms": None,
+        "check": "exact",
+        "plain_on": "cuda",
+        "ms_back_to_back": comp_path_ms,
+        "launches_per_call": comp_launches_per_call,
+        "path_launches": {"row_replay": launches_c},
+        "compactions": rrep.compactions,
+        "held_compactions": held_c,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

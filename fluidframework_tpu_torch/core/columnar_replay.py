@@ -10,8 +10,10 @@ document order, one row per segment).
   `apply_chunk_at` (the hand-written CUDA kernel
   ``csrc/mergetree_chunk.cu`` on the card, its plain PyTorch version on
   the CPU), and every `sync_interval` chunks `compact_gather_text`
-  drops settled tombstones, re-gathers the live text into a fresh
-  device arena and coalesces settled runs. The host reads ``n_rows``
+  (the hand-written kernel ``csrc/zamboni.cu``, three launches, on the
+  card; its plain version on the CPU) drops settled tombstones,
+  re-gathers the live text into a fresh device arena and coalesces
+  settled runs. The host reads ``n_rows``
   and the error word once per sync window (the capacity check);
   nothing else leaves the device inside the loop.
 - ``engine="scan"`` (`bench.py`'s ``BENCH_ENGINE=scan``): each chunk is

@@ -91,15 +91,17 @@ def load(name: str) -> ctypes.CDLL:
 
 def launch(name: str, fn, device, ints: Sequence[int], tensors) -> None:
     """Call a kernel's C entry point ``fn(device_index, *ints, n_ptrs,
-    ptrs, stream)`` with the tensors' data pointers, on PyTorch's
-    current stream of `device`, without synchronising; raises if the
-    entry point returns a CUDA error (a refused launch never runs, and
-    a later synchronise would not report it)."""
+    ptrs, stream)`` with the tensors' data pointers (None passes a null
+    pointer), on PyTorch's current stream of `device`, without
+    synchronising; raises if the entry point returns a CUDA error (a
+    refused launch never runs, and a later synchronise would not report
+    it)."""
     import torch
 
     index = device.index if device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
-    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
     rc = fn(index, *ints, len(tensors), ptrs, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")

@@ -11,8 +11,14 @@ Counterparts in fluidframework_tpu/ops/zamboni.py:
   the back, each group in its original order. It is also exactly the
   JAX `_pack_sort` (line 123) on a 0/1 key, which is how
   `compact_gather_text` uses it.
-- `compact_gather_text` of the function of that name (line 185): the
-  row-model replay's full compaction with the text re-gather.
+- `compact_gather_text_ref` of `compact_gather_text` (line 185): the
+  row-model replay's full compaction with the text re-gather, in int32
+  tensor ops with no host sync, bit-identical to the JAX function. The
+  dispatcher `compact_gather_text` sends a CUDA table to the
+  hand-written kernel ``csrc/zamboni.cu`` (`ops/zamboni_kernel.py`,
+  three launches) or raises, and a CPU table to the plain version. The
+  chunk path of `core/columnar_replay.py` runs it every `sync_interval`
+  chunks.
 - `zamboni_device_ref` of `zamboni_device` (line 42): the compaction
   without the text re-gather (tombstones removed at or below the MSN
   dropped, settled neighbours merged where their text is contiguous in
@@ -89,7 +95,7 @@ def _drop_tombstones(table: SegmentTable, min_seq):
     return min_seq, idx, packed, valid, torch.where(valid, packed[1], 0)
 
 
-def compact_gather_text(
+def compact_gather_text_ref(
     table: SegmentTable,
     min_seq,
     doc_arena: torch.Tensor,
@@ -97,8 +103,9 @@ def compact_gather_text(
 ) -> Tuple[SegmentTable, torch.Tensor]:
     """Full compaction of a row-model table under applied MSN
     `min_seq`, with the text re-gather, in tensor ops with no host
-    sync. Same result as the JAX `compact_gather_text`, table and
-    arena both:
+    sync: the plain version of the ``compaction_launch`` entry of
+    ``csrc/zamboni.cu``. Same result as the JAX `compact_gather_text`,
+    table and arena both:
 
     1. tombstone drop: rows removed at or below the MSN go; a stable
        partition packs the survivors to the front;
@@ -113,6 +120,15 @@ def compact_gather_text(
        with equal props merge; a second stable partition packs the run
        starts to the front, and run lengths are differences of the new
        text offsets.
+
+    The text move is a function of the table (and so equal to the
+    kernel's gather: kept row k's destination ``[new_off, new_off +
+    length)`` reads its span of the region its buf_start lies in, every
+    other element 0) on tables whose surviving spans are disjoint and
+    lie inside one region or in neither, with non-negative lengths
+    summing to at most 2^31 - 1: every table the replay produces (its
+    spans are disjoint pieces of the document's text). Elsewhere the
+    result depends on the scatter order.
 
     Returns ``(table, new_doc_arena)``."""
     A = doc_arena.shape[0]
@@ -254,6 +270,27 @@ def zamboni_device_ref(table: SegmentTable, min_seq) -> SegmentTable:
         props=take2(firsts[5 + KR:], PROP_ABSENT),
         error=table.error,
     )
+
+
+def compact_gather_text(
+    table: SegmentTable,
+    min_seq,
+    doc_arena: torch.Tensor,
+    stream_text: torch.Tensor,
+) -> Tuple[SegmentTable, torch.Tensor]:
+    """`compact_gather_text_ref`'s compaction by the table's device: a
+    CUDA table goes to the hand-written kernel (``compaction_launch`` of
+    ``csrc/zamboni.cu``, or the call raises), a CPU table to the plain
+    version; no other device is taken."""
+    kind = table.length.device.type
+    if kind == "cuda":
+        from .zamboni_kernel import compaction_kernel
+
+        return compaction_kernel(table, min_seq, doc_arena, stream_text)
+    if kind == "cpu":
+        return compact_gather_text_ref(table, min_seq, doc_arena,
+                                       stream_text)
+    raise ValueError(f"compact_gather_text: unsupported device {kind}")
 
 
 def zamboni_device(table: SegmentTable, min_seq) -> SegmentTable:

@@ -1,18 +1,28 @@
-"""The row-model zamboni's hand-written CUDA kernel and its launcher.
+"""The row model's compaction kernels (``csrc/zamboni.cu``) and their
+launchers.
 
-`ZamboniKernel` launches ``csrc/zamboni.cu``: the compaction of one
-segment table under an applied MSN (tombstones removed at or below it
-dropped, settled neighbours contiguous in the arena merged), in five
-launches of one block a tile of `TILE` rows on PyTorch's current
-stream, with no host sync. It replaces the XLA function
-`zamboni_device` (fluidframework_tpu/ops/zamboni.py:42); its plain
-version is `ops/zamboni.zamboni_device_ref`, and the dispatcher
-`ops/zamboni.zamboni_device` sends CUDA tables here.
+The source holds one device-wide, stable compaction of a segment table
+under an applied MSN (tombstones removed at or below it dropped, settled
+neighbours merged), in launches of one block a tile of `TILE` rows on
+PyTorch's current stream, with no host sync, behind two C entries:
+
+- `ZamboniKernel` (``zamboni_launch``) replaces the XLA function
+  `zamboni_device` (fluidframework_tpu/ops/zamboni.py:42): neighbours
+  merge only where their text is contiguous in the arena. Its plain
+  version is `ops/zamboni.zamboni_device_ref`; the dispatcher
+  `ops/zamboni.zamboni_device` sends CUDA tables here.
+- `CompactionKernel` (``compaction_launch``) replaces the XLA function
+  `compact_gather_text` (fluidframework_tpu/ops/zamboni.py:185), the
+  chunk path's compaction: every settled neighbour pair with equal props
+  merges, and the kept rows' text is gathered into a new arena. Its
+  plain version is `ops/zamboni.compact_gather_text_ref`; the dispatcher
+  `ops/zamboni.compact_gather_text` sends CUDA tables here.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -23,110 +33,219 @@ I32 = torch.int32
 
 # These constants must match csrc/zamboni.cu.
 THREADS = 256
-TILE = 1024  # rows a block: 4 a thread
+TILE = 512  # rows a tile: 2 a thread
+TILE_INTS = 7 + 2 * 16  # a tile's aggregate and its keep and start words
+GATHER_TILE = 2048  # arena elements a gather block
+
+LIB = "zamboni"  # csrc/zamboni.cu, both entries
+SOURCE = "fluidframework_tpu_torch/csrc/zamboni.cu"
 
 
 def tiles(capacity: int) -> int:
-    """The blocks of each of the kernel's launches for a table of
-    `capacity` rows."""
+    """The tiles of a table of `capacity` rows (blocks of launches 1
+    and 2)."""
     return -(-capacity // TILE)
 
 
-def scratch_ints(capacity: int) -> int:
-    """The int32 scratch of one launch: three values a tile (kept rows,
-    run starts, lengths), four a row (source rows, start flags, run
-    firsts, run prefixes) and two totals."""
-    return 3 * tiles(capacity) + 4 * capacity + 2
+def scratch_ints(capacity: int, arena: int = -1) -> int:
+    """The int32 scratch of one call: `TILE_INTS` a tile, and for the
+    compaction (given its `arena` length) two a row (the kept rows' new
+    offsets and buf_start), two totals and one an arena tile."""
+    if arena < 0:
+        return TILE_INTS * tiles(capacity)
+    return (TILE_INTS * tiles(capacity) + 2 * capacity + 2
+            + -(-arena // GATHER_TILE))
 
 
-class ZamboniKernel:
-    """Launches ``csrc/zamboni.cu`` on one table.
+def check_table(table: SegmentTable, who: str) -> Tuple[int, int, int]:
+    """(C, KR, KK) of a table the kernels take; raises ValueError on any
+    other."""
+    dev = table.length.device
+    C = table.length.shape[0] if table.length.dim() == 1 else -1
+    if C < 1 or table.rem_clients.dim() != 2 or table.props.dim() != 2:
+        raise ValueError(f"{who} kernel: one table of [C] and [C, K] "
+                         "columns is taken")
+    KR, KK = table.rem_clients.shape[1], table.props.shape[1]
+    shapes = {"n_rows": (), "error": (), "buf_start": (C,),
+              "length": (C,), "ins_seq": (C,), "ins_client": (C,),
+              "rem_seq": (C,), "rem_clients": (C, KR), "props": (C, KK)}
+    for name, shape in shapes.items():
+        t = getattr(table, name)
+        if t.device != dev or t.dtype != I32:
+            raise ValueError(
+                f"{who} kernel inputs must be int32 tensors on {dev}; "
+                f"{name} is {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{who} kernel: {name} has shape "
+                             f"{tuple(t.shape)} where {shape} was expected")
+        if not t.is_contiguous():
+            raise ValueError(f"{who} kernel: {name} is not contiguous")
+    return C, KR, KK
 
-    ``launches`` counts the calls that launched the kernel (one call is
-    the kernel's five launches); it is incremented where the kernel is
-    launched and nowhere else. The wrapper checks device, dtype, shape
-    and contiguity, allocates the output table and the scratch, puts the
-    MSN on the card (a tensor stays where it is; an int is copied), and
-    raises if a launch was refused: there is no fallback. The input is
-    never written. Every output row is written (rows at and above the
-    output's ``n_rows`` hold the empty-row fills)."""
 
-    name = "zamboni"
-    source = "fluidframework_tpu_torch/csrc/zamboni.cu"
-    replaces = "fluidframework_tpu/ops/zamboni.py:42"
+def msn_arg(min_seq, dev: torch.device, who: str):
+    """(value, tensor or None) of the MSN for the C entry: an int is
+    passed by value (nothing is copied to the card), a tensor by its
+    pointer (one int32 on the table's device)."""
+    if isinstance(min_seq, torch.Tensor):
+        if (min_seq.device != dev or min_seq.dtype != I32
+                or min_seq.numel() != 1):
+            raise ValueError(f"{who} kernel: min_seq must be an int or one "
+                             f"int32 on {dev}")
+        return 0, min_seq.reshape(())
+    return int(min_seq), None
+
+
+def empty_like_table(table: SegmentTable, fill=None) -> SegmentTable:
+    """An output table shaped like `table` (filled with `fill` if given,
+    else uninitialised)."""
+    make = (torch.empty_like if fill is None
+            else lambda t: torch.full_like(t, fill))
+    return SegmentTable(*(make(t) for t in (
+        table.n_rows, table.buf_start, table.length, table.ins_seq,
+        table.ins_client, table.rem_seq, table.rem_clients, table.props,
+        table.error)))
+
+
+def table_ptrs(table: SegmentTable, msn, out: SegmentTable) -> list:
+    """The C entries' 19 table pointers: the input table (the MSN's
+    tensor, or None, third), then the output table."""
+    return [table.n_rows, table.error, msn, table.buf_start, table.length,
+            table.ins_seq, table.ins_client, table.rem_seq,
+            table.rem_clients, table.props,
+            out.buf_start, out.length, out.ins_seq, out.ins_client,
+            out.rem_seq, out.rem_clients, out.props, out.n_rows, out.error]
+
+
+class _Launcher:
+    """What both entries share: the library, the launch count and the
+    scratch. ``launches`` counts kernel launches (`LAUNCHES` a call); it
+    is incremented where the kernels are launched and nowhere else. The
+    scratch is one buffer per (device, capacity, arena length), reused by
+    every call on it: the launches of a call run in order on one stream,
+    and a call's scratch is dead once its last launch ends."""
+
+    name = ""
+    replaces = ""
+    source = SOURCE
+    LAUNCHES = 0
 
     def __init__(self) -> None:
         self.launches = 0
         self._fn = None
+        self._scratch: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+    def _entry(self):
+        if self._fn is None:
+            self._fn = self.bind(_build.load(LIB))
+        return self._fn
+
+    def scratch(self, dev: torch.device, capacity: int,
+                arena: int = -1) -> torch.Tensor:
+        key = (str(dev), capacity, arena)
+        if key not in self._scratch:
+            self._scratch[key] = torch.empty(
+                scratch_ints(capacity, arena), dtype=I32, device=dev)
+        return self._scratch[key]
+
+    def _launch(self, dev, ints, ptrs) -> None:
+        _build.launch(self.name, self._entry(), dev, ints, ptrs)
+        self.launches += self.LAUNCHES
+
+
+class ZamboniKernel(_Launcher):
+    """Launches ``zamboni_launch`` on one table.
+
+    The wrapper checks device, dtype, shape and contiguity, allocates
+    the output table, and raises if a launch was refused: there is no
+    fallback. The input is never written. Every output row is written
+    (rows at and above the output's ``n_rows`` hold the empty-row
+    fills)."""
+
+    name = "zamboni"
+    replaces = "fluidframework_tpu/ops/zamboni.py:42"
+    LAUNCHES = 2  # keep counts and start flags; the rows
 
     @staticmethod
     def bind(lib: ctypes.CDLL):
         """The C entry of a loaded kernel library, typed."""
         fn = lib.zamboni_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
         return fn
-
-    def _entry(self):
-        if self._fn is None:
-            self._fn = self.bind(_build.load(self.name))
-        return self._fn
-
-    @staticmethod
-    def check(table: SegmentTable, min_seq: torch.Tensor) -> tuple:
-        """(C, KR, KK) of a table the kernel takes; raises ValueError on
-        any other."""
-        dev = table.length.device
-        C = table.length.shape[0] if table.length.dim() == 1 else -1
-        if C < 1 or table.rem_clients.dim() != 2 or table.props.dim() != 2:
-            raise ValueError("zamboni kernel: one table of [C] and [C, K] "
-                             "columns is taken")
-        KR, KK = table.rem_clients.shape[1], table.props.shape[1]
-        shapes = {"n_rows": (), "error": (), "buf_start": (C,),
-                  "length": (C,), "ins_seq": (C,), "ins_client": (C,),
-                  "rem_seq": (C,), "rem_clients": (C, KR), "props": (C, KK)}
-        for name, shape in shapes.items():
-            t = getattr(table, name)
-            if t.device != dev or t.dtype != I32:
-                raise ValueError(
-                    f"zamboni kernel inputs must be int32 tensors on {dev}; "
-                    f"{name} is {t.dtype} on {t.device}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"zamboni kernel: {name} has shape "
-                                 f"{tuple(t.shape)} where {shape} was "
-                                 f"expected")
-            if not t.is_contiguous():
-                raise ValueError(f"zamboni kernel: {name} is not contiguous")
-        if (min_seq.device != dev or min_seq.dtype != I32
-                or min_seq.numel() != 1):
-            raise ValueError("zamboni kernel: min_seq must be one int32 on "
-                             f"{dev}")
-        return C, KR, KK
 
     def __call__(self, table: SegmentTable, min_seq) -> SegmentTable:
         dev = table.length.device
         if dev.type != "cuda":
             raise ValueError(
                 f"the zamboni CUDA kernel needs CUDA tensors, got {dev}")
-        min_seq = torch.as_tensor(min_seq, dtype=I32, device=dev)
-        C, KR, KK = self.check(table, min_seq)
-        out = SegmentTable(*(torch.empty_like(t) for t in (
-            table.n_rows, table.buf_start, table.length, table.ins_seq,
-            table.ins_client, table.rem_seq, table.rem_clients, table.props,
-            table.error)))
-        scratch = torch.empty(scratch_ints(C), dtype=I32, device=dev)
-        _build.launch(self.name, self._entry(), dev,
-                      (C, KR, KK, tiles(C)),
-                      [table.n_rows, table.error, min_seq.reshape(()),
-                       table.buf_start, table.length, table.ins_seq,
-                       table.ins_client, table.rem_seq, table.rem_clients,
-                       table.props,
-                       out.buf_start, out.length, out.ins_seq,
-                       out.ins_client, out.rem_seq, out.rem_clients,
-                       out.props, out.n_rows, out.error, scratch])
-        self.launches += 1
+        C, KR, KK = check_table(table, "zamboni")
+        msn, msn_t = msn_arg(min_seq, dev, "zamboni")
+        out = empty_like_table(table)
+        self._launch(dev, (C, KR, KK, tiles(C), msn),
+                     table_ptrs(table, msn_t, out) + [self.scratch(dev, C)])
         return out
 
 
+class CompactionKernel(_Launcher):
+    """Launches ``compaction_launch``: the chunk path's compaction of one
+    table with its text gather into a new arena.
+
+    The wrapper checks the table as `ZamboniKernel` does and the two
+    text arrays (int32, 1-D, contiguous, on the table's device),
+    allocates the output table and the new arena (``doc_arena``'s
+    length), and raises if a launch was refused: there is no fallback.
+    The inputs are never written; every output row and every arena
+    element is written once."""
+
+    name = "compact_gather_text"
+    replaces = "fluidframework_tpu/ops/zamboni.py:185"
+    LAUNCHES = 3  # the zamboni's two, then the text gather
+
+    @staticmethod
+    def bind(lib: ctypes.CDLL):
+        """The C entry of a loaded kernel library, typed."""
+        fn = lib.compaction_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 9 + [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        return fn
+
+    @staticmethod
+    def check_text(dev: torch.device, doc_arena: torch.Tensor,
+                   stream_text: torch.Tensor) -> Tuple[int, int]:
+        """(A, S) of the text arrays; raises ValueError unless both are
+        contiguous 1-D int32 tensors on `dev`."""
+        for name, t in (("doc_arena", doc_arena),
+                        ("stream_text", stream_text)):
+            if (t.device != dev or t.dtype != I32 or t.dim() != 1
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"compaction kernel: {name} must be a contiguous 1-D "
+                    f"int32 tensor on {dev}")
+        if doc_arena.shape[0] < 1:
+            raise ValueError("compaction kernel: doc_arena is empty")
+        return doc_arena.shape[0], stream_text.shape[0]
+
+    def __call__(self, table: SegmentTable, min_seq, doc_arena: torch.Tensor,
+                 stream_text: torch.Tensor) -> Tuple[SegmentTable,
+                                                     torch.Tensor]:
+        dev = table.length.device
+        if dev.type != "cuda":
+            raise ValueError(
+                f"the compaction CUDA kernel needs CUDA tensors, got {dev}")
+        C, KR, KK = check_table(table, "compaction")
+        A, S = self.check_text(dev, doc_arena, stream_text)
+        msn, msn_t = msn_arg(min_seq, dev, "compaction")
+        out = empty_like_table(table)
+        arena = torch.empty_like(doc_arena)
+        self._launch(dev, (C, KR, KK, tiles(C), A, S, msn),
+                     table_ptrs(table, msn_t, out)
+                     + [self.scratch(dev, C, A), doc_arena, stream_text,
+                        arena])
+        return out, arena
+
+
 zamboni_kernel = ZamboniKernel()
+compaction_kernel = CompactionKernel()

@@ -1,24 +1,30 @@
-"""The zamboni kernel's CUDA source run on the host, for CPU tests.
+"""The row model's compaction kernels' CUDA source run on the host, for
+CPU tests.
 
 `scan_host_emu.build` compiles ``csrc/zamboni.cu``, rewritten by
 `translate`, with g++ against that module's emulation header (every
 CUDA thread of a block an OS thread, ``__syncthreads`` a counting
-barrier, warp shuffles exchanges behind a barrier of the warp's 32
-threads; blocks one after another, which is all the kernel's launches
-need: no block reads another's results inside a launch). Only its
-shared-memory declaration and its five launches are rewritten; the
-tests hold the kernel's own tiling, scans and writes against the plain
-version without a card. Outputs and scratch start as garbage, as on the
-card. Timing means nothing here.
+barrier, warp shuffles and ballots exchanges behind a barrier of the
+warp's 32 threads; blocks one after another, which is all the kernels'
+launches need: no block reads another's results inside a launch, and
+they use no atomics). Only the shared-memory declarations, the launch
+site and the launch-control instructions of its programmatic dependent
+launches are rewritten (`translate`); the tests hold the kernels' own
+tiling, scans, writes and text gather against the plain versions
+without a card.
+Outputs and scratch start as garbage, as on the card. Timing means
+nothing here.
 
-`run` launches the emulated kernel through the same C entry and the
-same allocations as `ops/zamboni_kernel.ZamboniKernel`, on CPU tensors.
+`run` (the zamboni) and `run_compaction` (`compact_gather_text`)
+launch the emulated kernels through the same C entries and the same
+allocations as `ops/zamboni_kernel`'s launchers, on CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import re
+from typing import Tuple
 
 import torch
 
@@ -28,44 +34,108 @@ from . import scan_host_emu
 from .scan_host_emu import GARBAGE
 
 
+# The launch API of programmatic dependent launches, for `translate`: a
+# launch runs its blocks at once (the launch before has ended), so the
+# device side's wait and trigger do nothing.
+PDL_SHIM = r"""
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+enum cudaLaunchAttributeID {
+    cudaLaunchAttributeProgrammaticStreamSerialization = 5 };
+union cudaLaunchAttributeValue { int programmaticStreamSerializationAllowed; };
+struct cudaLaunchAttribute {
+    cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+    dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream;
+    cudaLaunchAttribute* attrs; unsigned numAttrs; };
+template <class A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(A),
+                               A a) {
+    emu_launch(k, c->gridDim.x, (int)c->blockDim.x, c->dynamicSmemBytes, a);
+    return cudaSuccess;
+}
+"""
+PDL_ASM = ('asm volatile("griddepcontrol.launch_dependents;");',
+           'asm volatile("griddepcontrol.wait;" ::: "memory");')
+
+
 def translate(src: str) -> str:
-    """The kernel source with its shared-memory declaration and its
-    launches rewritten for `EMU_HEADER`; raises if they are not
-    found."""
+    """The kernel source with its shared-memory declarations, its launch
+    site and its two launch-control instructions rewritten for
+    `EMU_HEADER` (with `PDL_SHIM`); raises if they are not found."""
     decl = "extern __shared__ __align__(16) int smem[];"
-    if decl not in src:
-        raise ValueError("zamboni_host_emu: the shared memory was not found")
+    include = "#include <cuda_runtime.h>"
+    if decl not in src or include not in src or any(
+            asm not in src for asm in PDL_ASM):
+        raise ValueError("zamboni_host_emu: the shared memory, the include "
+                         "or the launch control was not found")
     src = src.replace(decl, "int* smem = emu_smem;")
+    src = src.replace(include, include + "\n" + PDL_SHIM)
+    for asm in PDL_ASM:
+        src = src.replace(asm, "")
     src, n = re.subn(r"(\w+)<<<\s*(\w+),\s*(\w+),\s*(\(size_t\)smem),\s*\w+"
                      r">>>\((\w+)\);", r"emu_launch(\1, \2, \3, \4, \5);", src)
-    if n != 5 or "asm" in src or "<<<" in src:
+    if n != 1 or "asm" in src or "<<<" in src:  # the one launch site
         raise ValueError("zamboni_host_emu: the source has untranslated parts")
     return src
 
 
-_fn = None
+_lib = None
 
 
-def run(table: SegmentTable, min_seq: int) -> SegmentTable:
-    """The emulated kernel on a CPU table: the output table."""
-    global _fn
-    if _fn is None:
-        _fn = tzk.ZamboniKernel.bind(ctypes.CDLL(
-            scan_host_emu.build("zamboni", translate)))
-    msn = torch.tensor(min_seq, dtype=torch.int32)
-    C, KR, KK = tzk.ZamboniKernel.check(table, msn)
-    out = SegmentTable(*(torch.full_like(t, GARBAGE) for t in (
-        table.n_rows, table.buf_start, table.length, table.ins_seq,
-        table.ins_client, table.rem_seq, table.rem_clients, table.props,
-        table.error)))
-    scratch = torch.full((tzk.scratch_ints(C),), GARBAGE, dtype=torch.int32)
-    ts = [table.n_rows, table.error, msn, table.buf_start, table.length,
-          table.ins_seq, table.ins_client, table.rem_seq, table.rem_clients,
-          table.props, out.buf_start, out.length, out.ins_seq,
-          out.ins_client, out.rem_seq, out.rem_clients, out.props,
-          out.n_rows, out.error, scratch]
-    ptrs = (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
-    rc = _fn(0, C, KR, KK, tzk.tiles(C), len(ts), ptrs, None)
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(scan_host_emu.build("zamboni", translate))
+    return _lib
+
+
+def _call(fn, ints, ts) -> None:
+    ptrs = (ctypes.c_void_p * len(ts))(
+        *(None if t is None else t.data_ptr() for t in ts))
+    rc = fn(0, *ints, len(ts), ptrs, None)
     if rc != 0:
-        raise RuntimeError(f"the emulated zamboni refused the launch ({rc})")
+        raise RuntimeError(f"the emulated kernel refused the launch ({rc})")
+
+
+def _msn(min_seq, by_pointer: bool):
+    """(value, tensor or None): the MSN by value, or by the pointer of a
+    one-int tensor as a caller holding it on the card passes it."""
+    if by_pointer:
+        return 0, torch.tensor(int(min_seq), dtype=torch.int32)
+    return int(min_seq), None
+
+
+def run(table: SegmentTable, min_seq: int,
+        by_pointer: bool = False) -> SegmentTable:
+    """The emulated zamboni on a CPU table: the output table."""
+    C, KR, KK = tzk.check_table(table, "zamboni")
+    msn, msn_t = _msn(min_seq, by_pointer)
+    out = tzk.empty_like_table(table, GARBAGE)
+    scratch = torch.full((tzk.scratch_ints(C),), GARBAGE, dtype=torch.int32)
+    _call(tzk.ZamboniKernel.bind(_library()),
+          (C, KR, KK, tzk.tiles(C), msn),
+          tzk.table_ptrs(table, msn_t, out) + [scratch])
     return out
+
+
+def run_compaction(table: SegmentTable, min_seq: int, doc_arena: torch.Tensor,
+                   stream_text: torch.Tensor, by_pointer: bool = False
+                   ) -> Tuple[SegmentTable, torch.Tensor]:
+    """The emulated compaction on a CPU table and CPU text arrays: the
+    output table and the new arena."""
+    C, KR, KK = tzk.check_table(table, "compaction")
+    A, S = tzk.CompactionKernel.check_text(table.length.device, doc_arena,
+                                           stream_text)
+    msn, msn_t = _msn(min_seq, by_pointer)
+    out = tzk.empty_like_table(table, GARBAGE)
+    arena = torch.full_like(doc_arena, GARBAGE)
+    scratch = torch.full((tzk.scratch_ints(C, A),), GARBAGE,
+                         dtype=torch.int32)
+    _call(tzk.CompactionKernel.bind(_library()),
+          (C, KR, KK, tzk.tiles(C), A, S, msn),
+          tzk.table_ptrs(table, msn_t, out)
+          + [scratch, doc_arena, stream_text, arena])
+    return out, arena

@@ -41,6 +41,7 @@ from fluidframework_tpu_torch.ops.mergetree_kernel import OpBatch, make_table
 from fluidframework_tpu_torch.ops import zamboni_kernel as tzk
 from fluidframework_tpu_torch.ops.zamboni import (
     compact_gather_text,
+    compact_gather_text_ref,
     zamboni_device,
     zamboni_device_ref,
 )
@@ -48,6 +49,9 @@ from fluidframework_tpu_torch.server.summary_fold import (
     SummaryFolder,
     _boot_mergetree,
     _encode_fold,
+)
+from fluidframework_tpu_torch.testing.compaction_edges import (
+    compaction_edge_cases,
 )
 from fluidframework_tpu_torch.testing.block_edges import (
     block_edge_chunks,
@@ -434,11 +438,17 @@ def test_cuda_row_replay_matches_cpu_replay(cuda):
               sync_interval=4)
     gpu = ColumnarReplica(stream, device=cuda, **kw)
     before = tmc.mergetree_chunk_kernel.launches
+    before_c = tzk.compaction_kernel.launches
     gpu.replay()
     assert tmc.mergetree_chunk_kernel.launches - before == gpu.n_chunks
+    # Every compaction ran on the compaction kernel.
+    assert tzk.compaction_kernel.launches - before_c == (
+        gpu.compactions * tzk.compaction_kernel.LAUNCHES)
     cpu = ColumnarReplica(stream, device="cpu", **kw)
     cpu.replay()
     assert gpu.compactions == cpu.compactions
+    _assert_whole_table_equal(gpu.table, cpu.table, "final table")
+    assert torch.equal(gpu.arena.cpu(), cpu.arena)
     assert state_digest(gpu.annotated_spans()) == state_digest(
         cpu.annotated_spans())
 
@@ -831,7 +841,36 @@ def test_zamboni_kernel_edge_tables(cuda, C, KR):
         want = zamboni_device_ref(t.to("cpu"), case["min_seq"])
         _assert_whole_table_equal(got, want, case["label"])
         _assert_whole_table_equal(t, copy, case["label"] + " (input)")
-    assert tzk.zamboni_kernel.launches - before == len(cases)
+    assert tzk.zamboni_kernel.launches - before == (
+        len(cases) * tzk.zamboni_kernel.LAUNCHES)
+
+
+@pytest.mark.parametrize("C,KR", [(1024, 8), (131072, 24)])
+def test_compaction_kernel_edge_cases(cuda, C, KR):
+    """Every edge case of `testing/compaction_edges.py` (the tile edges
+    and the gather's staging limit at C 131072) through the compaction
+    kernel, the MSN an int and a tensor on the card, against the plain
+    version on CPU copies, exactly: the whole table and the whole new
+    arena; the inputs are left as they were."""
+    before = tzk.compaction_kernel.launches
+    cases = compaction_edge_cases(C, KR, 8)
+    for i, case in enumerate(cases):
+        t = interop.segment_table_from_numpy(case["table"], cuda)
+        copy = interop.segment_table_from_numpy(case["table"], cuda)
+        doc = torch.from_numpy(case["doc_arena"]).to(cuda)
+        text = torch.from_numpy(case["stream_text"]).to(cuda)
+        msn = case["min_seq"]
+        if i % 2:
+            msn = torch.tensor(msn, dtype=torch.int32, device=cuda)
+        got, arena = compact_gather_text(t, msn, doc, text)
+        want, want_arena = compact_gather_text_ref(
+            t.to("cpu"), case["min_seq"], doc.cpu(), text.cpu())
+        _assert_whole_table_equal(got, want, case["label"])
+        assert torch.equal(arena.cpu(), want_arena), case["label"]
+        _assert_whole_table_equal(t, copy, case["label"] + " (input)")
+        assert torch.equal(doc.cpu(), torch.from_numpy(case["doc_arena"]))
+    assert tzk.compaction_kernel.launches - before == (
+        len(cases) * tzk.compaction_kernel.LAUNCHES)
 
 
 def test_zamboni_kernel_on_a_scan_replica(cuda):
