@@ -13,9 +13,11 @@ config 5), SharedTree's batched rebase (BASELINE config 4), the
 row-model scan under `KernelReplica` and the summary fold's ``kernel``
 backend, the row model's zamboni, the row model's scan engine
 (``bench.py`` with ``BENCH_ENGINE=scan``), the deli's supervised
-role over columnar and JSON file topics (BASELINE config 5), and the
+role over columnar and JSON file topics (BASELINE config 5), the
 summary service's supervised role with its catch-up read (config10,
-and config15's documents through the role).
+and config15's documents through the role), and the multi-device layer
+on mesh entries of the card (the dry run, many documents sharded over
+entries, the deli's sharded pool).
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
@@ -100,9 +102,10 @@ Phases, in order; any failure exits non-zero:
    non-zero, with the seed named); then D = 1, 8, 32 and 132 documents
    replay together, with the launches equal to the chunk count, the
    error bits equal to the OR of the single replays', and at D = 132
-   every document's digest and error word equal to its single replay's
-   (doc 0's at the smaller D); aggregate ops/s and ms per chunk at each
-   D;
+   every document's final table, log, counts and cursor equal to its
+   single replay's, exactly (so its digest and error word; doc 0's
+   digest read out at every D); aggregate ops/s and ms per chunk at
+   each D;
 12. `replay_streaming` in 8 host segments on the 100k prefix, gated on
    GOLDEN.json;
 13. the summary service's fold (`server/summary_fold.SummaryFolder`,
@@ -289,20 +292,47 @@ Phases, in order; any failure exits non-zero:
    of (a) runs on the JSON sweep and stands for both formats (it reads
    no topic); (e) the first stacked round of (c) on each
    backend held against the plain versions on the CPU (worker
-   processes), exactly: the tables, fold records and error words.
+   processes), exactly: the tables, fold records and error words;
+30. the multi-device layer (`fluidframework_tpu_torch/parallel/`) on
+   mesh entries of the card, each entry on a CUDA stream of its own:
+   (a) `parallel.dryrun.dryrun_multichip(8)` at scale 1.0, the sections
+   of the reference's `__graft_entry__._dryrun_impl` (one document an
+   entry, 32 documents chained behind the sequencer, one document
+   sequence-sharded over all 8, the row model's pipeline step), every
+   digest equal to its single-entry run's, the error words 0, kernel A
+   launched entries x chunks in each replay section, the sequencer
+   once, the scan once an entry; (b) phase 11's first 32 documents
+   (100k ops each, the bench geometry) through
+   `sharded_overlay_replay_multi` on 4 entries (8 documents an entry):
+   entry 0's first chunk held against the plain version per document,
+   exactly, then the replay with kernel A's count set to 0 just before
+   (4 launches a chunk), every document's final table, log, counts
+   and cursor equal to its phase-11 single replay's exactly (so its
+   digest and error word; doc 0's digest read out against GOLDEN.json),
+   gmsn the min of the final MSNs and gerr the OR of the error words; aggregate ops/s and ms/chunk beside
+   phase 11's D = 32 (one launch a chunk), with `parity_skip_reason`'s
+   text (one card: not a scaling figure); (c) config 5 through
+   `KernelDeliLambda(deli_devices=4)` with the sequencer's count set to
+   0 just before: deltas and checkpoint digests equal to
+   deli_golden.json, launches 4 times phase 18's, records/s.
+   Phases 11 and 30 (b) hold every document's outputs to its single
+   replay's exactly instead of reading each one out: the readout of 132
+   documents took 20-38 s, and equal outputs give equal digests.
 
-Phases 28 and 29 (c, e) run in a worker process that starts after
-phase 12: phase 28 (host-bound, launching only the sequencer's 20 µs
-kernel) beside phases 13-27, and phase 29 (c, e), whose rounds make
-many small copies, only once the main process's timed phases are done,
-beside phase 29 (a, b, d); their log lines follow phase 29 (a, b, d)'s.
+Phases 28, 30 (c) and 29 (c, e) run in a worker process that starts
+after phase 12: phases 28 and 30 (c) (host-bound, launching only the
+sequencer's 20 µs kernel) beside phases 13-27, and phase 29 (c, e),
+whose rounds make many small copies, only once the main process's
+timed phases are done, beside phase 29 (a, b, d) and 30 (a); their log
+lines follow phase 30 (a)'s, and phase 30 (b) runs after them.
 
 ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant), and phase 6
 replays min(ROW_OPS, --ops). Every path
-(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25, 27, 28
-and 29's role runs) is driven with kernel launch counts set to 0 just
-before it and read just after.
+(phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25, 27, 28,
+29's role runs and 30) is driven with kernel launch counts set to 0 just
+before it and read just after (phase 30 (a) also counts each section's
+sharded call on its own).
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
 shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
@@ -317,7 +347,11 @@ launches of each path, the kernel fold's runs, the scan engine's run
 and split, and the summary role's runs (phase 29; kernel A's entry has
 their overlay launches); the zamboni's, its launches on the scan
 engine's path and in the smoke; the compaction's, its launches on the
-row replay, three a compaction), the nvidia-smi line, and last the
+row replay, three a compaction; phase 30's sharded paths in the
+path_launches of kernel A, the sequencer and the scan, with kernel A's
+entry holding the dry run's report and the sharded docs replay's
+timing, the sequencer's the sharded deli's), the nvidia-smi line, and
+last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
 """
@@ -567,6 +601,15 @@ SUMMARY_STACK_DOCS = 132
 SUMMARY_CRASH_TTL = 2.0  # the first owner's lease, waited out
 SUMMARY_TAIL = 256  # ops of tail each summary of the crash run boots with
 SUMMARY_PLAIN_WORKERS = 3  # (e)'s CPU workers, beside the main process
+# Phase 30, the multi-device layer on mesh entries of the one card: the
+# dry run on MESH_DRYRUN_ENTRIES entries (the reference's validation
+# shape, __graft_entry__.dryrun_multichip(8)); phase 11's first
+# MESH_DOCS documents (100k ops each, the bench geometry) sharded over
+# MESH_ENTRIES entries; and config 5 through a deli pool split over
+# MESH_ENTRIES entries.
+MESH_DRYRUN_ENTRIES, MESH_DRYRUN_SCALE = 8, 1.0
+MESH_ENTRIES = 4
+MESH_DOCS = 32
 
 
 def log(msg: str) -> None:
@@ -662,26 +705,30 @@ def build_and_stream(golden: dict, log):
     return full
 
 
-def doc_readout(stream, geometry: dict, table: dict, log, counts):
-    """(digest, error word) of one document's replay outputs: the host
-    readout of `restore_shard`, on the CPU (run in a worker process)."""
-    if ROOT not in sys.path:
-        sys.path.insert(0, ROOT)
+def output_diff(out, d: int, single) -> str:
+    """The first field in which document `d` of a docs replay's outputs
+    `out` (stacked tables, logs, counts, cursors) differs from `single`,
+    one document's replay outputs (table, log, counts, cursor): the
+    cursor, the log to it, the counts, then the final table whole (the
+    fold fills the rows past n_rows). '' when they are all equal, and
+    then so are the document's digest and error word, which its readout
+    makes of these alone."""
     import torch
 
-    from fluidframework_tpu_torch.core.overlay_replay import (
-        OverlayDeviceReplica, restore_shard,
-    )
-    from fluidframework_tpu_torch.interop import table_from_numpy
-    from fluidframework_tpu_torch.ops.overlay import stack_tables
-    from fluidframework_tpu_torch.testing.digest import state_digest
-
-    rep = OverlayDeviceReplica(stream, device="cpu", **geometry)
-    rep = restore_shard(
-        rep, stack_tables([table_from_numpy(table, "cpu")]),
-        torch.from_numpy(log)[None], torch.from_numpy(counts)[None],
-        torch.tensor([len(log)], dtype=torch.int32), 0)
-    return state_digest(rep.annotated_spans()), int(rep.table.error)
+    tables, logs, counts, cursors = out[:4]
+    table, log_, counts_, cursor = single
+    cur = int(cursors[d])
+    if cur != int(cursor):
+        return "cursor"
+    if not torch.equal(logs[d, :cur], log_[:cur]):
+        return "log"
+    if not torch.equal(counts[d], counts_):
+        return "counts"
+    tab = tables.doc(d)
+    for f in dataclasses.fields(tab):
+        if not torch.equal(getattr(tab, f.name), getattr(table, f.name)):
+            return f"table.{f.name}"
+    return ""
 
 
 def fold_phases(dev, hold, time_chunks, log) -> dict:
@@ -3304,15 +3351,16 @@ def summary_stack_phases(dev, log, workers: int) -> dict:
 
 
 def side_phases(go, out) -> None:
-    """Phase 28, then phase 29 (c, e) once `go` is set, in a worker
-    process that the smoke starts after phase 12. Phase 28 is host-bound
-    and launches only the sequencer's 20 µs kernel, so it runs beside
-    the main process's phases 13-27 without disturbing their kernel
-    timings; phase 29 (c, e) folds 132 documents a round (many small
-    copies), so the main process sets `go` only when its timed phases
-    are done, and it runs beside phase 29 (a, b, d). Puts ("ok", phase
-    28's result, 29 (c, e)'s, the log lines) on `out`, or ("error", the
-    traceback, None, the lines so far)."""
+    """Phases 28 and 30 (c), then phase 29 (c, e) once `go` is set, in a
+    worker process that the smoke starts after phase 12. Phases 28 and
+    30 (c) are host-bound and launch only the sequencer's 20 µs kernel,
+    so they run beside the main process's phases 13-27 without
+    disturbing their kernel timings; phase 29 (c, e) folds 132 documents
+    a round (many small copies), so the main process sets `go` only when
+    its timed phases are done, and it runs beside phase 29 (a, b, d) and
+    30 (a). Puts ("ok", phase 28's result, 29 (c, e)'s, 30 (c)'s, the
+    log lines) on `out`, or ("error", the traceback, None, None, the
+    lines so far)."""
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     lines = []
@@ -3324,14 +3372,15 @@ def side_phases(go, out) -> None:
         role = deli_role_phases(dev, lines.append)
         lines.append(f"phase 28 in the worker process "
                      f"{time.perf_counter() - t:.2f}s")
+        deli_mesh = mesh_deli_phase(dev, lines.append)
         go.wait()
         stack = summary_stack_phases(dev, lines.append,
                                      SUMMARY_PLAIN_WORKERS)
-        out.put(("ok", role, stack, lines))
+        out.put(("ok", role, stack, deli_mesh, lines))
     except BaseException:
         import traceback
 
-        out.put(("error", traceback.format_exc(), None, lines))
+        out.put(("error", traceback.format_exc(), None, None, lines))
         raise
 
 
@@ -3342,20 +3391,20 @@ def side_result(proc, out) -> tuple:
 
     while True:
         try:
-            status, a, b, lines = out.get(timeout=5)
+            status, a, b, c, lines = out.get(timeout=5)
             break
         except queue.Empty:
             if not proc.is_alive():
-                raise RuntimeError(f"the worker process of phases 28 and "
-                                   f"29 (c, e) died (exit code "
+                raise RuntimeError(f"the worker process of phases 28, 29 "
+                                   f"(c, e) and 30 (c) died (exit code "
                                    f"{proc.exitcode})")
     proc.join()
     if status != "ok":
         for line in lines:
             log(line)
-        raise RuntimeError(f"phases 28 / 29 (c, e) failed in the worker "
-                           f"process:\n{a}")
-    return a, b, lines
+        raise RuntimeError(f"phases 28 / 29 (c, e) / 30 (c) failed in the "
+                           f"worker process:\n{a}")
+    return a, b, c, lines
 
 
 def hold_first_round(role, held: dict) -> None:
@@ -3403,6 +3452,232 @@ def hold_first_round(role, held: dict) -> None:
     role._dispatch_fold = first
 
 
+def mesh_dryrun_phase(dev, log) -> dict:
+    """Phase 30 (a): the dry run on MESH_DRYRUN_ENTRIES mesh entries of
+    `dev`, with every kernel's launch count set to 0 just before; each
+    section's sharded call launched kernel A entries x chunks, the
+    sequencer once, the scan once an entry. Raises on any mismatch;
+    returns the dry run's report and the launches in all."""
+    import torch
+
+    from fluidframework_tpu_torch.ops.mergetree_scan import (
+        mergetree_scan_kernel,
+    )
+    from fluidframework_tpu_torch.ops.overlay import overlay_chunk_kernel
+    from fluidframework_tpu_torch.ops.sequencer_kernel import (
+        sequencer_step_kernel,
+    )
+    from fluidframework_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    kernels = (overlay_chunk_kernel, sequencer_step_kernel,
+               mergetree_scan_kernel)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    report = dryrun_multichip(MESH_DRYRUN_ENTRIES, device=dev,
+                              scale=MESH_DRYRUN_SCALE)
+    t_dry = time.perf_counter() - t0
+    n = MESH_DRYRUN_ENTRIES
+    want = {
+        "one_doc": {"overlay_chunk": n * report["one_doc"]["chunks"],
+                    "sequencer_step": 0, "mergetree_scan": 0},
+        "multi_doc": {"overlay_chunk": n * report["multi_doc"]["chunks"],
+                      "sequencer_step": 1, "mergetree_scan": 0},
+        "pipeline": {"overlay_chunk": 0, "sequencer_step": 0,
+                     "mergetree_scan": n},
+    }
+    for sec, counts in want.items():
+        if report[sec]["launches"] != counts or report[sec]["gerr"]:
+            raise AssertionError(
+                f"phase 30 (a) {sec}: launches {report[sec]['launches']} "
+                f"(want {counts}), error bits {report[sec]['gerr']}")
+    if report["seqshard"]["gerr"]:
+        raise AssertionError("phase 30 (a): seqshard error bits "
+                             f"{report['seqshard']['gerr']}")
+    dry_total = {k.name: k.launches for k in kernels}
+    log(f"mesh dry run on {n} entries of {dev} (scale {MESH_DRYRUN_SCALE}, "
+        f"{t_dry:.2f}s): one document an entry ({report['one_doc']['ops']} "
+        f"ops, {report['one_doc']['chunks']} chunks: kernel A launches "
+        f"{report['one_doc']['launches']['overlay_chunk']} = entries x "
+        f"chunks), {report['multi_doc']['docs']} documents chained behind "
+        f"the sequencer ({report['multi_doc']['launches']}), one document "
+        f"sequence-sharded ({report['seqshard']['ops']} ops, "
+        f"{report['seqshard']['seconds']:.2f}s), the row model's pipeline "
+        f"step ({report['pipeline']['launches']['mergetree_scan']} scan "
+        f"launches); every digest equals its single-entry run's, gmsn as "
+        f"the reference's, error words 0; launches in all "
+        f"{dry_total} (the single-entry references' included)")
+    return dict(report=report, launches=dry_total)
+
+
+def mesh_docs_phase(dev, log, hold, doc_replica, distinct, single,
+                    single_out, docs_d32, digest0) -> dict:
+    """Phase 30 (b): MESH_DOCS documents of phase 11 (`distinct`, whose
+    single replays gave `single`, their error words, and `single_out`,
+    their final (table, log, counts, cursor); doc 0's digest `digest0`)
+    sharded over
+    MESH_ENTRIES entries of `dev`: entry 0's first chunk held to the
+    plain version by `hold`, kernel A's count set to 0 just before the
+    replay, every document's outputs held to its single replay's
+    exactly, timed beside phase 11's D = 32 run (`docs_d32`).
+    `doc_replica` makes phase 11's replica of a stream on `dev`. Raises
+    on any mismatch; returns what the kernels line reports."""
+    import torch
+
+    from fluidframework_tpu_torch.core.overlay_replay import (
+        restore_shard, stack_replicas,
+    )
+    from fluidframework_tpu_torch.ops.overlay import (
+        ops_at, overlay_apply_chunk, overlay_chunk_kernel,
+    )
+    from fluidframework_tpu_torch.parallel.mesh import (
+        make_docs_mesh, sharded_overlay_replay_multi,
+    )
+    from fluidframework_tpu_torch.testing.digest import state_digest
+    from fluidframework_tpu_torch.utils.devices import parity_skip_reason
+
+    reps = [doc_replica(distinct[d % len(distinct)])
+            for d in range(MESH_DOCS)]
+    want_err = 0
+    for d in range(MESH_DOCS):
+        want_err |= single[d % len(distinct)]
+    tables, ops, logs, counts, msns = stack_replicas(reps)
+    n_chunks = reps[0].n_chunks
+    mesh = make_docs_mesh(MESH_ENTRIES, dev)
+    step = sharded_overlay_replay_multi(mesh, CHUNK)
+    per = MESH_DOCS // MESH_ENTRIES
+    # Entry 0's slab on the first chunk: the launch the path makes
+    # there, held against the plain version per document.
+    slab_t, slab_o = mesh.shard(tables)[0], mesh.shard(ops, dim=1)[0]
+    chunk0 = ops_at(slab_o, 0)
+    out0 = overlay_apply_chunk(slab_t, chunk0)
+    for d in range(per):
+        hold(out0.doc(d), slab_t.doc(d), ops_at(chunk0, d),
+             f"phase 30 (b) entry 0 doc {d} chunk 0")
+    del slab_t, slab_o, chunk0, out0
+    torch.cuda.synchronize()
+    overlay_chunk_kernel.launches = 0
+    t0 = time.perf_counter()
+    out = step(tables, ops, logs, counts, msns)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    launches_mesh = overlay_chunk_kernel.launches
+    if launches_mesh != MESH_ENTRIES * n_chunks:
+        raise AssertionError(f"phase 30 (b): kernel A launches "
+                             f"{launches_mesh} != {MESH_ENTRIES} x {n_chunks}")
+    gmsn, gerr = int(out[4]), int(out[5])
+    if gerr != want_err or gmsn != int(msns[-1].min()):
+        raise AssertionError(f"phase 30 (b): gerr {gerr} (want {want_err}), "
+                             f"gmsn {gmsn} (want {int(msns[-1].min())})")
+    # Every document's outputs equal its single replay's, exactly (the
+    # final table whole, the log to the cursor, the counts): so do its
+    # digest and error word. Doc 0's digest is read out (GOLDEN.json's
+    # stage digest at DOC_OPS).
+    t0 = time.perf_counter()
+    for d in range(MESH_DOCS):
+        diff = output_diff(out, d, single_out[d % len(single_out)])
+        if diff:
+            raise AssertionError(f"phase 30 (b): doc {d}'s {diff} differs "
+                                 f"from its single replay's")
+    r0 = restore_shard(doc_replica(distinct[0]), *out[:4], 0)
+    got0 = (state_digest(r0.annotated_spans()), int(r0.table.error))
+    if got0 != (digest0, single[0]):
+        raise AssertionError(f"phase 30 (b): doc 0 (digest, error) {got0} "
+                             f"!= {(digest0, single[0])}")
+    t_read = time.perf_counter() - t0
+    del reps, tables, ops, logs, counts, msns, out, r0
+    ms_chunk = t_mesh * 1e3 / n_chunks
+    skip = parity_skip_reason(MESH_ENTRIES)
+    docs_mesh = dict(D=MESH_DOCS, entries=MESH_ENTRIES, seconds=t_mesh,
+                     launches=launches_mesh,
+                     ops_per_s=MESH_DOCS * DOC_OPS / t_mesh,
+                     ms_per_chunk=ms_chunk,
+                     single_launch_ms_per_chunk=docs_d32["ms_per_chunk"],
+                     ratio=ms_chunk / docs_d32["ms_per_chunk"],
+                     not_a_scaling_figure=skip, gerr=gerr, gmsn=gmsn)
+    log(f"mesh docs replay: {MESH_DOCS} x {DOC_OPS} ops on {MESH_ENTRIES} "
+        f"entries of {dev} ({per} documents an entry, each on its own "
+        f"stream) in {t_mesh:.3f}s = {MESH_DOCS * DOC_OPS / t_mesh:,.0f} "
+        f"ops/s aggregate, {ms_chunk:.4f} ms/chunk (kernel A launches "
+        f"{launches_mesh} = {MESH_ENTRIES} x {n_chunks}); phase 11's D = "
+        f"{MESH_DOCS} in one launch a chunk: "
+        f"{docs_d32['ms_per_chunk']:.4f} ms/chunk, ratio "
+        f"{docs_mesh['ratio']:.3f}; every document's final table, log, "
+        f"counts and cursor equal its single replay's exactly, so its "
+        f"digest and error word do (doc 0's digest read out: GOLDEN.json "
+        f"at {DOC_OPS}; {t_read:.2f}s), gerr "
+        f"{gerr} = the OR of theirs, gmsn {gmsn}; entry 0's first chunk == "
+        f"plain for its {per} documents. Not a scaling figure: {skip}")
+    return docs_mesh
+
+
+def mesh_deli_phase(dev, log) -> dict:
+    """Phase 30 (c): config 5 through a deli pool split over
+    MESH_ENTRIES entries of `dev`, the sequencer's count set to 0 just
+    before: the deltas and checkpoint digests equal to deli_golden.json
+    and one launch an entry a chunk (the caller holds the launches to
+    MESH_ENTRIES times phase 18's). Host-bound like phase 28, so it runs
+    in the worker process beside the main process's phases 13-27.
+    Raises on any mismatch; returns what the kernels line reports."""
+    import torch
+
+    from fluidframework_tpu_torch.ops.sequencer_kernel import (
+        sequencer_step_kernel,
+    )
+    from fluidframework_tpu_torch.server.deli_kernel import KernelDeliLambda
+    from fluidframework_tpu_torch.server.log import MessageLog
+    from fluidframework_tpu_torch.testing import deli_streams as ds
+
+    t30 = time.perf_counter()
+    with open(os.path.join(ROOT, "fluidframework_tpu_torch", "testing",
+                           "deli_golden.json")) as f:
+        golden = json.load(f)
+    p = golden["params"]
+    raws = ds.to_inproc(ds.build_pipeline_workload(
+        p["n_docs"], p["n_clients"], p["ops_per_client"], seed=p["seed"]))
+    lg = MessageLog()
+    lg.topic("rawdeltas").append_many(raws)
+    deli = KernelDeliLambda(lg, device=dev, max_pump=p["max_pump"],
+                            deli_devices=MESH_ENTRIES)
+    pool = deli.core.pool
+    torch.cuda.synchronize()
+    sequencer_step_kernel.launches = 0
+    pumps = 0
+    t0 = time.perf_counter()
+    while deli.pump():
+        pumps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_deli = sequencer_step_kernel.launches
+    digest = ds.StreamDigest().update(lg.topic("deltas").read(0))
+    cp = ds.checkpoint_digest(deli.checkpoint())
+    if (digest.hexdigest(), digest.stamps, digest.nacks, cp) != (
+            golden["deltas_sha256"], golden["stamps"], golden["nacks"],
+            golden["checkpoint_sha256"]):
+        raise AssertionError("phase 30 (c): the deltas or the checkpoint "
+                             "differ from deli_golden.json")
+    if launches_deli != MESH_ENTRIES * pool.chunks:
+        raise AssertionError(
+            f"phase 30 (c): {launches_deli} sequencer launches for "
+            f"{pool.chunks} chunks on {MESH_ENTRIES} entries")
+    deli_mesh = dict(entries=MESH_ENTRIES, records=len(raws), pumps=pumps,
+                     seconds=wall, records_per_s=len(raws) / wall,
+                     launches=launches_deli, chunks=pool.chunks,
+                     pool={"D": pool.n_docs, "C": pool.n_clients,
+                           "B": pool.max_cols_seen,
+                           "slab_rows": pool.n_docs // MESH_ENTRIES})
+    log(f"mesh deli: config 5's {len(raws)} records in {pumps} pumps "
+        f"through KernelDeliLambda(deli_devices={MESH_ENTRIES}) on {dev} in "
+        f"{wall:.3f}s = {len(raws) / wall:,.0f} records/s (host clock); "
+        f"sequencer launches {launches_deli} = {MESH_ENTRIES} x "
+        f"{pool.chunks} chunks; pool D {pool.n_docs} ({pool.n_docs // MESH_ENTRIES}"
+        f" rows a slab) C {pool.n_clients} B {pool.max_cols_seen}; deltas and "
+        f"checkpoint digests match deli_golden.json; phase 30 (c) "
+        f"{time.perf_counter() - t30:.2f}s")
+    return deli_mesh
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3440,7 +3715,6 @@ def main() -> int:
     from fluidframework_tpu_torch.interop import (
         opbatch_from_numpy, segment_table_from_numpy,
         segment_table_to_numpy as interop_segment, table_from_numpy,
-        table_to_numpy as interop_table,
     )
     from fluidframework_tpu_torch.ops.mergetree_chunk import (
         apply_chunk_ref, kernel_geometry, mergetree_chunk_kernel,
@@ -4200,21 +4474,27 @@ def main() -> int:
             s, initial_len=initial_len, chunk_size=CHUNK, window=WINDOW,
             n_removers=N_REMOVERS, n_prop_keys=N_PROP_KEYS, device=dev)
 
-    # Each distinct stream's single-document replay: (digest, error
-    # word). A stream may have a row removed by more clients than the 24
-    # remover slots hold (seed 124's does, from its chunk 3); the replay
-    # flags ERR_REMOVERS there as the JAX replica does
+    # Each distinct stream's single-document replay: its error word and
+    # outputs (table, log, counts, cursor), to which the docs replays
+    # (here and phase 30 (b)) are held; doc 0's digest is read out. A
+    # stream may have a row removed by more clients than the 24 remover
+    # slots hold (seed 124's does, from its chunk 3); the replay flags
+    # ERR_REMOVERS there as the JAX replica does
     # (tests/test_torch_overlay_removers.py), and the docs replay must
     # flag it alike.
-    single = []
+    single, single_out = [], []
     for s_ in distinct:
         r = doc_replica(s_)
         r.replay()
-        single.append((state_digest(r.annotated_spans()), int(r.table.error)))
-    if single[0] != (golden_100k, 0):
+        single.append(int(r.table.error))
+        single_out.append((r.table, r.log, r.counts, r.cursor))
+        if len(single) == 1:
+            digest0 = state_digest(r.annotated_spans())
+    if (digest0, single[0]) != (golden_100k, 0):
         raise AssertionError(f"doc 0 single replay (digest, error) "
-                             f"{single[0]} != GOLDEN.json {golden_100k}")
-    n_flagged = sum(1 for _, e in single if e)
+                             f"{(digest0, single[0])} != GOLDEN.json "
+                             f"{golden_100k}")
+    n_flagged = sum(1 for e in single if e)
     log(f"single-document replays of the {len(single)} distinct streams: "
         f"{n_flagged} flag ERR_REMOVERS (more removers of a row than "
         f"{N_REMOVERS} slots); doc 0 has no error and matches GOLDEN.json")
@@ -4265,7 +4545,7 @@ def main() -> int:
                 seed = "7 (headline)" if k == 0 else DOC_SEEDS[k - 1]
                 log(f"docs: the stream of seed {seed} first flags error "
                     f"{e} at chunk {ci} (ops {ci * CHUNK}..{(ci + 1) * CHUNK - 1})")
-            if set(flagged) != {k for k, (_, e) in enumerate(single) if e}:
+            if set(flagged) != {k for k, e in enumerate(single) if e}:
                 raise AssertionError(
                     f"docs D {D}: the streams that flag errors {flagged} "
                     f"differ from the single replays'")
@@ -4282,40 +4562,33 @@ def main() -> int:
                 f"docs replay D {D}: launches {launches_docs} != chunks {n_ch}")
         want_err = 0
         for d in range(D):
-            want_err |= single[d % len(distinct)][1]
+            want_err |= single[d % len(distinct)]
         if int(out[5]) != want_err:
             raise AssertionError(f"docs replay D {D}: error bits "
                                  f"{int(out[5])} != {want_err}")
         if int(out[4]) != min(int(r._msn_by_chunk[-1]) for r in reps_d):
             raise AssertionError(f"docs replay D {D}: gmsn {int(out[4])}")
-        # Every document's digest at the largest D (read out in the
-        # worker processes); doc 0's at the others.
+        # Every document's outputs at the largest D equal its single
+        # replay's (so its digest and error word do); doc 0's digest
+        # read out at every D.
         t0 = time.perf_counter()
         if D == max(DOC_COUNTS):
-            tables, logs, counts, cursors = out[:4]
-            host_tables = interop_table(tables)
-            geometry = dict(initial_len=initial_len, chunk_size=CHUNK,
-                            window=WINDOW, n_removers=N_REMOVERS,
-                            n_prop_keys=N_PROP_KEYS,
-                            log_cap=reps_d[0].log_cap)
-            got_all = list(pool.map(doc_readout, *zip(*(
-                (distinct[d % len(distinct)], geometry,
-                 {k: v[d] for k, v in host_tables.items()},
-                 logs[d, :int(cursors[d])].cpu().numpy(),
-                 counts[d].cpu().numpy()) for d in range(D)))))
-        else:
-            r = restore_shard(reps_d[0], *out[:4], 0)
-            got_all = [(state_digest(r.annotated_spans()),
-                        int(r.table.error))]
-        for d, got in enumerate(got_all):
-            if got != single[d % len(distinct)]:
-                raise AssertionError(
-                    f"docs replay D {D}: doc {d} (digest, error) {got} != "
-                    f"its single-document replay {single[d % len(distinct)]}")
+            for d in range(D):
+                diff = output_diff(out, d, single_out[d % len(distinct)])
+                if diff:
+                    raise AssertionError(
+                        f"docs replay D {D}: doc {d}'s {diff} differs from "
+                        f"its single-document replay's")
+        r = restore_shard(reps_d[0], *out[:4], 0)
+        got = (state_digest(r.annotated_spans()), int(r.table.error))
+        if got != (golden_100k, 0):
+            raise AssertionError(
+                f"docs replay D {D}: doc 0 (digest, error) {got} != "
+                f"GOLDEN.json's {golden_100k}")
         t_read = time.perf_counter() - t0
         # Documents whose stream flags an error replay into an error
         # state; the aggregate of the others is given beside the whole.
-        n_clean = sum(1 for d in range(D) if not single[d % len(distinct)][1])
+        n_clean = sum(1 for d in range(D) if not single[d % len(distinct)])
         docs_runs.append(dict(D=D, seconds=t_docs, launches=launches_docs,
                               ops_per_s=D * DOC_OPS / t_docs,
                               clean_docs=n_clean,
@@ -4327,9 +4600,11 @@ def main() -> int:
             f"with no error), "
             f"{t_docs * 1e3 / n_ch:.4f} ms/chunk (kernel launches "
             f"{launches_docs}, one per chunk; error bits {int(out[5])}); "
-            f"{'every' if D == max(DOC_COUNTS) else 'doc 0'} digest and "
-            f"error word equal its single-document replay's (doc 0 = "
-            f"GOLDEN.json at {DOC_OPS}); readout {t_read:.2f}s")
+            + ("every document's final table, log, counts and cursor equal "
+               "its single replay's exactly, so its digest and error word "
+               "do; " if D == max(DOC_COUNTS) else "")
+            + f"doc 0's digest and error word equal its single replay's "
+            f"(GOLDEN.json at {DOC_OPS}); check {t_read:.2f}s")
         del reps_d, out
 
     pool.shutdown()
@@ -4387,15 +4662,16 @@ def main() -> int:
     scan["path_launches"]["scan_engine"] = scan_engine["launches"]
     scan["scan_engine"] = scan_engine
 
-    # ---- 29 (a, b, d), with 29 (c, e) in the worker process -------------
+    # ---- 29 (a, b, d) and 30 (a), with 29 (c, e) in the worker process --
     side_go.set()  # the timed phases are done
     summary = summary_catchup_phases(dev, log)
+    dry = mesh_dryrun_phase(dev, log)
 
-    # ---- 28, 29 (c, e) from the worker process -----------------------------
+    # ---- 28, 29 (c, e), 30 (c) from the worker process -----------------------
     t0 = time.perf_counter()
-    role, stack, lines = side_result(side, side_out)
-    log(f"phase 28 (beside phases 13-27) and phase 29 (c, e) (beside 29 "
-        f"(a, b, d)), run in a worker process (waited "
+    role, stack, deli_mesh, lines = side_result(side, side_out)
+    log(f"phases 28 and 30 (c) (beside phases 13-27) and phase 29 (c, e) "
+        f"(beside 29 (a, b, d) and 30 (a)), run in a worker process (waited "
         f"{time.perf_counter() - t0:.2f}s for it here):")
     for line in lines:
         log(line)
@@ -4417,6 +4693,28 @@ def main() -> int:
     scan["summary_role"] = summary
     scan["max_abs_err"] = max(scan["max_abs_err"],
                               summary["first_round"]["kernel"]["max_abs_err"])
+
+    # ---- 30 (b), and (c)'s launches against phase 18's -------------------
+    docs_mesh = mesh_docs_phase(
+        dev, log, hold, doc_replica, distinct, single, single_out,
+        next(r for r in docs_runs if r["D"] == MESH_DOCS), golden_100k)
+    del single_out
+    if deli_mesh["launches"] != MESH_ENTRIES * deli["launches"]:
+        raise AssertionError(
+            f"phase 30 (c): {deli_mesh['launches']} sequencer launches, not "
+            f"{MESH_ENTRIES} x phase 18's {deli['launches']}")
+    log(f"phase 30 (c): sequencer launches {deli_mesh['launches']} = "
+        f"{MESH_ENTRIES} x phase 18's {deli['launches']}; records/s "
+        f"{deli_mesh['records_per_s']:,.0f} (worker process, beside phases "
+        f"13-27) against phase 18's {deli['records_per_s']:,.0f} (main "
+        f"process, beside phase 28)")
+    report = dry["report"]
+    deli["path_launches"].update(
+        mesh_dryrun_multi_doc=report["multi_doc"]["launches"]["sequencer_step"],
+        mesh_deli_main_path=deli_mesh["launches"])
+    deli["mesh_deli"] = deli_mesh
+    scan["path_launches"]["mesh_dryrun_pipeline"] = \
+        report["pipeline"]["launches"]["mergetree_scan"]
 
     kernels = [{
         "name": overlay_chunk_kernel.name,
@@ -4442,6 +4740,11 @@ def main() -> int:
             "summary_folder": fold["summary_folder"],
             "fold": fold["fold_sweep"],
             "message_replica": fold["message_replica"],
+            "mesh_dryrun_one_doc":
+                report["one_doc"]["launches"]["overlay_chunk"],
+            "mesh_dryrun_multi_doc":
+                report["multi_doc"]["launches"]["overlay_chunk"],
+            "mesh_docs_replay": docs_mesh["launches"],
             **{k: {stage: v[stage]["overlay"] for stage in v}
                if "role" in v else v["overlay"]
                for k, v in summary_paths.items()},
@@ -4451,6 +4754,9 @@ def main() -> int:
         "fold_chunk_ms": fold["fold_chunk_ms"],
         "fold_chunk_bound_ms": fold["fold_chunk_bound_ms"],
         "fold_runs": fold["fold_runs"],
+        "mesh_docs": docs_mesh,
+        "mesh_dryrun": report,
+        "mesh_dryrun_launches": dry["launches"],
     }, {
         "name": mergetree_chunk_kernel.name,
         "route": "cuda",

@@ -25,6 +25,9 @@ reference's per-document heap (clientSeqManager.ts:22).
 - `sequence_batch` / `sequence_batch_grouped` send CUDA state to the
   kernel (or raise) and CPU state to the plain version; no other
   device is taken.
+- `sharded_sequence_fn` runs a pool whose ``[D, C]`` rows are split
+  over the entries of a `parallel.mesh.DocsMesh`: one launch per entry
+  slab per chunk, on the entry's stream, with no collective.
 
 The state is a NamedTuple of tensors: ``connected`` and the result's
 ``skipped`` are ``torch.bool``, every other field int32. The kernel is
@@ -336,8 +339,12 @@ def alloc_result(D: int, B: int, device) -> Tuple[torch.Tensor, SeqResult]:
 def read_result(buf: torch.Tensor, D: int, B: int) -> SeqResult:
     """The verdicts of an `alloc_result` buffer as numpy arrays (one
     device-to-host copy)."""
+    return decode_result(buf.cpu().numpy(), D, B)
+
+
+def decode_result(host: np.ndarray, D: int, B: int) -> SeqResult:
+    """The verdicts of an `alloc_result` buffer already on the host."""
     n = D * B
-    host = buf.cpu().numpy()
     planes = host[:3 * n].reshape(3, D, B)
     skipped = host[3 * n:].view(np.uint8)[:n].view(bool).reshape(D, B)
     return SeqResult(planes[0], planes[1], planes[2], skipped)
@@ -484,3 +491,51 @@ def sequence_batch_grouped(state: SequencerState, batch: SeqBatch, groups,
         aborted = torch.full((state.seq.shape[0],), NO_ABORT, dtype=I32,
                              device=state.seq.device)
     return _run(state, aborted, batch, groups, dedup, out)
+
+
+_SHARDED_FN_CACHE: dict = {}
+
+
+def sharded_sequence_fn(mesh, dedup: bool = False, axis: str = "docs"):
+    """The grouped sequencer over a pool whose document rows are split
+    over `mesh` (a `parallel.mesh.DocsMesh`).
+
+    Counterpart of fluidframework_tpu/ops/sequencer_kernel.py:365.
+    Verdicts, boxcar aborts and resubmission dedup are all per-document
+    state, so each entry sequences its own slab of rows and no
+    collective runs: one launch of ``csrc/sequencer_step.cu`` per entry
+    slab per chunk on the card (the plain version on CPU entries), on
+    the entry's stream.
+
+    Returns ``fn(state, aborted, batch, groups, out=None) -> (state',
+    aborted', results)`` over lists with one slab per entry, on its
+    entry: the states and abort trackers (``D / mesh.size`` rows each;
+    the tracker is per slab, threaded across a pump's chunks by the
+    caller as in the single-device path), the `SeqBatch`es and groups
+    of the chunk's rows, and optional verdict buffers (`alloc_result`).
+    The results are per-entry `SeqResult`s. Cached per (mesh, dedup,
+    axis)."""
+    key = (mesh, bool(dedup), axis)
+    fn = _SHARDED_FN_CACHE.get(key)
+    if fn is not None:
+        return fn
+
+    def fn(state, aborted, batch, groups, out=None):
+        n = mesh.size
+        if len(state) != n or len(aborted) != n:
+            raise ValueError(f"sharded sequencer: {len(state)} state slabs "
+                             f"and {len(aborted)} trackers for a mesh of {n}")
+        new_state, new_aborted, results = [], [], []
+        with mesh.parallel():
+            for i in range(n):
+                with mesh.on(i):
+                    s2, a2, r2 = _run(state[i], aborted[i], batch[i],
+                                      groups[i], dedup,
+                                      None if out is None else out[i])
+                new_state.append(s2)
+                new_aborted.append(a2)
+                results.append(r2)
+        return new_state, new_aborted, results
+
+    _SHARDED_FN_CACHE[key] = fn
+    return fn

@@ -1,16 +1,16 @@
-"""The batched deli on one GPU: the sequencer kernel in the in-proc
+"""The batched deli on the GPU: the sequencer kernel in the in-proc
 ordering pipeline and in the supervised farm's deli role.
 
 Copied from fluidframework_tpu/server/deli_kernel.py: `_pow2` (:96),
-`_nack_reason` (:142), `SeqPool` (:158-652), `_FlatResults` (:654),
-`PackedDeliCore` (:672-841), `KernelDeliLambda` (:849-1030),
-`_ScalarEmit` (:1043-1120) and `KernelDeliRole` (:1122-1639), with the
-pool's, core's and role's ``utils.metrics`` instruments, on one card.
-Left out: the mesh paths (``mesh=``, `_place`, `_grow_placed`,
-`_scatter_rows_placed`, `mesh_for_devices`, `mesh_for_plane`,
-``deli_devices``, ``device_plane``, ``plane_column``: ROADMAP.md Queue
-1 item 3) and the farm wiring around the role (the other roles, the
-supervisor: Queue 1 item 4).
+`_mul_of` (:103), `mesh_for_devices` (:109), `mesh_for_plane` (:122),
+`_nack_reason` (:142), `SeqPool` (:158-652) with its sharded pool
+(``mesh=``, `_place`, `_grow_placed`, `_scatter_rows_placed`),
+`_FlatResults` (:654), `PackedDeliCore` (:672-841), `KernelDeliLambda`
+(:849-1030), `_ScalarEmit` (:1043-1120) and `KernelDeliRole`
+(:1122-1639), with the pool's, core's and role's ``utils.metrics``
+instruments. Left out: the farm wiring around the role (the other
+roles, the supervisor and its ``--deli-devices`` / ``--device-plane``
+child seams: ROADMAP.md Queue 1 items 3 and 4).
 
 The scalar deli tickets one raw record at a time through a per-document
 `DocumentSequencer`. Here a pump drains the raw topic in micro-batches,
@@ -46,6 +46,14 @@ Document slots grow by doubling and evict for free: parking a document
 frees its slot (the mirror is authoritative for parked documents);
 touching it again queues its row for the one batched scatter before
 the next launch.
+
+A pool given a mesh (`parallel.mesh.DocsMesh`: ``deli_devices=N`` or
+a device plane's sequencer slice) splits its ``[D, C]`` rows into one
+slab per entry, and each chunk is one sequencer launch per slab on the
+entry's stream (`ops.sequencer_kernel.sharded_sequence_fn`). The host
+mirror, slot allocation, grow / evict / park and the checkpoint format
+are the single-device pool's: sharding changes only where slot rows
+live, so checkpoints restore across topologies.
 
 `SeqPool.times`, when set to a dict, accumulates the host time of each
 stage of a pump (plan, prepare, pack, upload, launch, read, emit; in
@@ -113,6 +121,45 @@ def _pow2(n: int, lo: int = 8) -> int:
     return p
 
 
+def _mul_of(n: int, m: int) -> int:
+    """n rounded up to a multiple of m (the docs-axis constraint: every
+    entry owns the same number of slot rows)."""
+    return n if m <= 1 else ((n + m - 1) // m) * m
+
+
+def mesh_for_devices(deli_devices: Optional[int],
+                     device: DeviceLike = None):
+    """The mesh a ``deli_devices=N`` option resolves to: None for the
+    single-device pool (N absent or 1), else the process-wide shared
+    docs mesh of N entries on `device` (None: CUDA, raising where there
+    is none)."""
+    if deli_devices is None or int(deli_devices) <= 1:
+        return None
+    from ..parallel.mesh import shared_docs_mesh
+
+    return shared_docs_mesh(int(deli_devices), device)
+
+
+def mesh_for_plane(device_plane, plane_column: Optional[int] = None,
+                   partition_key=None, env: bool = False,
+                   device: DeviceLike = None):
+    """The sequencer's slice of a device plane
+    (`parallel.device_plane.DevicePlane`): a docs mesh over one model
+    column (one partition = one worker = one mesh slice). The column is
+    `plane_column`, else derived from the partition key (stable hash),
+    else 0; ``env=True`` lets farm children inherit the supervisor's
+    plane from ``FLUID_DEVICE_PLANE``. None when no plane is set."""
+    from ..parallel.device_plane import plane_column_of, resolve_plane
+
+    plane = resolve_plane(device_plane, env=env, device=device)
+    if plane is None:
+        return None
+    if plane_column is None:
+        plane_column = (plane_column_of(partition_key, plane.model)
+                        if partition_key is not None else 0)
+    return plane.seq_mesh(plane_column)
+
+
 def _nack_reason(code: int, ref: int, msn: int, head: int, cseq: int,
                  expected: Optional[int]) -> str:
     """The scalar sequencer's nack wording, rebuilt from the kernel
@@ -131,7 +178,7 @@ def _nack_reason(code: int, ref: int, msn: int, head: int, cseq: int,
 
 class SeqPool:
     """Dense [D, C] kernel-state pool with doc-slot grow/evict and
-    scalar-format checkpoints, on one device.
+    scalar-format checkpoints, on one device or over a mesh.
 
     The device state is authoritative for verdicts; `docs` is the host
     mirror (seq head, MSN, per-client ref/client seqs) maintained from
@@ -143,11 +190,28 @@ class SeqPool:
 
     def __init__(self, n_docs: int = 8, n_clients: int = 8,
                  max_resident: Optional[int] = None,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
-        self.n_docs = max(1, n_docs)
+                 device: DeviceLike = None, mesh=None):
+        """`mesh` (a `parallel.mesh.DocsMesh`) splits the pool over its
+        entries: `n_docs` is kept a multiple of ``mesh.size`` and the
+        state becomes one slab per entry at the first `prepare`;
+        `device` is then the first entry's. Without a mesh the pool
+        lives on `device` (None: CUDA, raising where there is none)."""
+        self.mesh = mesh
+        self._n_shards = mesh.size if mesh is not None else 1
+        self.device = (mesh.entries[0] if mesh is not None
+                       else resolve_device(device))
+        self.n_docs = _mul_of(max(1, n_docs), self._n_shards)
         self.n_clients = _pow2(max(2, n_clients), lo=2)
+        # The whole state until placed; then a list of per-entry slabs
+        # (sharded pools), kept so between pumps.
         self.state = _sk.make_state(self.n_docs, self.n_clients, self.device)
+        self._placed = False
+        # Logical slot -> physical state row. Identity until a placed
+        # grow: growing a sharded pool pads each entry's slab on that
+        # entry, which renumbers the row space per slab; the mirror and
+        # free list keep stable logical slots and this map translates
+        # at the kernel boundary (pack and row scatter).
+        self._phys = np.arange(self.n_docs, dtype=np.int64)
         self.max_resident = max_resident
         # doc_id -> {"slot": int|None, "seq", "min_seq",
         #            "clients": {cid: [ref_seq, client_seq]}, "cmap", "t"}
@@ -251,7 +315,7 @@ class SeqPool:
                 )
         if not self.free:
             old = self.n_docs
-            self.n_docs = max(8, old * 2)
+            self.n_docs = _mul_of(max(8, old * 2), self._n_shards)
             self.free.extend(range(self.n_docs - 1, old - 1, -1))
             self._m_grows.inc()
         return self.free.pop()
@@ -316,46 +380,124 @@ class SeqPool:
 
     # -------------------------------------------------------- device ops
 
+    def _shape(self) -> Tuple[int, int]:
+        """(rows, client columns) of the state, placed or not."""
+        if self._placed:
+            return (sum(sl.seq.shape[0] for sl in self.state),
+                    self.state[0].connected.shape[1])
+        return tuple(self.state.connected.shape)
+
+    def _place(self, state) -> List[_sk.SequencerState]:
+        """Split the whole state into one slab of rows per entry."""
+        return list(self.mesh.shard(state))
+
+    def _grow_placed(self, old_d: int, old_c: int, new_c: int) -> None:
+        """Grow a placed pool in place: each entry pads its own slab
+        with empty rows and columns on its stream; no slab moves. The
+        row space renumbers per slab (slab s owns physical rows
+        [s*r1, (s+1)*r1) after the grow), so `_phys` maps every logical
+        slot to its new row on its old slab, and the new logical slots
+        [old_d, new_d) fill each slab's fresh rows [r0, r1)."""
+        S, mesh = self._n_shards, self.mesh
+        new_d = self.n_docs
+        r0, r1 = old_d // S, new_d // S
+        with mesh.parallel():
+            for i in range(S):
+                with mesh.on(i):
+                    self.state[i] = _sk.grow_state(self.state[i], r1, new_c)
+        phys = self._phys[:old_d]
+        new_phys = np.empty(new_d, np.int64)
+        new_phys[:old_d] = (phys // r0) * r1 + (phys % r0)
+        grow_per = r1 - r0
+        for i in range(S):
+            base = old_d + i * grow_per
+            new_phys[base:base + grow_per] = np.arange(i * r1 + r0,
+                                                       (i + 1) * r1)
+        self._phys = new_phys
+
+    def _scatter_rows_placed(self, idx: np.ndarray, updates) -> None:
+        """Write the loaded rows into a placed pool: only the slabs that
+        own a loaded row are written (in place, on their entries'
+        streams); every other slab is left as it is."""
+        rows = self.n_docs // self._n_shards
+        by_slab: Dict[int, List[int]] = {}
+        for i, row in enumerate(idx):
+            by_slab.setdefault(int(row) // rows, []).append(i)
+        mesh = self.mesh
+        with mesh.parallel():
+            for sl, sel in by_slab.items():
+                with mesh.on(sl):
+                    dev = mesh.entries[sl]
+                    at = (torch.from_numpy(idx[sel] - sl * rows).to(dev),)
+                    for field, vals in zip(self.state[sl], updates):
+                        field.index_put_(at, torch.from_numpy(vals[sel])
+                                         .to(dev))
+
     def prepare(self) -> None:
         """Grow the state to the logical (D, C) and write the queued
-        doc rows in one batched scatter (`index_put_` on the device)."""
+        doc rows in one batched scatter (`index_put_` on the device).
+        A sharded pool is placed on its mesh here the first time; once
+        placed, a grow pads each slab on its entry and a scatter
+        touches only the slabs that own a loaded row."""
         need_c = _pow2(self._need_clients, self.n_clients)
-        d, c = self.state.connected.shape
+        d, c = self._shape()
         if self.n_docs != d or need_c != c:
-            self.state = _sk.grow_state(self.state, self.n_docs, need_c)
+            if self._placed:
+                self._grow_placed(d, c, need_c)
+            else:
+                # The appended rows are the new physical tail, so the
+                # logical map extends as identity.
+                self.state = _sk.grow_state(self.state, self.n_docs, need_c)
+                if len(self._phys) < self.n_docs:
+                    self._phys = np.concatenate([
+                        self._phys,
+                        np.arange(len(self._phys), self.n_docs,
+                                  dtype=np.int64),
+                    ])
             self.n_clients = need_c
-        if not self._loads:
-            return
-        n, C = len(self._loads), self.n_clients
-        idx = np.empty(n, np.int64)
-        seqv = np.empty(n, np.int32)
-        minv = np.empty(n, np.int32)
-        conn = np.zeros((n, C), bool)
-        ref = np.zeros((n, C), np.int32)
-        cseq = np.zeros((n, C), np.int32)
-        for i, (slot, h) in enumerate(self._loads):
-            idx[i] = slot
-            seqv[i] = h["seq"]
-            minv[i] = h["min_seq"]
-            cmap = h["cmap"]
-            for cid, (r, cs) in h["clients"].items():
-                col = cmap[cid]
-                conn[i, col] = True
-                ref[i, col] = r
-                cseq[i, col] = cs
-        self._loads = []
-        dev = self.device
-        at = (torch.from_numpy(idx).to(dev),)
-        for field, vals in zip(self.state, (seqv, minv, conn, ref, cseq)):
-            field.index_put_(at, torch.from_numpy(vals).to(dev))
+        if self._loads:
+            n, C = len(self._loads), self.n_clients
+            idx = np.empty(n, np.int64)
+            seqv = np.empty(n, np.int32)
+            minv = np.empty(n, np.int32)
+            conn = np.zeros((n, C), bool)
+            ref = np.zeros((n, C), np.int32)
+            cseq = np.zeros((n, C), np.int32)
+            for i, (slot, h) in enumerate(self._loads):
+                idx[i] = slot
+                seqv[i] = h["seq"]
+                minv[i] = h["min_seq"]
+                cmap = h["cmap"]
+                for cid, (r, cs) in h["clients"].items():
+                    col = cmap[cid]
+                    conn[i, col] = True
+                    ref[i, col] = r
+                    cseq[i, col] = cs
+            self._loads = []
+            idx = self._phys[idx]  # logical slots -> physical state rows
+            updates = (seqv, minv, conn, ref, cseq)
+            if self._placed:
+                self._scatter_rows_placed(idx, updates)
+                return
+            dev = self.device
+            at = (torch.from_numpy(idx).to(dev),)
+            for field, vals in zip(self.state, updates):
+                field.index_put_(at, torch.from_numpy(vals).to(dev))
+        if self.mesh is not None and not self._placed:
+            self.state = self._place(self.state)
+            self._placed = True
 
     def run_chunk(self, kind, client, cseq, ref, groups, dedup: bool,
                   aborted=None):
-        """One launch: upload the five [D, B] columns in one copy, run
-        the kernel (the plain version on the CPU), read the verdicts
-        back in one copy. `aborted` threads the boxcar-abort tracker
-        (a device tensor) across a pump's chunks. Returns (SeqResult
-        as numpy, tracker)."""
+        """One chunk: upload the five [D, B] columns in one copy (one
+        per entry slab on a mesh), launch the kernel (the plain version
+        on the CPU; once per slab on a mesh), read the verdicts back in
+        one copy. `aborted` threads the boxcar-abort tracker (a device
+        tensor; a list of per-slab trackers on a mesh) across a pump's
+        chunks. Returns (SeqResult as numpy, tracker)."""
+        if self.mesh is not None:
+            return self._run_chunk_sharded(kind, client, cseq, ref, groups,
+                                           dedup, aborted)
         t = self.times
         dev = self.device
         D, B = kind.shape
@@ -376,6 +518,55 @@ class SeqPool:
             t2 = time.perf_counter()
             t["launch_s"] += t2 - t1
         res = _sk.read_result(buf, D, B)
+        if t is not None:
+            t["read_s"] += time.perf_counter() - t2
+        self.chunks += 1
+        self.max_cols_seen = max(self.max_cols_seen, B)
+        return res, aborted
+
+    def _run_chunk_sharded(self, kind, client, cseq, ref, groups,
+                           dedup: bool, aborted):
+        t = self.times
+        mesh = self.mesh
+        S = self._n_shards
+        D, B = kind.shape
+        r = D // S
+        if t is not None:
+            t0 = time.perf_counter()
+        host = np.stack((kind, client, cseq, ref, groups))
+        batches, groups_s, bufs, outs = [], [], [], []
+        fresh = aborted is None
+        if fresh:
+            aborted = []
+        with mesh.parallel():
+            for i, dev in enumerate(mesh.entries):
+                with mesh.on(i):
+                    cols = torch.from_numpy(np.ascontiguousarray(
+                        host[:, i * r:(i + 1) * r])).to(dev)
+                    batches.append(_sk.SeqBatch(*cols[:4]))
+                    groups_s.append(cols[4])
+                    buf, out = _sk.alloc_result(r, B, dev)
+                    bufs.append(buf)
+                    outs.append(out)
+                    if fresh:
+                        aborted.append(_sk.no_aborts(r, dev))
+        if t is not None:
+            t1 = time.perf_counter()
+            t["upload_s"] += t1 - t0
+        fn = _sk.sharded_sequence_fn(mesh, dedup=bool(dedup))
+        self.state, aborted, _ = fn(self.state, aborted, batches, groups_s,
+                                    out=outs)
+        if t is not None:
+            t2 = time.perf_counter()
+            t["launch_s"] += t2 - t1
+        # One device-to-host copy of every slab's verdicts.
+        flat = torch.cat([b.to(self.device, non_blocking=True) for b in bufs])
+        host_res = flat.cpu().numpy()
+        n = bufs[0].numel()
+        parts = [_sk.decode_result(host_res[i * n:(i + 1) * n], r, B)
+                 for i in range(S)]
+        res = _sk.SeqResult(*(np.concatenate([getattr(p, f) for p in parts])
+                              for f in _sk.SeqResult._fields))
         if t is not None:
             t["read_s"] += time.perf_counter() - t2
         self.chunks += 1
@@ -476,8 +667,10 @@ class PackedDeliCore:
 
     def __init__(self, n_docs: int = 8, n_clients: int = 8,
                  max_resident: Optional[int] = None, max_cols: int = 256,
-                 dedup: bool = False, device: DeviceLike = None):
-        self.pool = SeqPool(n_docs, n_clients, max_resident, device=device)
+                 dedup: bool = False, device: DeviceLike = None,
+                 mesh=None):
+        self.pool = SeqPool(n_docs, n_clients, max_resident, device=device,
+                            mesh=mesh)
         self.max_cols = max(8, max_cols)
         self.dedup = dedup
         # Ordered segments: lists of per-record tuples (`add`)
@@ -593,7 +786,10 @@ class PackedDeliCore:
         aborted = None
         for sel, sl, ic, kind, client, cseq, ref, grp in \
                 _sk.pack_submissions(
-                    cols6[:, 0], cols6[:, 1], cols6[:, 2], cols6[:, 3],
+                    # Logical doc slots -> physical state rows (identity
+                    # until a sharded pool grows).
+                    pool._phys[cols6[:, 0]],
+                    cols6[:, 1], cols6[:, 2], cols6[:, 3],
                     cols6[:, 4], cols6[:, 5], pool.n_docs, self.max_cols,
                 ):
             res, aborted = pool.run_chunk(
@@ -615,7 +811,7 @@ class PackedDeliCore:
         self._m_slots.set(pool.n_docs)
         self._m_fill.set(resident / pool.n_docs if pool.n_docs else 0.0)
         self._m_cols.set(pool.n_clients)
-        self._m_devices.set(1)
+        self._m_devices.set(pool._n_shards)
         if as_arrays:
             out = _FlatResults(seq_o, msn_o, nack_o, skip_o)
         else:
@@ -641,14 +837,28 @@ class KernelDeliLambda:
     def __init__(self, log: MessageLog, checkpoint: Optional[dict] = None,
                  max_pump: int = 8192, n_docs: int = 8, n_clients: int = 8,
                  max_resident: Optional[int] = None, max_cols: int = 256,
-                 raw_topic: str = "rawdeltas", device: DeviceLike = None):
+                 raw_topic: str = "rawdeltas", device: DeviceLike = None,
+                 deli_devices: Optional[int] = None, device_plane=None,
+                 plane_column: Optional[int] = None):
         """`raw_topic` names the ingress topic (the sharded server's
-        per-partition ``rawdeltas-p{k}`` form). The checkpoint shape is
-        the scalar deli's, so restores interoperate across the scalar,
-        the JAX kernel and this deli."""
+        per-partition ``rawdeltas-p{k}`` form). ``deli_devices=N`` splits
+        the doc-slot pool over a mesh of N entries on `device`;
+        `device_plane` instead takes the sequencer's slice of the shared
+        plane (model column `plane_column`). The checkpoint shape is the
+        scalar deli's and topology-free, so restores interoperate across
+        the scalar, the JAX kernel and this deli, sharded or not."""
+        if device_plane is not None and deli_devices is not None \
+                and int(deli_devices) > 1:
+            raise ValueError(
+                "deli_devices and device_plane are exclusive: the "
+                "plane's seq_mesh IS the deli's device slice"
+            )
+        mesh = mesh_for_devices(deli_devices, device)
+        if mesh is None:
+            mesh = mesh_for_plane(device_plane, plane_column, device=device)
         self.core = PackedDeliCore(
             n_docs, n_clients, max_resident, max_cols, dedup=False,
-            device=device,
+            device=device, mesh=mesh,
         )
         offset = 0
         if checkpoint:
@@ -913,10 +1123,15 @@ class KernelDeliRole(_Role):
     the scalar role bit for bit.
 
     The role runs on ``cuda`` unless given ``device="cpu"`` (the plain
-    sequencer); given no device where there is no CUDA it raises. The
-    reference's multi-device options (``mesh``, ``deli_devices``,
-    ``device_plane``, ``plane_column``) raise ValueError: they are
-    ROADMAP.md Queue 1 item 3."""
+    sequencer); given no device where there is no CUDA it raises.
+    `mesh` (a ready `parallel.mesh.DocsMesh`) or ``deli_devices=N`` (the
+    shared mesh of N entries on `device`) splits the pool over mesh
+    entries; `device_plane` / `plane_column` instead take the
+    sequencer's slice of the shared plane (the column defaults to a
+    stable hash of the partition key), and with neither the plane comes
+    from ``FLUID_DEVICE_PLANE``. The wire records, the ``inOff``
+    recovery contract and the checkpoint format are the same either
+    way."""
 
     name = "deli"
     in_topic_name = "rawdeltas"
@@ -926,19 +1141,34 @@ class KernelDeliRole(_Role):
     def __init__(self, *a, device: DeviceLike = None, mesh=None,
                  deli_devices: Optional[int] = None, device_plane=None,
                  plane_column: Optional[int] = None, **kw):
-        for opt, val in (("mesh", mesh), ("deli_devices", deli_devices),
-                         ("device_plane", device_plane),
-                         ("plane_column", plane_column)):
-            if val is not None:
-                raise ValueError(
-                    f"KernelDeliRole({opt}=...): the multi-device layer "
-                    f"is ROADMAP.md Queue 1 item 3; the port's role runs "
-                    f"on one device (device=)")
+        if device_plane is not None and deli_devices is not None \
+                and int(deli_devices) > 1:
+            raise ValueError(
+                "deli_devices and device_plane are exclusive: the "
+                "plane's seq_mesh IS the deli's device slice"
+            )
         # Resolved before any lease, topic or heartbeat file is made, so
         # a role that cannot run leaves nothing behind.
-        self.device = resolve_device(device)
+        if mesh is not None:
+            from ..parallel.mesh import DocsMesh
+
+            if not isinstance(mesh, DocsMesh):
+                raise ValueError(f"KernelDeliRole(mesh=...) takes a "
+                                 f"parallel.mesh.DocsMesh, got "
+                                 f"{type(mesh).__name__}")
+            self.device = mesh.entries[0]
+        else:
+            self.device = resolve_device(device)
+            mesh = mesh_for_devices(deli_devices, device)
+            if mesh is None and (deli_devices is None
+                                 or int(deli_devices) <= 1):
+                mesh = mesh_for_plane(device_plane, plane_column,
+                                      partition_key=self.partition,
+                                      env=True, device=device)
+        self.mesh = mesh
         super().__init__(*a, **kw)
-        self.core = PackedDeliCore(dedup=True, device=self.device)
+        self.core = PackedDeliCore(dedup=True, device=self.device,
+                                   mesh=self.mesh)
         self._pending: List[tuple] = []  # ("rec", off, dict) |
         #                                 ("cols", start_off, RecordBatch)
         # Blob pass-through is only legal when the output topic can
@@ -958,7 +1188,7 @@ class KernelDeliRole(_Role):
         return self.core.pool.checkpoint_docs()
 
     def restore_state(self, state: Any) -> None:
-        core = PackedDeliCore(dedup=True, device=self.device)
+        core = PackedDeliCore(dedup=True, device=self.device, mesh=self.mesh)
         core.pool.restore_docs(unwrap_ranged_state(state))
         core.pool.times = self.core.pool.times  # the caller's accumulator
         self.core = core

@@ -11,7 +11,8 @@ port has: ``--role deli --impl kernel`` (`deli_kernel.KernelDeliRole`)
 and ``--role summarizer`` (`summarizer.SummarizerRole`, with
 ``--summary-ops`` and ``--fold-backend kernel|overlay``), each with a
 new ``--device`` (default ``cuda``). Every other role, the scalar
-deli, ``--deli-devices`` and ``--device-plane`` are refused with a
+deli, and the child seams ``--deli-devices`` and ``--device-plane``
+(which `KernelDeliRole` takes in process) are refused with a
 ValueError that names the ROADMAP.md item that ports them.
 `ServiceSupervisor` is not copied.
 
@@ -694,8 +695,9 @@ _NOT_PORTED_ROLE = (
     "ingress, retention) are ROADMAP.md Queue 1 item 4"
 )
 _NOT_PORTED_DEVICES = (
-    "is the multi-device layer, ROADMAP.md Queue 1 item 3; the port's "
-    "roles run on one device (--device)"
+    "is the supervisor's child seam for the multi-device layer, not "
+    "ported yet (ROADMAP.md Queue 1 item 3); in process, "
+    "KernelDeliRole(deli_devices=..., device_plane=...) takes it"
 )
 
 

@@ -1063,3 +1063,215 @@ def test_cuda_summary_join_matches_cpu(cuda, tmp_path):
         assert (a["manifests"], a["digest"]) == (b["manifests"],
                                                  b["digest"])
         assert a["launches"]["role"]["scan"] > 0
+
+
+# --------------------------------------------------- the multi-device layer
+
+
+def _mesh_replay(device, streams, chunk=256, window=2048, entries=4):
+    from fluidframework_tpu_torch.core.overlay_replay import stack_replicas
+    from fluidframework_tpu_torch.parallel.mesh import (
+        make_docs_mesh,
+        sharded_overlay_replay_multi,
+    )
+
+    reps = [OverlayDeviceReplica(s, initial_len=64, chunk_size=chunk,
+                                 window=window, n_removers=24, device=device)
+            for s in streams]
+    step = sharded_overlay_replay_multi(
+        make_docs_mesh(entries, device), chunk)
+    return step(*stack_replicas(reps)), reps[0].n_chunks
+
+
+def _assert_replay_outputs_equal(got, want):
+    tables, logs, counts, cursors, gmsn, gerr = got
+    for f in dataclasses.fields(tables):
+        assert torch.equal(getattr(tables, f.name).cpu(),
+                           getattr(want[0], f.name)), f.name
+    assert torch.equal(cursors.cpu(), want[3])
+    assert torch.equal(counts.cpu(), want[2])
+    for d in range(cursors.shape[0]):
+        c = int(cursors[d])
+        assert torch.equal(logs[d, :c].cpu(), want[1][d, :c]), d
+    assert int(gmsn) == int(want[4]) and int(gerr) == int(want[5])
+
+
+def test_cuda_sharded_replay_matches_cpu_entries(cuda):
+    """8 lagged documents of 3000 ops on 4 entries of the card against
+    the same call on 4 CPU entries: every output, exactly; kernel A
+    launched once per entry per chunk."""
+    streams = [generate_lagged_stream(3000, n_clients=64, seed=5 + d,
+                                      window=512, initial_len=64)
+               for d in range(8)]
+    before = tov.overlay_chunk_kernel.launches
+    got, n_chunks = _mesh_replay(cuda, streams)
+    torch.cuda.synchronize()
+    assert tov.overlay_chunk_kernel.launches - before == 4 * n_chunks
+    want, _ = _mesh_replay("cpu", streams)
+    _assert_replay_outputs_equal(got, want)
+
+
+def _pipeline(device):
+    """The dry run's row-model step: 8 documents over 4 entries."""
+    from fluidframework_tpu_torch.parallel import dryrun
+    from fluidframework_tpu_torch.parallel.mesh import (
+        make_docs_mesh,
+        sharded_pipeline_step,
+    )
+
+    one = make_table(128, 4, 8, device)
+    one.n_rows.fill_(1)
+    one.length[0] = 8
+    one.ins_client[0] = -1
+    tables = tmk.SegmentTable(*(getattr(one, f.name).expand(
+        (8,) + getattr(one, f.name).shape).contiguous()
+        for f in dataclasses.fields(tmk.SegmentTable)))
+    streams = [dryrun._tiny_stream(16, seed=d) for d in range(8)]
+    ops = tmk.stack_op_batches([dryrun._batch_from_stream(s, 16, device)
+                                for s in streams])
+    dmins = torch.tensor([int(s.min_seq[15]) for s in streams],
+                         dtype=torch.int32, device=device)
+    return sharded_pipeline_step(make_docs_mesh(4, device))(tables, ops,
+                                                            dmins)
+
+
+def test_cuda_mesh_entries_on_their_own_streams(cuda):
+    """Each entry runs on a stream of its own, none of them the
+    caller's. Three sharded replays, a pipeline step and a sharded
+    deli's pumps are queued back to back, their inputs dropped as they
+    go, and the card is synchronised only at the end: every result
+    equals the CPU entries'."""
+    from fluidframework_tpu_torch.parallel.mesh import make_docs_mesh
+    from fluidframework_tpu_torch.server.deli_kernel import PackedDeliCore
+
+    mesh = make_docs_mesh(4, cuda)
+    streams = mesh._entry_streams()
+    assert len({s.cuda_stream for s in streams}) == 4
+    assert torch.cuda.current_stream().cuda_stream not in {
+        s.cuda_stream for s in streams}
+    with mesh.parallel():
+        for i in range(4):
+            with mesh.on(i):
+                assert torch.cuda.current_stream() == streams[i]
+    docs = [generate_lagged_stream(1500, n_clients=16, seed=40 + d,
+                                   window=256, initial_len=64)
+            for d in range(4)]
+    torch.cuda.synchronize()
+    outs = [_mesh_replay(cuda, docs)[0] for _ in range(3)]
+    pipe = _pipeline(cuda)
+    core = PackedDeliCore(dedup=True, mesh=mesh)
+    verdicts = _drive_core(core, 7)
+    torch.cuda.synchronize()
+    want, _ = _mesh_replay("cpu", docs)
+    for got in outs:
+        _assert_replay_outputs_equal(got, want)
+    want_pipe = _pipeline("cpu")
+    n_rows = want_pipe[0].n_rows
+    assert torch.equal(pipe[0].n_rows.cpu(), n_rows)
+    assert torch.equal(pipe[0].error.cpu(), want_pipe[0].error)
+    for f in ("buf_start", "length", "ins_seq", "ins_client", "rem_seq",
+              "rem_clients", "props"):  # rows [:n_rows]; the rest is scratch
+        for d in range(8):
+            m = int(n_rows[d])
+            assert torch.equal(getattr(pipe[0], f)[d, :m].cpu(),
+                               getattr(want_pipe[0], f)[d, :m]), (f, d)
+    assert int(pipe[1]) == int(want_pipe[1])
+    assert int(pipe[2]) == int(want_pipe[2]) == 0
+    cpu_core = PackedDeliCore(dedup=True, mesh=make_docs_mesh(4, "cpu"))
+    assert verdicts == _drive_core(cpu_core, 7)
+    assert core.pool._phys.tolist() == cpu_core.pool._phys.tolist()
+
+
+def _drive_core(core, seed, pumps=5, per_pump=120, clients=5):
+    """Seeded deli traffic into a core, growing its documents pump by
+    pump so that a placed pool grows: joins, leaves, boxcars, system
+    stamps, invalid ops, resubmissions. Returns the verdicts."""
+    import random
+
+    from fluidframework_tpu_torch.ops.sequencer_kernel import (
+        NO_GROUP, SUB_JOIN, SUB_LEAVE, SUB_OP, SUB_SYSTEM,
+    )
+
+    rng = random.Random(seed)
+    out, recent = [], []
+    for k in range(pumps):
+        core.begin()
+        for _ in range(per_pump):
+            h = core.touch(f"doc{rng.randrange(4 + 12 * k)}")
+            slot, r = h["slot"], rng.random()
+            if r < 0.15:
+                core.add(slot, SUB_JOIN, core.pool.col_of_join(
+                    h, rng.randrange(1, clients + 1)))
+            elif r < 0.22:
+                core.add(slot, SUB_LEAVE,
+                         h["cmap"].get(rng.randrange(1, clients + 1), 0))
+            elif r < 0.27:
+                core.add(slot, SUB_SYSTEM)
+            elif r < 0.4:
+                g = core.new_group(slot)
+                col = rng.randrange(0, clients + 1)
+                for _ in range(rng.randrange(2, 5)):
+                    core.add(slot, SUB_OP, col, rng.randrange(1, 9),
+                             rng.randrange(0, 5), g)
+            elif r < 0.5 and recent:
+                core.add(*rng.choice(recent))
+            else:
+                sub = (slot, SUB_OP, rng.randrange(0, clients + 1),
+                       rng.randrange(1, 9), rng.randrange(0, 5), NO_GROUP)
+                recent = (recent + [sub])[-32:]
+                core.add(*sub)
+        res = core.run()
+        out.append((res.seq, res.msn, res.nack, res.skipped))
+    return out
+
+
+def test_cuda_sharded_deli_core_matches_cpu_entries(cuda):
+    """The sharded pool on 4 entries of the card against 4 CPU entries:
+    verdicts, the slot map after growth while placed, the checkpoint;
+    one sequencer launch per entry per chunk."""
+    from fluidframework_tpu_torch.ops import sequencer_kernel as tsk
+    from fluidframework_tpu_torch.parallel.mesh import make_docs_mesh
+    from fluidframework_tpu_torch.server.deli_kernel import PackedDeliCore
+
+    gpu = PackedDeliCore(n_docs=4, dedup=True, mesh=make_docs_mesh(4, cuda))
+    cpu = PackedDeliCore(n_docs=4, dedup=True,
+                         mesh=make_docs_mesh(4, "cpu"))
+    before = tsk.sequencer_step_kernel.launches
+    got = _drive_core(gpu, 3)
+    assert tsk.sequencer_step_kernel.launches - before == \
+        4 * gpu.pool.chunks > 0
+    assert got == _drive_core(cpu, 3)
+    assert gpu.pool._phys.tolist() == cpu.pool._phys.tolist()
+    assert gpu.pool._phys.tolist() != list(range(gpu.pool.n_docs))
+    assert gpu.pool.checkpoint_docs() == cpu.pool.checkpoint_docs()
+    assert all(s.seq.device.type == "cuda" for s in gpu.pool.state)
+
+
+def test_cuda_seqshard_matches_cpu_entries(cuda):
+    """One document sequence-sharded over 4 entries of the card (the
+    masked form, no host sync per op) against 4 CPU entries: every
+    shard's rows, n, error and the digest."""
+    from fluidframework_tpu_torch.ops.overlay_ref import OverlayReplica
+    from fluidframework_tpu_torch.parallel.mesh import make_docs_mesh
+    from fluidframework_tpu_torch.parallel.seqshard import (
+        run_sequence_sharded,
+    )
+
+    initial = 48
+    stream = generate_lagged_stream(600, n_clients=8, seed=13, window=64,
+                                    initial_len=initial)
+    got, gerr = run_sequence_sharded(
+        stream, make_docs_mesh(4, cuda, axis="seq"), initial, capacity=448)
+    want, werr = run_sequence_sharded(
+        stream, make_docs_mesh(4, "cpu", axis="seq"), initial, capacity=448)
+    assert gerr == werr == 0
+    for a, b in zip(got.shards, want.shards):
+        assert (a.n, a.S, a.error) == (b.n, b.S, b.error)
+        for f in ("anchor", "buf", "length", "iseq", "iclient", "rseq",
+                  "rcl", "props"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    ref = OverlayReplica(stream, initial_len=initial, fold_interval=2048,
+                         n_removers=10)
+    ref.replay()
+    assert state_digest(got.annotated_spans()) == state_digest(
+        ref.annotated_spans())

@@ -348,11 +348,14 @@ def test_long_op_runs_take_plan_op_run(fmt, tmp_path):
 
 
 def test_role_refusals(tmp_path):
-    """The reference's multi-device options and the roles the port does
-    not serve raise ValueError naming the ROADMAP.md item."""
-    for kw in ({"mesh": object()}, {"deli_devices": 2},
-               {"device_plane": "2x2"}, {"plane_column": 0}):
-        with pytest.raises(ValueError, match="Queue 1 item 3"):
+    """A mesh that is not a `DocsMesh`, ``deli_devices`` with a
+    ``device_plane``, the roles the port does not serve and the
+    supervisor's device seams raise ValueError (the last two naming the
+    ROADMAP.md item), before any file is made."""
+    for kw, match in (({"mesh": object()}, "DocsMesh"),
+                      ({"deli_devices": 2, "device_plane": "2x2"},
+                       "exclusive")):
+        with pytest.raises(ValueError, match=match):
             KernelDeliRole(str(tmp_path), owner="x", device="cpu", **kw)
     for role, impl in (("retention", "kernel"), ("scribe", "kernel"),
                        ("deli", "scalar")):

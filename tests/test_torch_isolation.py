@@ -355,6 +355,60 @@ def test_deli_role_no_silent_cpu_fallback(tmp_path):
     assert not os.path.exists(shared)
 
 
+def test_multi_device_no_silent_cpu_fallback(tmp_path):
+    """The multi-device layer: its modules import with ``jax`` and
+    ``fluidframework_tpu`` blocked; a mesh, a plane, the dry run and the
+    sharded delis given no device raise without CUDA (the role before
+    any file is made) instead of running their entries on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    mods = [m for m in _port_modules() if ".parallel" in m]
+    assert {"fluidframework_tpu_torch.parallel.mesh",
+            "fluidframework_tpu_torch.parallel.collectives",
+            "fluidframework_tpu_torch.parallel.seqshard",
+            "fluidframework_tpu_torch.parallel.device_plane",
+            "fluidframework_tpu_torch.parallel.dryrun"} <= set(mods)
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['fluidframework_tpu'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    from fluidframework_tpu_torch.parallel import device_plane as tdp
+    from fluidframework_tpu_torch.parallel import dryrun as tdry
+    from fluidframework_tpu_torch.parallel import mesh as tmesh
+    from fluidframework_tpu_torch.parallel import seqshard as tss
+    from fluidframework_tpu_torch.server.deli_kernel import (
+        KernelDeliLambda,
+        KernelDeliRole,
+        PackedDeliCore,
+    )
+    from fluidframework_tpu_torch.server.log import MessageLog
+
+    shared = str(tmp_path / "farm")
+    for make in (lambda: tmesh.make_docs_mesh(),
+                 lambda: tmesh.make_docs_mesh(4),
+                 lambda: tmesh.shared_docs_mesh(2),
+                 lambda: tdp.DevicePlane(2, 2),
+                 lambda: tdp.resolve_plane("2x2"),
+                 lambda: tss.make_shard_state(8, 16, 2, 2),
+                 lambda: tdry.dryrun_multichip(2),
+                 lambda: KernelDeliLambda(MessageLog(), deli_devices=2),
+                 lambda: KernelDeliLambda(MessageLog(), device_plane="2x2"),
+                 lambda: KernelDeliRole(shared, owner="x", deli_devices=2),
+                 lambda: KernelDeliRole(shared, owner="x",
+                                        device_plane="2x2")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert not os.path.exists(shared)
+    # An explicit CPU mesh is honoured, entry by entry.
+    core = PackedDeliCore(mesh=tmesh.make_docs_mesh(2, "cpu"))
+    assert core.pool.device.type == "cpu" and core.pool._n_shards == 2
+
+
 def test_summary_service_no_silent_cpu_fallback(tmp_path):
     """The summary service: the role (and its child entry), the reader
     replica and config10's loop given no device raise without CUDA, the

@@ -2,7 +2,7 @@
 """Where the port's replay spends device time (one GPU).
 
     python3 tools/torch_replay_profile.py [--engine overlay|row] [--ops N]
-                                          [--docs D]
+                                          [--docs D [--entries E]]
                                           [--root DIR]
 
 Replays the first N ops (default 1000000, the headline) of the seed-7
@@ -32,7 +32,11 @@ chunk for all of them): doc 0 is the headline prefix, the others lagged
 streams of `testing/golden.py`'s DOC_SEEDS with the headline's
 generator parameters (generated in worker processes), the 32 tiled over
 the D documents, as `chip_smoke.py` lays them out. It times the docs replay without the
-profiler too, and checks doc 0's digest.
+profiler too, and checks doc 0's digest. With ``--entries E`` the D
+documents replay sharded over a mesh of E entries of the card
+(`parallel.mesh.sharded_overlay_replay_multi`, each entry on its own
+stream, E kernel A launches a chunk), as `chip_smoke.py` phase 30 (b)
+runs them.
 
 ``--root DIR`` imports the port from the checkout at DIR (a `git
 archive` of another commit, say) instead of this one, so that one call
@@ -71,11 +75,16 @@ def main() -> int:
     ap.add_argument("--ops", type=int, default=N_GOLDEN)
     ap.add_argument("--docs", type=int, default=0,
                     help="replay this many documents together (overlay)")
+    ap.add_argument("--entries", type=int, default=0,
+                    help="with --docs: shard them over this many mesh "
+                         "entries of the card")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose fluidframework_tpu_torch is measured")
     args = ap.parse_args()
     if args.docs and args.engine != "overlay":
         ap.error("--docs replays the overlay engine")
+    if args.entries and not args.docs:
+        ap.error("--entries shards the --docs replay")
 
     import torch
     from torch.autograd import DeviceType
@@ -90,8 +99,18 @@ def main() -> int:
     )
     if args.docs:
         from fluidframework_tpu_torch.core.overlay_replay import (
-            replay_docs, restore_shard,
+            replay_docs, restore_shard, stack_replicas,
         )
+        from fluidframework_tpu_torch.parallel.mesh import (
+            make_docs_mesh, sharded_overlay_replay_multi,
+        )
+
+        def run_docs(reps):
+            if not args.entries:
+                return replay_docs(reps)
+            step = sharded_overlay_replay_multi(
+                make_docs_mesh(args.entries, "cuda"), CHUNK)
+            return step(*stack_replicas(reps))
     from fluidframework_tpu_torch.ops.overlay import (
         fold_device, overlay_chunk_kernel,
     )
@@ -140,7 +159,7 @@ def main() -> int:
     if args.docs:
         reps = docs_replicas()
         t0 = time.perf_counter()
-        replay_docs(reps)
+        run_docs(reps)
         torch.cuda.synchronize()
         host["replay_s"] = time.perf_counter() - t0
         host["replay_ops_per_s"] = args.docs * args.ops / host["replay_s"]
@@ -192,7 +211,7 @@ def main() -> int:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         if args.docs:
-            out = replay_docs(reps)
+            out = run_docs(reps)
         elif args.engine == "row":
             per = -(-STAGE_OPS // CHUNK)
             while rep.chunks_done < rep.n_chunks:
@@ -239,7 +258,8 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     summary = {"gpu": gpu, "nvidia_smi": smi, "engine": args.engine,
                "root": os.path.abspath(args.root), "ops": args.ops,
-               "docs": args.docs, "distinct": len(doc_streams),
+               "docs": args.docs, "entries": args.entries,
+               "distinct": len(doc_streams),
                "chunks": rep.n_chunks, "wall_s": wall, "stages": stages,
                **host}
     if not spans:
@@ -265,6 +285,7 @@ def main() -> int:
                         for n, (t, c) in top[:15]],
         })
         docs = f" x {args.docs} documents" if args.docs else ""
+        docs += f" on {args.entries} mesh entries" if args.entries else ""
         print(f"{gpu}: {args.engine} engine, {args.ops} ops{docs}, "
               f"{rep.n_chunks} chunks, replay wall {wall:.3f}s (profiled)")
         print(f"device window {window / 1e3:.1f} ms, busy {busy / 1e3:.1f} "
@@ -283,6 +304,7 @@ def main() -> int:
     tag = "" if args.root == ROOT else "_" + os.path.basename(
         os.path.abspath(args.root))
     tag += f"_docs{args.docs}" if args.docs else ""
+    tag += f"_entries{args.entries}" if args.entries else ""
     path = os.path.join(out_dir,
                         f"torch_replay_profile_{args.engine}{tag}.json")
     with open(path, "w") as f:
