@@ -15,13 +15,14 @@ backend, the row model's zamboni, the row model's scan engine
 (``bench.py`` with ``BENCH_ENGINE=scan``), the deli's supervised
 role over columnar and JSON file topics (BASELINE config 5), the
 summary service's supervised role with its catch-up read (config10,
-and config15's documents through the role), and the multi-device layer
+and config15's documents through the role), the multi-device layer
 on mesh entries of the card (the dry run, many documents sharded over
-entries, the deli's sharded pool).
+entries, the deli's sharded pool), and the summary role's folds on a
+device plane of the card.
 Phases, in order; any failure exits non-zero:
 
 1. the device, and the card's name and power limit from nvidia-smi;
-2. builds the six CUDA kernels (nvcc, sm_90a) and the native stream
+2. builds the seven CUDA kernels (nvcc, sm_90a) and the native stream
    engine (g++) from the checkout's sources, in parallel, and generates
    the headline stream in a worker process beside them (set-up);
 3. holds the overlay chunk kernel against its plain PyTorch version on
@@ -35,11 +36,23 @@ Phases, in order; any failure exits non-zero:
    dropped); the comparison is exact (int32, tolerance 0) on n_rows,
    error and rows [:n_rows]; then times the kernel and the plain version
    on the checked chunks;
+3 (b). the fold kernel (`csrc/overlay_fold.cu`) against its plain
+   versions `fold_device_ref` and `fold_append_ref` on the same CUDA
+   inputs, exactly (int32, tolerance 0) on every output (the whole
+   table, the whole record block, n_rec; the append form's whole log,
+   counts and cursor): after each of phase 3's checked chunks, on the
+   edge tables of `testing/fold_edges.py` at the bench geometry and at
+   the summary fold's (cursors that fit, clamp and pass the capacity),
+   and on D = 132 stacks at both; then the append form's time per launch
+   by CUDA events behind a spin (one document, and D = 132) beside its
+   bytes bound, and the plain version's by CUDA events back to back;
 4. the main path: `OverlayDeviceReplica(device="cuda")` replays the
    seed-7 lagged stream (1024 clients, collab window 1024, initial
    length 64; the first 500k of its 1M ops by default, cut to keep the
    whole smoke inside its time limit since phase 29; `--ops 1000000`
-   replays it whole) with the kernel launch count reset just before; the launches must equal the chunk count, and the final
+   replays it whole) with the kernel launch counts reset just before;
+   kernel A's and the fold kernel's launches must each equal the chunk
+   count (two launches a chunk), and the final
    state's digest must equal GOLDEN.json (the full digest at 1M ops,
    else the native stage digest of that prefix length);
 5. holds the row-model chunk kernel against `apply_chunk_ref` on the
@@ -314,7 +327,15 @@ Phases, in order; any failure exits non-zero:
    text (one card: not a scaling figure); (c) config 5 through
    `KernelDeliLambda(deli_devices=4)` with the sequencer's count set to
    0 just before: deltas and checkpoint digests equal to
-   deli_golden.json, launches 4 times phase 18's, records/s.
+   deli_golden.json, launches 4 times phase 18's, records/s;
+31. the summary service's folds on a device plane: config15's 4
+   documents (fold_golden.json's seeds, a summary every 375 records)
+   interleaved into one columnar deltas topic, through
+   `SummarizerRole(device_plane="4x2")` on PLANE_SPEC entries of the card
+   and without a plane, on both backends: every blob's rows and every
+   manifest equal fold_golden.json, the plane's blobs and manifests those
+   of the plane-less run byte for byte, ``summary_plane_folds_total``
+   nonzero with the plane and 0 without, each run's launches read.
    Phases 11 and 30 (b) hold every document's outputs to its single
    replay's exactly instead of reading each one out: the readout of 132
    documents took 20-38 s, and equal outputs give equal digests.
@@ -330,9 +351,13 @@ ROW_OPS is the largest 100k multiple of ops (up to 1M) that the card
 replays in at most 300 s; it is 1M (see the constant), and phase 6
 replays min(ROW_OPS, --ops). Every path
 (phases 4, 6, 10, 11, 12, 13, 15, 16, 18, 19, 21, 23, 24, 25, 27, 28,
-29's role runs and 30) is driven with kernel launch counts set to 0 just
-before it and read just after (phase 30 (a) also counts each section's
-sharded call on its own).
+29's role runs, 30 and 31) is driven with kernel launch counts set to 0
+just before it (or read just before it) and read just after (phase 30
+(a) also counts each section's sharded call on its own). On every
+overlay path the fold kernel launches with kernel A: once a chunk (an
+entry a chunk on the mesh), and on the summary fold once more per
+emission (`canonical_rows`' fold), on the message replica once more per
+fold-only epoch.
 
 Prints the kernel A geometry line (layout, threads, rows per thread,
 shared bytes, heap rows), the kernel B grid line (G, R, shared bytes per
@@ -350,7 +375,9 @@ engine's path and in the smoke; the compaction's, its launches on the
 row replay, three a compaction; phase 30's sharded paths in the
 path_launches of kernel A, the sequencer and the scan, with kernel A's
 entry holding the dry run's report and the sharded docs replay's
-timing, the sequencer's the sharded deli's), the nvidia-smi line, and
+timing, the sequencer's the sharded deli's; the fold kernel's, its
+shape, the tables it was held on, its time at D = 132 and the launches
+of every overlay path, with the plane's runs), the nvidia-smi line, and
 last the
 ``{"ok": true, "device": ...}`` line. Exits 2 without a CUDA device or
 outside a checkout of the repository.
@@ -610,6 +637,10 @@ SUMMARY_PLAIN_WORKERS = 3  # (e)'s CPU workers, beside the main process
 MESH_DRYRUN_ENTRIES, MESH_DRYRUN_SCALE = 8, 1.0
 MESH_ENTRIES = 4
 MESH_DOCS = 32
+# Phase 31: config15's fold through the summarizer role on a device plane
+# of entries of the one card (the reference's config15_device_plane,
+# tools/bench_configs.py:1070, lays it on a 4x2 plane).
+PLANE_SPEC = "4x2"
 
 
 def log(msg: str) -> None:
@@ -656,7 +687,7 @@ def timed_call(fn, *args):
 
 
 def build_and_stream(golden: dict, log):
-    """Phase 2: the six CUDA kernels (one nvcc each) and the native
+    """Phase 2: the seven CUDA kernels (one nvcc each) and the native
     stream engine (g++) built in parallel from the checkout's sources,
     with GOLDEN.json's headline stream generated beside them in a
     worker process (the generator is a Python loop over the native
@@ -670,7 +701,9 @@ def build_and_stream(golden: dict, log):
     from fluidframework_tpu_torch.ops.mergetree_scan import (
         mergetree_scan_kernel,
     )
-    from fluidframework_tpu_torch.ops.overlay import overlay_chunk_kernel
+    from fluidframework_tpu_torch.ops.overlay import (
+        overlay_chunk_kernel, overlay_fold_kernel,
+    )
     from fluidframework_tpu_torch.ops.sequencer_kernel import (
         sequencer_step_kernel,
     )
@@ -681,7 +714,8 @@ def build_and_stream(golden: dict, log):
     t0 = time.perf_counter()
     cuda_names = (overlay_chunk_kernel.name, mergetree_chunk_kernel.name,
                   sequencer_step_kernel.name, rebase_kernel.name,
-                  mergetree_scan_kernel.name, zamboni_kernel.name)
+                  mergetree_scan_kernel.name, zamboni_kernel.name,
+                  overlay_fold_kernel.name)
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as gen, \
             concurrent.futures.ThreadPoolExecutor(len(cuda_names) + 1) as ex:
@@ -752,6 +786,7 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
     from fluidframework_tpu_torch.ops.mergetree_kernel import OP_NOOP
     from fluidframework_tpu_torch.ops.overlay import (
         fold_device, ops_at, overlay_apply_chunk, overlay_chunk_kernel,
+        overlay_fold_kernel,
     )
     from fluidframework_tpu_torch.server.summary_fold import (
         SummaryFolder, _encode_fold,
@@ -785,16 +820,25 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
                     f"fold_golden.json")
 
     def sweep(n_docs, label):
+        """The fold sweep over `n_docs` documents: (its result, kernel A's
+        launches, the fold kernel's). A round's fold launches are its
+        chunks (the replay's, one with each kernel A launch) and its
+        emissions (each `canonical_rows` folds once more)."""
         sub = {d: streams[d] for d in docs[:n_docs]}
         sync()
-        overlay_chunk_kernel.launches = 0
+        overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
         out = fs.run_fold_sweep(sub, step, dev)
         sync()
         launches = overlay_chunk_kernel.launches
+        launches_f = overlay_fold_kernel.launches
         chunks = sum(r["chunks"] for r in out["rounds"])
-        if dev.type == "cuda" and launches != chunks:
+        emissions = sum(r["emissions"] for r in out["rounds"])
+        if dev.type == "cuda" and (launches != chunks
+                                   or launches_f != chunks + emissions):
             raise AssertionError(
-                f"{label}: kernel launches {launches} != chunks {chunks}")
+                f"{label}: kernel A launches {launches} != chunks {chunks} "
+                f"or fold launches {launches_f} != chunks + emissions "
+                f"{chunks + emissions}")
         if any(sum(g["chunks"] for g in r["groups"]) != r["chunks"]
                for r in out["rounds"]):
             raise AssertionError(f"{label}: the fold's groups disagree "
@@ -802,13 +846,13 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
         gate(out["digests"], label)
         if any(len(v) != n_rounds for v in out["digests"].values()):
             raise AssertionError(f"{label}: not every round emitted")
-        return out, launches
+        return out, launches, launches_f
 
     # ---- 13. the summary folder, config15's documents -------------------
-    warm, _ = sweep(FOLD_DOCS[0], "fold warm-up")
+    warm, _, _ = sweep(FOLD_DOCS[0], "fold warm-up")
     folder = SummaryFolder(summary_ops=step, device=dev)
     sync()
-    overlay_chunk_kernel.launches = 0
+    overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
     t0 = time.perf_counter()
     manifests = []
     for lo in range(0, len(streams[docs[0]]), step):
@@ -819,6 +863,7 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
     sync()
     t_folder = time.perf_counter() - t0
     launches_folder = overlay_chunk_kernel.launches
+    launches_folder_f = overlay_fold_kernel.launches
     # The folder emits at every whole `step` records: the sweep's rounds
     # but its last, short one.
     n_whole = len(streams[docs[0]]) // step
@@ -826,6 +871,11 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
     if dev.type == "cuda" and launches_folder != want_chunks:
         raise AssertionError(f"summary folder: kernel launches "
                              f"{launches_folder} != chunks {want_chunks}")
+    if dev.type == "cuda" and \
+            launches_folder_f != launches_folder + len(manifests):
+        raise AssertionError(f"summary folder: fold launches "
+                             f"{launches_folder_f} != chunks + emissions "
+                             f"{launches_folder + len(manifests)}")
     got = {}
     for m in manifests:
         got.setdefault(m["doc"], []).append([m["seq"], m["count"],
@@ -835,8 +885,9 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
         raise AssertionError("summary folder: manifests differ from the "
                              "JAX summarizer role's (fold_golden.json)")
     log(f"summary folder: {len(manifests)} summaries of {FOLD_DOCS[0]} "
-        f"documents in {t_folder:.3f}s (kernel launches {launches_folder}, "
-        f"one per chunk and window group); seq, count and handle of every "
+        f"documents in {t_folder:.3f}s (kernel A launches {launches_folder}, "
+        f"one per chunk and window group; fold launches {launches_folder_f}, "
+        f"one more per emission); seq, count and handle of every "
         f"manifest equal the JAX summarizer role's")
 
     # ---- 14. the fold's stacked launches vs the plain version ----------
@@ -926,7 +977,7 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
     runs = []
     layouts = {}
     for D in FOLD_DOCS:
-        out, launches = sweep(D, f"fold D {D}")
+        out, launches, launches_f = sweep(D, f"fold D {D}")
         rounds = out["rounds"]
         n_em = sum(r["emissions"] for r in rounds)
         enc = sum(r["encode_s"] for r in rounds)
@@ -940,6 +991,7 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
                 layouts[key] = layouts.get(key, 0) + g["chunks"]
         run = dict(D=D, seconds=out["seconds"], emissions=n_em,
                    rounds=len(rounds), launches=launches,
+                   fold_launches=launches_f,
                    emissions_per_s=n_em / out["seconds"],
                    fold_ops_per_s=out["op_records"] / out["seconds"],
                    encode_s_per_round=enc / len(rounds),
@@ -958,12 +1010,13 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
             f"round: encode {run['encode_s_per_round']:.4f}s, fold "
             f"{run['fold_s_per_round']:.4f}s (device {dev_txt}, CUDA events "
             f"around the stacked replays), serialization + reboot "
-            f"{run['serialize_s_per_round']:.4f}s; kernel launches "
+            f"{run['serialize_s_per_round']:.4f}s; kernel A launches "
             f"{launches} (one per chunk and window group; windows "
-            f"{run['windows']}); every digest equals fold_golden.json")
+            f"{run['windows']}), fold launches {launches_f} (and one an "
+            f"emission); every digest equals fold_golden.json")
 
     # ---- 16. the message-driven replica, card vs CPU --------------------
-    launches_msg, t_msg, n_msg = 0, 0.0, 0
+    launches_msg, launches_msg_f, t_msg, n_msg = 0, 0, 0.0, 0
     threads = torch.get_num_threads()
     for d in docs[:MSG_DOCS]:
         msgs = fs.as_messages(streams[d])
@@ -974,18 +1027,25 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
         rep = OverlayKernelMessageReplica(chunk_size=MSG_CHUNK,
                                           window=MSG_WINDOW, device=dev)
         sync()
-        overlay_chunk_kernel.launches = 0
+        overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
         t0 = time.perf_counter()
         rep.apply_messages(msgs)
         sync()
         t_msg += time.perf_counter() - t0
         n_msg += len(enc._encoded)
         launches = overlay_chunk_kernel.launches
+        launches_f = overlay_fold_kernel.launches
         want_launches = -(-len(enc._encoded) // MSG_CHUNK)
-        if dev.type == "cuda" and launches != want_launches:
-            raise AssertionError(f"message replica {d}: kernel launches "
-                                 f"{launches} != chunks {want_launches}")
+        # A fold a chunk, and a fold-only epoch when no rows are left
+        # after the last whole chunk.
+        want_f = want_launches + (len(enc._encoded) % MSG_CHUNK == 0)
+        if dev.type == "cuda" and (launches != want_launches
+                                   or launches_f != want_f):
+            raise AssertionError(f"message replica {d}: kernel A launches "
+                                 f"{launches} != chunks {want_launches} or "
+                                 f"fold launches {launches_f} != {want_f}")
         launches_msg += launches
+        launches_msg_f += launches_f
         torch.set_num_threads(1)
         try:
             cpu = OverlayKernelMessageReplica(chunk_size=MSG_CHUNK,
@@ -1003,11 +1063,16 @@ def fold_phases(dev, hold, time_chunks, log) -> dict:
                                  f"{int(rep.table.error)}")
     log(f"message replica: {MSG_DOCS} documents, {n_msg} ops (chunks of "
         f"{MSG_CHUNK}, window {MSG_WINDOW}) in {t_msg:.3f}s = "
-        f"{n_msg / t_msg:,.0f} ops/s one document at a time (kernel launches "
-        f"{launches_msg}); text, spans and error word equal the CPU run's")
+        f"{n_msg / t_msg:,.0f} ops/s one document at a time (kernel A "
+        f"launches {launches_msg}, fold launches {launches_msg_f}); text, "
+        f"spans and error word equal the CPU run's")
     return dict(
         summary_folder=launches_folder, message_replica=launches_msg,
         fold_sweep={str(r["D"]): r["launches"] for r in runs},
+        fold_kernel_paths=dict(
+            summary_folder=launches_folder_f,
+            fold={str(r["D"]): r["fold_launches"] for r in runs},
+            message_replica=launches_msg_f),
         fold_runs=runs, fold_held_pairs=held,
         fold_groups=[dict(W=w, D=n, chunks=c,
                           layout=(overlay_chunk_kernel.plan(
@@ -3455,22 +3520,24 @@ def hold_first_round(role, held: dict) -> None:
 def mesh_dryrun_phase(dev, log) -> dict:
     """Phase 30 (a): the dry run on MESH_DRYRUN_ENTRIES mesh entries of
     `dev`, with every kernel's launch count set to 0 just before; each
-    section's sharded call launched kernel A entries x chunks, the
-    sequencer once, the scan once an entry. Raises on any mismatch;
+    section's sharded call launched kernel A and the fold entries x
+    chunks, the sequencer once, the scan once an entry. Raises on any mismatch;
     returns the dry run's report and the launches in all."""
     import torch
 
     from fluidframework_tpu_torch.ops.mergetree_scan import (
         mergetree_scan_kernel,
     )
-    from fluidframework_tpu_torch.ops.overlay import overlay_chunk_kernel
+    from fluidframework_tpu_torch.ops.overlay import (
+        overlay_chunk_kernel, overlay_fold_kernel,
+    )
     from fluidframework_tpu_torch.ops.sequencer_kernel import (
         sequencer_step_kernel,
     )
     from fluidframework_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    kernels = (overlay_chunk_kernel, sequencer_step_kernel,
-               mergetree_scan_kernel)
+    kernels = (overlay_chunk_kernel, overlay_fold_kernel,
+               sequencer_step_kernel, mergetree_scan_kernel)
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -3481,11 +3548,13 @@ def mesh_dryrun_phase(dev, log) -> dict:
     n = MESH_DRYRUN_ENTRIES
     want = {
         "one_doc": {"overlay_chunk": n * report["one_doc"]["chunks"],
+                    "overlay_fold": n * report["one_doc"]["chunks"],
                     "sequencer_step": 0, "mergetree_scan": 0},
         "multi_doc": {"overlay_chunk": n * report["multi_doc"]["chunks"],
+                      "overlay_fold": n * report["multi_doc"]["chunks"],
                       "sequencer_step": 1, "mergetree_scan": 0},
-        "pipeline": {"overlay_chunk": 0, "sequencer_step": 0,
-                     "mergetree_scan": n},
+        "pipeline": {"overlay_chunk": 0, "overlay_fold": 0,
+                     "sequencer_step": 0, "mergetree_scan": n},
     }
     for sec, counts in want.items():
         if report[sec]["launches"] != counts or report[sec]["gerr"]:
@@ -3498,8 +3567,9 @@ def mesh_dryrun_phase(dev, log) -> dict:
     dry_total = {k.name: k.launches for k in kernels}
     log(f"mesh dry run on {n} entries of {dev} (scale {MESH_DRYRUN_SCALE}, "
         f"{t_dry:.2f}s): one document an entry ({report['one_doc']['ops']} "
-        f"ops, {report['one_doc']['chunks']} chunks: kernel A launches "
-        f"{report['one_doc']['launches']['overlay_chunk']} = entries x "
+        f"ops, {report['one_doc']['chunks']} chunks: kernel A and fold "
+        f"launches {report['one_doc']['launches']['overlay_chunk']} and "
+        f"{report['one_doc']['launches']['overlay_fold']} = entries x "
         f"chunks), {report['multi_doc']['docs']} documents chained behind "
         f"the sequencer ({report['multi_doc']['launches']}), one document "
         f"sequence-sharded ({report['seqshard']['ops']} ops, "
@@ -3530,6 +3600,7 @@ def mesh_docs_phase(dev, log, hold, doc_replica, distinct, single,
     )
     from fluidframework_tpu_torch.ops.overlay import (
         ops_at, overlay_apply_chunk, overlay_chunk_kernel,
+        overlay_fold_kernel,
     )
     from fluidframework_tpu_torch.parallel.mesh import (
         make_docs_mesh, sharded_overlay_replay_multi,
@@ -3557,15 +3628,18 @@ def mesh_docs_phase(dev, log, hold, doc_replica, distinct, single,
              f"phase 30 (b) entry 0 doc {d} chunk 0")
     del slab_t, slab_o, chunk0, out0
     torch.cuda.synchronize()
-    overlay_chunk_kernel.launches = 0
+    overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
     t0 = time.perf_counter()
     out = step(tables, ops, logs, counts, msns)
     torch.cuda.synchronize()
     t_mesh = time.perf_counter() - t0
     launches_mesh = overlay_chunk_kernel.launches
-    if launches_mesh != MESH_ENTRIES * n_chunks:
-        raise AssertionError(f"phase 30 (b): kernel A launches "
-                             f"{launches_mesh} != {MESH_ENTRIES} x {n_chunks}")
+    launches_mesh_f = overlay_fold_kernel.launches
+    if launches_mesh != MESH_ENTRIES * n_chunks or \
+            launches_mesh_f != MESH_ENTRIES * n_chunks:
+        raise AssertionError(f"phase 30 (b): kernel A / fold launches "
+                             f"{launches_mesh} / {launches_mesh_f} != "
+                             f"{MESH_ENTRIES} x {n_chunks}")
     gmsn, gerr = int(out[4]), int(out[5])
     if gerr != want_err or gmsn != int(msns[-1].min()):
         raise AssertionError(f"phase 30 (b): gerr {gerr} (want {want_err}), "
@@ -3590,7 +3664,7 @@ def mesh_docs_phase(dev, log, hold, doc_replica, distinct, single,
     ms_chunk = t_mesh * 1e3 / n_chunks
     skip = parity_skip_reason(MESH_ENTRIES)
     docs_mesh = dict(D=MESH_DOCS, entries=MESH_ENTRIES, seconds=t_mesh,
-                     launches=launches_mesh,
+                     launches=launches_mesh, fold_launches=launches_mesh_f,
                      ops_per_s=MESH_DOCS * DOC_OPS / t_mesh,
                      ms_per_chunk=ms_chunk,
                      single_launch_ms_per_chunk=docs_d32["ms_per_chunk"],
@@ -3599,8 +3673,9 @@ def mesh_docs_phase(dev, log, hold, doc_replica, distinct, single,
     log(f"mesh docs replay: {MESH_DOCS} x {DOC_OPS} ops on {MESH_ENTRIES} "
         f"entries of {dev} ({per} documents an entry, each on its own "
         f"stream) in {t_mesh:.3f}s = {MESH_DOCS * DOC_OPS / t_mesh:,.0f} "
-        f"ops/s aggregate, {ms_chunk:.4f} ms/chunk (kernel A launches "
-        f"{launches_mesh} = {MESH_ENTRIES} x {n_chunks}); phase 11's D = "
+        f"ops/s aggregate, {ms_chunk:.4f} ms/chunk (kernel A and fold "
+        f"launches {launches_mesh} and {launches_mesh_f} = {MESH_ENTRIES} x "
+        f"{n_chunks} each); phase 11's D = "
         f"{MESH_DOCS} in one launch a chunk: "
         f"{docs_d32['ms_per_chunk']:.4f} ms/chunk, ratio "
         f"{docs_mesh['ratio']:.3f}; every document's final table, log, "
@@ -3678,6 +3753,298 @@ def mesh_deli_phase(dev, log) -> dict:
     return deli_mesh
 
 
+def events_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn` by CUDA events around `reps`
+    back-to-back calls after one warm-up: the host's enqueue is inside
+    the span wherever it is slower than the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def fold_bytes(table, n_new, append: bool) -> int:
+    """The bytes the fold must move for this table (one document or a
+    docs-form stack of W rows each), computed from its data: anchor,
+    buf_start, length, ins_seq and the KK props of every row (each row,
+    dead ones too, reaches the record block), rem_seq of the live rows
+    only, ins_client and the KR rem_clients of the n_new kept rows only
+    (`n_new`: the output's n_rows); the whole output table (6 + KR + KK
+    ints a row) and the whole record block (5 + KK); a document's
+    n_rows, settled_len and MSN in, n_rows and settled_len out; n_rec,
+    or in the append form the cursor in, the new cursor and
+    counts[epoch] out."""
+    W = table.length.shape[-1]
+    KR, KK = table.rem_clients.shape[-1], table.props.shape[-1]
+    D = table.n_rows.numel()
+    live = int(table.n_rows.clamp(0, W).sum())
+    kept = int(n_new.sum())
+    ints = (D * W * (4 + KK) + live + kept * (1 + KR)
+            + D * W * (6 + KR + KK) + D * W * (5 + KK)
+            + D * (5 + (3 if append else 1)))
+    return 4 * ints
+
+
+def fold_kernel_phase(dev, chunk_outs, log) -> dict:
+    """Phase 3 (b): the fold kernel (``csrc/overlay_fold.cu``) against
+    its plain versions `fold_device_ref` and `fold_append_ref` on the
+    same CUDA inputs, exactly (int32, tolerance 0) on every output: the
+    whole table, the whole record block and n_rec; in the append form
+    the whole log, counts and the cursor. `chunk_outs` are phase 3's
+    (kernel A output, MSN) pairs of its checked chunks. Held: each of
+    them (both forms, the MSN read from the card), the edge tables of
+    `testing/fold_edges.py` at the bench geometry and at the summary
+    fold's (cursors that fit, clamp and pass the capacity), and D = 132
+    stacks at both (phase 3's tables tiled, and random tables, an MSN
+    per document). Then the append form's time by CUDA events behind a
+    spin on the checked chunks (one document, the main path's launch)
+    and on the D = 132 stack, beside its bytes bound, and the plain
+    version's by CUDA events back to back. Raises on any mismatch;
+    returns what the kernels line reports."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.interop import table_from_numpy
+    from fluidframework_tpu_torch.ops.overlay import (
+        fold_append_ref, fold_device_ref, overlay_fold_kernel, stack_tables,
+    )
+    from fluidframework_tpu_torch.testing.fold_edges import (
+        edge_cases, random_table,
+    )
+
+    t0 = time.perf_counter()
+    fields = ("n_rows", "anchor", "buf_start", "length", "ins_seq",
+              "ins_client", "rem_seq", "rem_clients", "props",
+              "settled_len", "error")
+    max_err, held = 0, 0
+
+    def same(a, b, what):
+        nonlocal max_err
+        d = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+        max_err = max(max_err, d)
+        if d or a.shape != b.shape:
+            raise AssertionError(f"fold kernel {what} differs from the plain "
+                                 f"version (max |diff| {d})")
+
+    def hold(table, msn, cursor, cap, label):
+        nonlocal held
+        got, want = overlay_fold_kernel(table, msn), fold_device_ref(table,
+                                                                     msn)
+        for f in fields:
+            same(getattr(got[0], f), getattr(want[0], f), f"{label}: {f}")
+        same(got[1], want[1], f"{label}: records")
+        same(got[2], want[2], f"{label}: n_rec")
+        lead = tuple(table.length.shape[:-1])
+        KK = table.props.shape[-1]
+        g = torch.Generator().manual_seed(cap)
+        log0 = torch.randint(-9, 9, lead + (cap, 5 + KK), generator=g,
+                             dtype=torch.int32).to(dev)
+        cur = torch.as_tensor(np.broadcast_to(
+            np.asarray(cursor, np.int32), lead).copy()).to(dev)
+        outs = []
+        for fn in (overlay_fold_kernel.append, fold_append_ref):
+            lg = log0.clone()
+            counts = torch.zeros(lead + (4,), dtype=torch.int32, device=dev)
+            t, c = fn(table, msn, lg, counts, cur, 2)
+            outs.append((t, c, lg, counts))
+        for f in fields:
+            same(getattr(outs[0][0], f), getattr(outs[1][0], f),
+                 f"{label} append: {f}")
+        for i, what in ((1, "cursor"), (2, "log"), (3, "counts")):
+            same(outs[0][i], outs[1][i], f"{label} append: {what}")
+        held += 1
+
+    W, KR, KK = WINDOW, N_REMOVERS, N_PROP_KEYS
+    for ci, (out, msn) in enumerate(chunk_outs):
+        hold(out, msn, 64 * ci, 2 * W, f"chunk {ci}")
+    n_edges = 0
+    for shape in ((W, KR, KK), (1024, 4, 8)):
+        for case in edge_cases(*shape, seed=shape[0]):
+            msn = case.msn
+            if np.ndim(msn) or n_edges % 2:
+                msn = torch.as_tensor(np.asarray(msn, np.int32)).to(dev)
+            hold(table_from_numpy(case.table, dev), msn, case.cursor,
+                 case.cap, f"edge {case.name} W {shape[0]} KR {shape[1]}")
+            n_edges += 1
+    D = max(DOC_COUNTS)
+    tiled = stack_tables([chunk_outs[d % len(chunk_outs)][0]
+                          for d in range(D)])
+    tiled_msn = torch.stack([chunk_outs[d % len(chunk_outs)][1]
+                             for d in range(D)]).contiguous()
+    hold(tiled, tiled_msn, torch.arange(D, dtype=torch.int32) * 97, 2 * W,
+         f"D {D} bench geometry")
+    rng = np.random.default_rng(D)
+    fold_kr = 4  # the summary fold's remover slots (core/overlay_fold.py)
+    rand = table_from_numpy(random_table(rng, W, fold_kr, KK, D=D), dev)
+    rand_msn = torch.as_tensor(rng.integers(0, 100, D).astype(np.int32)
+                               ).to(dev)
+    hold(rand, rand_msn, W, 2 * W, f"D {D} fold shape (KR {fold_kr})")
+
+    # Times: the append form, as replay_chunk_step launches it.
+    def append_call(table, msn):
+        lead = tuple(table.length.shape[:-1])
+        lg = torch.zeros(lead + (2 * W, 5 + KK), dtype=torch.int32,
+                         device=dev)
+        counts = torch.zeros(lead + (1,), dtype=torch.int32, device=dev)
+        cur = torch.zeros(lead, dtype=torch.int32, device=dev)
+        return (table, msn, lg, counts, cur, 0)
+
+    one = [append_call(t, m) for t, m in chunk_outs]
+    k = [0]
+
+    def launch_one():
+        overlay_fold_kernel.append(*one[k[0] % len(one)])
+        k[0] += 1
+
+    ms = spin_time(launch_one, 64)
+    k[0] = 0
+
+    def plain_one():
+        fold_append_ref(*one[k[0] % len(one)])
+        k[0] += 1
+
+    plain_ms = events_ms(plain_one, len(one))
+    many = append_call(tiled, tiled_msn)
+    ms_d = spin_time(lambda: overlay_fold_kernel.append(*many), 16)
+    plain_ms_d = events_ms(lambda: fold_append_ref(*many), 4)
+    # The bounds from this run's tables: the one-document bound is the
+    # mean over the chunks the timed launches cycle through.
+    b1 = sum(fold_bytes(t, fold_device_ref(t, m)[0].n_rows, True)
+             for t, m in chunk_outs) / len(chunk_outs) / PEAK_BYTES_S * 1e3
+    bd = fold_bytes(tiled, fold_device_ref(tiled, tiled_msn)[0].n_rows,
+                    True) / PEAK_BYTES_S * 1e3
+    # int32 work: ~24 operations a row (the tests, three prefix adds, the
+    # destinations and selects): far below the bytes at these shapes.
+    o1 = 24 * W / PEAK_OPS_S * 1e3
+    bound_ms, bound_by = max(b1, o1), "bytes" if b1 >= o1 else "operations"
+    log(f"overlay_fold == plain (fold_device_ref, fold_append_ref) on "
+        f"{held} tables, both forms, exactly (the whole table, records, "
+        f"n_rec, log, counts, cursor): phase 3's {len(chunk_outs)} chunks, "
+        f"{n_edges} edge tables, D = {D} at the bench geometry and at the "
+        f"fold's shape; {time.perf_counter() - t0:.2f}s")
+    log(f"overlay_fold per launch (append form, W {W}, KR {KR}, KK {KK}): "
+        f"one document {ms:.6f} ms (CUDA events behind a spin, phase 3's "
+        f"chunks), bound {bound_ms:.6f} ms ({bound_by}), share "
+        f"{bound_ms / ms:.4f}; D = {D} {ms_d:.6f} ms, bound {bd:.6f} ms, "
+        f"share {bd / ms_d:.4f}; the plain version (torch ops on the card, "
+        f"the parent's path) {plain_ms:.6f} / {plain_ms_d:.6f} ms back to "
+        f"back")
+    return dict(max_abs_err=max_err, held=held, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, ms_d132=ms_d,
+                plain_ms_d132=plain_ms_d, bound_ms_d132=bd,
+                shape=dict(W=W, KR=KR, KK=KK, append=True))
+
+
+def plane_phase(dev, log) -> dict:
+    """Phase 31: config15's fold (its 4 documents, fold_golden.json's
+    seeds, a summary every 375 records) through `SummarizerRole` on a
+    PLANE_SPEC device plane of entries of `dev`, on both backends, and
+    without a plane: every blob's rows equal fold_golden.json, the
+    manifests its, the plane's blobs and manifests byte for byte the
+    plane-less run's, ``summary_plane_folds_total`` counts the plane's
+    folds. The launches of each run are read from the kernels' counts
+    just before and after it. Raises on any mismatch; returns what the
+    kernels line reports."""
+    import shutil
+    import tempfile
+
+    from fluidframework_tpu_torch.ops.overlay import overlay_fold_kernel
+    from fluidframework_tpu_torch.server.summarizer import open_summary_store
+    from fluidframework_tpu_torch.testing import catchup_streams as cs
+    from fluidframework_tpu_torch.testing import fold_streams as fs
+
+    t31 = time.perf_counter()
+    fgold = fs.load_fold_golden()
+    step = fgold["params"]["summary_ops"]
+    streams = fs.golden_streams(fgold, FOLD_DOCS[0])
+    inter = []
+    for i in range(max(len(v) for v in streams.values())):
+        inter.extend(v[i] for v in streams.values() if i < len(v))
+    n_whole = min(len(v) for v in streams.values()) // step
+    want_rows = {d["doc"]: d["rows_sha256"][:n_whole] for d in fgold["docs"]}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-plane-")
+    runs = {}
+    try:
+        topics = os.path.join(tmp, "topics")
+        cs.write_deltas(topics, inter, "columnar")
+        for backend in ("kernel", "overlay"):
+            files = {}
+            for plane in (None, PLANE_SPEC):
+                shared = os.path.join(tmp, f"{backend}-{plane}")
+                shutil.copytree(topics, shared,
+                                ignore=shutil.ignore_patterns("*.bells"))
+                folds = {}
+
+                def setup(role, folds=folds):
+                    folds["before"] = role._m_plane_folds.value
+                    folds["launches"] = overlay_fold_kernel.launches
+
+                r = cs.drive_summarizer(shared, "columnar", step,
+                                        batch=SUMMARY_BATCH, device=dev,
+                                        fold_backend=backend, setup=setup,
+                                        device_plane=plane)
+                r["launches"]["fold"] = (overlay_fold_kernel.launches
+                                         - folds["launches"])
+                role = r["role"]
+                n_plane = role._m_plane_folds.value - folds["before"]
+                mans = cs.manifests_of(shared, "columnar")
+                store = open_summary_store(shared)
+                rows, man = {}, {}
+                for m in mans:
+                    blob = store.get(m["handle"])
+                    rows.setdefault(m["doc"], []).append(hashlib.sha256(
+                        json.dumps(json.loads(blob.decode())["rows"],
+                                   sort_keys=True).encode()).hexdigest())
+                    man.setdefault(m["doc"], []).append(
+                        [m["seq"], m["count"], m["handle"]])
+                label = f"phase 31 {backend} plane {plane}"
+                for doc in streams:
+                    if rows.get(doc) != want_rows[doc]:
+                        raise AssertionError(f"{label}: {doc}'s blob rows "
+                                             f"differ from fold_golden.json")
+                    if doc in fgold["manifests"] and \
+                            man[doc] != fgold["manifests"][doc]:
+                        raise AssertionError(f"{label}: {doc}'s manifests "
+                                             f"differ from fold_golden.json")
+                if (n_plane > 0) != (plane is not None):
+                    raise AssertionError(f"{label}: summary_plane_folds_"
+                                         f"total counted {n_plane}")
+                files[plane] = (mans, {m["handle"]: store.get(m["handle"])
+                                       for m in mans})
+                p = role.device_plane()
+                runs[f"{backend}_{plane or 'none'}"] = dict(
+                    seconds=r["seconds"], summaries=len(mans),
+                    records=r["records"], launches=r["launches"],
+                    plane_folds=n_plane,
+                    plane=None if p is None else p.describe())
+            if files[None] != files[PLANE_SPEC]:
+                raise AssertionError(f"phase 31 {backend}: the plane's "
+                                     f"manifests or blobs differ from the "
+                                     f"plane-less run's")
+            a, b = (runs[f"{backend}_none"],
+                    runs[f"{backend}_{PLANE_SPEC}"])
+            log(f"summary role on a {PLANE_SPEC} device plane of {dev} "
+                f"({backend} backend): config15's {len(streams)} documents, "
+                f"{b['records']} records, {b['summaries']} summaries in "
+                f"{b['seconds']:.3f}s (without a plane {a['seconds']:.3f}s); "
+                f"every blob and manifest byte for byte the plane-less "
+                f"run's and fold_golden.json's; summary_plane_folds_total "
+                f"{b['plane_folds']:.0f}; launches {b['launches']} "
+                f"(without a plane {a['launches']})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 31 {time.perf_counter() - t31:.2f}s")
+    return runs
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3727,7 +4094,7 @@ def main() -> int:
     from fluidframework_tpu_torch.ops.overlay import (
         KERNEL_THREADS, OverlayTable, fold_device, make_overlay_table,
         ops_at, overlay_apply_chunk, overlay_apply_chunk_ref,
-        overlay_chunk_kernel,
+        overlay_chunk_kernel, overlay_fold_kernel,
     )
     from fluidframework_tpu_torch.ops.mergetree_scan import (
         mergetree_scan_kernel,
@@ -3818,11 +4185,12 @@ def main() -> int:
     rep.prepare()
     ops_all = rep._dev
     table = rep.table
-    checked = []
+    checked, chunk_outs = [], []
     for ci in range(min(CHECK_CHUNKS, rep.n_chunks)):
         batch = ops_all.slice(ci * CHUNK, (ci + 1) * CHUNK)
         out, n, e = compare(table, batch, f"chunk {ci}")
         checked.append((table, batch))
+        chunk_outs.append((out, rep._msn_by_chunk[ci]))
         if e:
             raise AssertionError(f"chunk {ci}: error flags {e} on a valid stream")
         table, _, _ = fold_device(out, rep._msn_by_chunk[ci])
@@ -3940,24 +4308,31 @@ def main() -> int:
         f"plain {plain_ms:.2f} ms/chunk, bound {bound_ms:.6f} ms "
         f"({bound_by})")
 
+    # ---- 3 (b). the fold kernel vs its plain versions -------------------
+    fold_k = fold_kernel_phase(dev, chunk_outs, log)
+    del chunk_outs
+
     # ---- 4. the main path --------------------------------------------
     rep = replica()
     rep.prepare()
     torch.cuda.synchronize()
-    overlay_chunk_kernel.launches = 0
+    overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
     t0 = time.perf_counter()
     rep.replay()
     torch.cuda.synchronize()
     t_replay = time.perf_counter() - t0
     launches = overlay_chunk_kernel.launches
-    if launches != rep.n_chunks:
+    launches_f = overlay_fold_kernel.launches
+    if launches != rep.n_chunks or launches_f != rep.n_chunks:
         raise AssertionError(
-            f"kernel launches {launches} != chunks {rep.n_chunks}")
+            f"kernel A launches {launches}, fold launches {launches_f} != "
+            f"chunks {rep.n_chunks}")
     rep.check_errors()
     log(f"replay: {args.ops} ops in {t_replay:.3f}s = "
         f"{args.ops / t_replay:,.0f} ops/s, "
         f"{t_replay * 1e3 / rep.n_chunks:.4f} ms/chunk over "
-        f"{rep.n_chunks} chunks (kernel launches {launches}); residual "
+        f"{rep.n_chunks} chunks (launches: kernel A {launches}, the fold "
+        f"{launches_f}: two a chunk); residual "
         f"rows {int(rep.table.n_rows)}, settled len "
         f"{int(rep.table.settled_len)}, fold records {int(rep.cursor)}")
     t0 = time.perf_counter()
@@ -4242,17 +4617,6 @@ def main() -> int:
     comp_out, _ = compare_compaction(*comp_args,
                                      f"deep compaction after chunk {comp_at}")
 
-    def events_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        for _ in range(reps):
-            fn()
-        ev[1].record()
-        torch.cuda.synchronize()
-        return ev[0].elapsed_time(ev[1]) / reps
-
     comp_ms = spin_time(lambda: compaction_kernel(*comp_args), SCAN_TIME_REPS)
     comp_path_ms = events_ms(lambda: compaction_kernel(*comp_args),
                              SCAN_TIME_REPS)
@@ -4439,16 +4803,17 @@ def main() -> int:
         n_prop_keys=N_PROP_KEYS, device=dev)
     drep.prepare()
     torch.cuda.synchronize()
-    overlay_chunk_kernel.launches = 0
+    overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
     t0 = time.perf_counter()
     drep.replay()
     torch.cuda.synchronize()
     t_def = time.perf_counter() - t0
     launches_def = overlay_chunk_kernel.launches
-    if launches_def != drep.n_chunks:
+    launches_def_f = overlay_fold_kernel.launches
+    if launches_def != drep.n_chunks or launches_def_f != drep.n_chunks:
         raise AssertionError(
-            f"default replica: launches {launches_def} != chunks "
-            f"{drep.n_chunks}")
+            f"default replica: launches {launches_def} / {launches_def_f} "
+            f"!= chunks {drep.n_chunks}")
     drep.check_errors()
     digest = state_digest(drep.annotated_spans())
     if digest != golden_100k:
@@ -4457,8 +4822,9 @@ def main() -> int:
     log(f"default replica (window {DEFAULT_WINDOW}, chunk {DEFAULT_CHUNK}, "
         f"{overlay_chunk_kernel.plan(DEFAULT_WINDOW, N_REMOVERS, N_PROP_KEYS, DEFAULT_CHUNK, 1).layout} "
         f"layout): {DOC_OPS} ops in {t_def:.3f}s = {DOC_OPS / t_def:,.0f} "
-        f"ops/s, {t_def * 1e3 / drep.n_chunks:.4f} ms/chunk (kernel "
-        f"launches {launches_def}); digest matches GOLDEN.json at {DOC_OPS}")
+        f"ops/s, {t_def * 1e3 / drep.n_chunks:.4f} ms/chunk (kernel A "
+        f"launches {launches_def}, fold launches {launches_def_f}); digest "
+        f"matches GOLDEN.json at {DOC_OPS}")
 
     # ---- 11. many documents, one launch per chunk ----------------------
     t0 = time.perf_counter()
@@ -4550,16 +4916,18 @@ def main() -> int:
                     f"docs D {D}: the streams that flag errors {flagged} "
                     f"differ from the single replays'")
         torch.cuda.synchronize()
-        overlay_chunk_kernel.launches = 0
+        overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
         t0 = time.perf_counter()
         out = replay_docs(reps_d)
         torch.cuda.synchronize()
         t_docs = time.perf_counter() - t0
         launches_docs = overlay_chunk_kernel.launches
+        launches_docs_f = overlay_fold_kernel.launches
         n_ch = reps_d[0].n_chunks
-        if launches_docs != n_ch:
+        if launches_docs != n_ch or launches_docs_f != n_ch:
             raise AssertionError(
-                f"docs replay D {D}: launches {launches_docs} != chunks {n_ch}")
+                f"docs replay D {D}: launches {launches_docs} / "
+                f"{launches_docs_f} != chunks {n_ch}")
         want_err = 0
         for d in range(D):
             want_err |= single[d % len(distinct)]
@@ -4590,6 +4958,7 @@ def main() -> int:
         # state; the aggregate of the others is given beside the whole.
         n_clean = sum(1 for d in range(D) if not single[d % len(distinct)])
         docs_runs.append(dict(D=D, seconds=t_docs, launches=launches_docs,
+                              fold_launches=launches_docs_f,
                               ops_per_s=D * DOC_OPS / t_docs,
                               clean_docs=n_clean,
                               clean_ops_per_s=n_clean * DOC_OPS / t_docs,
@@ -4598,8 +4967,9 @@ def main() -> int:
             f"{D * DOC_OPS / t_docs:,.0f} ops/s aggregate "
             f"({n_clean * DOC_OPS / t_docs:,.0f} over the {n_clean} documents "
             f"with no error), "
-            f"{t_docs * 1e3 / n_ch:.4f} ms/chunk (kernel launches "
-            f"{launches_docs}, one per chunk; error bits {int(out[5])}); "
+            f"{t_docs * 1e3 / n_ch:.4f} ms/chunk (kernel A launches "
+            f"{launches_docs}, fold launches {launches_docs_f}, one each per "
+            f"chunk; error bits {int(out[5])}); "
             + ("every document's final table, log, counts and cursor equal "
                "its single replay's exactly, so its digest and error word "
                "do; " if D == max(DOC_COUNTS) else "")
@@ -4613,15 +4983,17 @@ def main() -> int:
     srep = doc_replica(head)
     srep.prepare_host()
     torch.cuda.synchronize()
-    overlay_chunk_kernel.launches = 0
+    overlay_chunk_kernel.launches = overlay_fold_kernel.launches = 0
     t0 = time.perf_counter()
     srep.replay_streaming(STREAM_STEPS)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     launches_stream = overlay_chunk_kernel.launches
-    if launches_stream != srep.n_chunks:
+    launches_stream_f = overlay_fold_kernel.launches
+    if launches_stream != srep.n_chunks or launches_stream_f != srep.n_chunks:
         raise AssertionError(
-            f"streaming: launches {launches_stream} != chunks {srep.n_chunks}")
+            f"streaming: launches {launches_stream} / {launches_stream_f} "
+            f"!= chunks {srep.n_chunks}")
     srep.check_errors()
     digest = state_digest(srep.annotated_spans())
     if digest != golden_100k:
@@ -4629,7 +5001,8 @@ def main() -> int:
             f"streaming digest {digest} != GOLDEN.json {golden_100k}")
     log(f"streaming replay: {DOC_OPS} ops in {STREAM_STEPS} host segments "
         f"in {t_stream:.3f}s = {DOC_OPS / t_stream:,.0f} ops/s (copies "
-        f"included; kernel launches {launches_stream}); digest matches "
+        f"included; kernel A launches {launches_stream}, fold launches "
+        f"{launches_stream_f}); digest matches "
         f"GOLDEN.json at {DOC_OPS}")
 
     # ---- 28, 29 (c, e): a worker process beside phases 13-29 ----------
@@ -4716,6 +5089,18 @@ def main() -> int:
     scan["path_launches"]["mesh_dryrun_pipeline"] = \
         report["pipeline"]["launches"]["mergetree_scan"]
 
+    # ---- 31. the summary service's fold on a device plane --------------
+    plane = plane_phase(dev, log)
+    plane_paths = {f"plane_{k}": v["launches"] for k, v in plane.items()}
+    scan["path_launches"].update({
+        k: v["scan"] for k, v in plane_paths.items() if "kernel" in k})
+    scan["plane_runs"] = {k: v for k, v in plane.items() if "kernel" in k}
+
+    def plane_overlay_paths(key):
+        """The overlay backend's plane runs' launches of one kernel
+        (`key`: "overlay" kernel A, "fold" the fold kernel)."""
+        return {k: v[key] for k, v in plane_paths.items() if "overlay" in k}
+
     kernels = [{
         "name": overlay_chunk_kernel.name,
         "route": "cuda",
@@ -4748,6 +5133,7 @@ def main() -> int:
             **{k: {stage: v[stage]["overlay"] for stage in v}
                if "role" in v else v["overlay"]
                for k, v in summary_paths.items()},
+            **plane_overlay_paths("overlay"),
         },
         "fold_groups": fold["fold_groups"],
         "fold_shape": fold["fold_shape"],
@@ -4757,6 +5143,40 @@ def main() -> int:
         "mesh_docs": docs_mesh,
         "mesh_dryrun": report,
         "mesh_dryrun_launches": dry["launches"],
+    }, {
+        "name": overlay_fold_kernel.name,
+        "route": "cuda",
+        "source": overlay_fold_kernel.source,
+        "replaces": overlay_fold_kernel.replaces,
+        "launches": launches_f,
+        "max_abs_err": fold_k["max_abs_err"],
+        "ms": fold_k["ms"],
+        "plain_ms": fold_k["plain_ms"],
+        "bound_ms": fold_k["bound_ms"],
+        "bound_by": fold_k["bound_by"],
+        "library_ms": None,
+        "check": "exact",
+        "plain_on": "cuda",
+        "shape": fold_k["shape"],
+        "held_tables": fold_k["held"],
+        "ms_d132": fold_k["ms_d132"],
+        "plain_ms_d132": fold_k["plain_ms_d132"],
+        "bound_ms_d132": fold_k["bound_ms_d132"],
+        "path_launches": {
+            "overlay_replay": launches_f,
+            "default_window_replica": launches_def_f,
+            "docs_replay": {str(r["D"]): r["fold_launches"]
+                            for r in docs_runs},
+            "streaming_replay": launches_stream_f,
+            **fold["fold_kernel_paths"],
+            "mesh_dryrun_one_doc":
+                report["one_doc"]["launches"]["overlay_fold"],
+            "mesh_dryrun_multi_doc":
+                report["multi_doc"]["launches"]["overlay_fold"],
+            "mesh_docs_replay": docs_mesh["fold_launches"],
+            **plane_overlay_paths("fold"),
+        },
+        "plane_runs": {k: v for k, v in plane.items() if "overlay" in k},
     }, {
         "name": mergetree_chunk_kernel.name,
         "route": "cuda",

@@ -16,23 +16,28 @@ overlay ops:
   chunk's MSN), and the fold records are applied to the host settled
   state (`reconstruct_settled`, incremental form). All documents of a
   round that share a window are stacked into ONE docs-form replay:
-  one kernel launch (one block per document) and one fold per chunk
-  for all of them. Documents with different windows make one such
+  one launch of kernel A and one of the fold kernel (one block per
+  document each) per chunk for all of them. Documents with different windows make one such
   group each.
 - **canonical serialization** (`canonical_rows`): byte-identical to
   the kernel backend's `summarizer._canonical_rows` by contract, so
   blob bytes and content-addressed handles do not depend on the
   engine.
 
-Left out, with reasons. The reference stacks a round over its 2-D
-device plane: `_stacked_fold_fn` (:550) maps the fused replay over the
-documents under a ``shard_map``, and `_dummy_job` (:716) pads the stack
-to a multiple of the mesh. One card needs neither: the docs form of
-`replay_fused` is already one launch for the whole stack. The
-availability probe `overlay_available` (:90) is not ported either: it
+- **the device plane** (`run_rounds(plane=)`, `fold_jobs_overlay(
+  plane=)`; the reference's `_stacked_fold_fn` :550, `_run_rounds`
+  :605 and `_dummy_job` :716): a window group is padded with empty
+  dummy jobs (`_dummy_job`) to a multiple of the plane's size, its
+  stacked doc axis laid over `DevicePlane.fold_sharding()` (every
+  entry, docs-major), and each entry's slab runs the docs-form
+  `replay_fused` under `DocsMesh.on`; the outputs are gathered back
+  and applied to the real replicas only. Each document's result does
+  not depend on its slab, so a plane changes no byte of a summary.
+
+The availability probe `overlay_available` (:90) is not ported: it
 decides the role's fallback to its kernel backend, and the port has no
-fallback. Given no device the fold runs on ``cuda`` (kernel A) or
-raises; ``device="cpu"`` runs the kernel's plain version.
+fallback. Given no device the fold runs on ``cuda`` (kernel A and the
+fold kernel) or raises; ``device="cpu"`` runs their plain versions.
 
 Host syncs per round, as in the reference: per document one read of
 ``n_rows`` (`build_round`) and of ``settled_len`` (`apply_round`'s
@@ -68,6 +73,7 @@ from ..ops.overlay import (
     stack_tables,
 )
 from ..ops.overlay_ref import SETTLED_BASE, merge_span_props
+from ..parallel.mesh import sharded_overlay_replay_multi
 from ..protocol.constants import NO_CLIENT, UNIVERSAL_SEQ
 from ..utils.devices import DeviceLike, resolve_device
 from .kernel_replica import PropInterner, TextArena, encoded_columns
@@ -492,7 +498,8 @@ def stack_jobs(grp: List[dict]):
     ``[D, n_chunks]``, and MSNs ``[n_chunks, D]``. Jobs with fewer
     chunks are padded with NOOP chunks that fold again at their last
     MSN (nothing new settles or drops), as the reference pads them;
-    the ops and MSNs reach the device in one copy."""
+    the ops and MSNs reach the device in one copy. A dummy job
+    (`_dummy_job`) brings its own empty table."""
     D = len(grp)
     n_chunks = max(j["n_chunks"] for j in grp)
     log_cap = max(j["log_cap"] for j in grp)
@@ -518,7 +525,8 @@ def stack_jobs(grp: List[dict]):
         views.append(flat[off: off + a.size].view(a.shape))
         off += a.size
     return (
-        stack_tables([j["rep"].table for j in grp]),
+        stack_tables([j["rep"].table if j["rep"] is not None
+                      else j["table"] for j in grp]),
         OpBatch(*views[:-1]),
         torch.zeros((D, log_cap, 5 + _KK), dtype=torch.int32, device=dev),
         torch.zeros((D, n_chunks), dtype=torch.int32, device=dev),
@@ -526,51 +534,89 @@ def stack_jobs(grp: List[dict]):
     )
 
 
-def run_rounds(jobs: List[dict]) -> List[dict]:
+def _dummy_job(like: dict) -> dict:
+    """An empty padding job shaped like `like` (``rep`` None: its
+    outputs are dropped): an empty table of the window, no ops (the
+    stack fills NOOPs), every chunk folding at MSN 0."""
+    return {
+        "rep": None,
+        "table": make_overlay_table(like["window"], _KR, _KK,
+                                    device=like["rep"].device),
+        "window": like["window"],
+        "n": 0,
+        "n_chunks": like["n_chunks"],
+        "batch": tuple(np.zeros((0,) + a.shape[1:], np.int32)
+                       for a in like["batch"]),
+        "msns": np.zeros(like["n_chunks"], np.int32),
+        "log_cap": like["log_cap"],
+    }
+
+
+def run_rounds(jobs: List[dict], plane=None) -> List[dict]:
     """Execute fold-round jobs (`OverlayFoldReplica.build_round`): each
     window group is stacked (`stack_jobs`) and run as ONE docs-form
-    `replay_fused` call, one kernel launch and one fold per chunk for
-    all its documents. One read of the counts and one of the used log
-    rows per group; the outputs unstack into each replica.
+    `replay_fused` call, one launch of kernel A and one of the fold
+    kernel per chunk for all its documents. With `plane` (a
+    `parallel.device_plane.DevicePlane`) the group is padded with empty
+    dummy jobs to a multiple of the plane's size and laid over
+    `plane.fold_sharding()` by `parallel.mesh.sharded_overlay_replay_multi`:
+    the docs-form replay of each entry's slab, the entries interleaved
+    chunk by chunk on their own streams. One read of the counts and one of the used log rows per
+    group; the outputs unstack into each real replica.
 
-    Returns one summary per group: ``{"window", "docs", "chunks",
+    Returns one summary per group: ``{"window", "docs" (the real
+    documents), "entries" (1, or the plane's size), "chunks",
     "device_ms"}``, where ``device_ms`` is the CUDA-event time from the
-    group's first launch to its last op (None on the CPU)."""
+    group's first launch (its placement included) to its last op (None
+    on the CPU)."""
+    mesh = plane.fold_sharding() if plane is not None else None
     summary = []
     for window, grp in group_jobs(jobs).items():
+        real = len(grp)
+        if mesh is not None:
+            while len(grp) % mesh.size:
+                grp.append(_dummy_job(grp[0]))
         tables, ops, logs, counts, msns = stack_jobs(grp)
         timed = tables.device.type == "cuda"
         if timed:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
-        out_tables, out_logs, out_counts, _cursors = replay_fused(
-            tables, ops, logs, counts, msns, _CHUNK)
+        if mesh is None:
+            out_tables, out_logs, out_counts, _cursors = replay_fused(
+                tables, ops, logs, counts, msns, _CHUNK)
+        else:
+            out_tables, out_logs, out_counts = sharded_overlay_replay_multi(
+                mesh, _CHUNK)(tables, ops, logs, counts, msns)[:3]
         if timed:
             ev1.record()
         counts_h = out_counts.cpu().numpy()
         used = int(counts_h.sum(1).max())
         logs_h = out_logs[:, :used].cpu().numpy()
-        for d, j in enumerate(grp):
+        for d, j in enumerate(grp[:real]):
             j["rep"].apply_round(out_tables.doc(d), logs_h[d], counts_h[d])
         summary.append({
-            "window": window, "docs": len(grp), "chunks": msns.shape[0],
+            "window": window, "docs": real,
+            "entries": 1 if mesh is None else mesh.size,
+            "chunks": msns.shape[0],
             "device_ms": ev0.elapsed_time(ev1) if timed else None,
         })
     return summary
 
 
-def fold_jobs_overlay(jobs: List[Tuple[Any, list]]) -> List[dict]:
+def fold_jobs_overlay(jobs: List[Tuple[Any, list]],
+                      plane=None) -> List[dict]:
     """Drain the pending encoded rows of several overlay replicas (the
     kernel backend's `summarizer._fold_jobs` twin): replicas that share
     a window stack into one docs-form replay, so K summarizing
-    documents of one window cost one kernel launch per chunk, not K.
-    `jobs` holds ``(replica, records)`` pairs, as the role passes them.
-    Returns the per-group summaries of `run_rounds` (empty when nothing
-    was pending)."""
+    documents of one window cost one launch of each kernel per chunk,
+    not K; with `plane` the stack is laid over the plane's entries
+    (`run_rounds`). `jobs` holds ``(replica, records)`` pairs, as the
+    role passes them. Returns the per-group summaries of `run_rounds`
+    (empty when nothing was pending)."""
     round_jobs: List[dict] = []
     for rep, _take in jobs:
         job = rep.build_round()
         if job is not None:
             round_jobs.append(job)
-    return run_rounds(round_jobs) if round_jobs else []
+    return run_rounds(round_jobs, plane) if round_jobs else []

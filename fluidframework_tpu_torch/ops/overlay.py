@@ -14,11 +14,16 @@ Per chunk of B sequenced ops:
    it runs `overlay_apply_chunk_ref`, the plain PyTorch version, one
    op at a time and vectorized over rows. No other device is taken,
    and a CUDA tensor never falls back to the plain version.
-2. `fold_device` settles rows under the chunk's MSN in plain tensor
-   ops and emits the fold records (the JAX package does this in XLA).
-3. `replay_chunk_step` appends the records to a preallocated log in
-   place. `replay_fused` runs every chunk in one Python loop with no
-   host sync inside it.
+2. `fold_device` settles rows under the chunk's MSN and emits the fold
+   records (the JAX package does this in XLA). On a CUDA tensor it
+   launches the hand-written kernel ``csrc/overlay_fold.cu`` (one block
+   per document); on a CPU tensor it runs `fold_device_ref`, the plain
+   PyTorch version in tensor ops.
+3. `replay_chunk_step` folds and appends the records to a preallocated
+   log in place (`fold_append`: the same kernel's append form, or
+   `fold_append_ref`), so a replay step is two launches on the card.
+   `replay_fused` runs every chunk in one Python loop with no host sync
+   inside it.
 
 Names, column layout (``[W]`` columns, ``rem_clients[W, KR]``,
 ``props[W, KK]``) and sentinels are those of the JAX package, so the
@@ -27,8 +32,8 @@ tests compare the two like with like. All state is int32.
 Each step also takes many documents at once (the docs form, the
 one-card counterpart of `parallel.mesh.sharded_overlay_replay_multi`):
 every table field with a leading ``[D]`` axis and ops of ``[D, B]``.
-A chunk of all D documents is one kernel launch (one block per
-document) and one fold.
+A chunk of all D documents is one launch of each kernel (one block per
+document).
 """
 
 from __future__ import annotations
@@ -683,13 +688,15 @@ def overlay_apply_chunk(table: OverlayTable, ops: OpBatch) -> OverlayTable:
 
 
 # ----------------------------------------------------------------------
-# Fold and replay.
+# The fold: its plain PyTorch version, its CUDA kernel's wrapper, and the
+# dispatchers that pick one by device.
 
 
-def fold_device(table: OverlayTable, msn) -> Tuple[
+def fold_device_ref(table: OverlayTable, msn) -> Tuple[
         OverlayTable, torch.Tensor, torch.Tensor]:
-    """Settle-merge under applied MSN `msn` (overlay_ref.fold; the
-    zamboni role), in tensor ops with no host sync.
+    """The plain PyTorch version of the fold kernel: settle-merge under
+    applied MSN `msn` (overlay_ref.fold; the zamboni role), in tensor ops
+    with no host sync. `fold_device` runs it on CPU tables.
 
     Returns ``(table', records, n_rec)``: one stable partition packs
     surviving rows to the front (re-anchored) and the folding rows to
@@ -700,8 +707,8 @@ def fold_device(table: OverlayTable, msn) -> Tuple[
 
     Docs form: a stacked table (leading ``[D]`` axis) and `msn` of
     ``[D]`` fold every document in the same tensor ops (scans along
-    the rows, a batched partition and rotate), so the launches do not
-    grow with D; records are then ``[D, W, 5+KK]`` and n_rec ``[D]``."""
+    the rows, a batched partition and rotate); records are then
+    ``[D, W, 5+KK]`` and n_rec ``[D]``."""
     W = table.length.shape[-1]
     KR = table.rem_clients.shape[-1]
     KK = table.props.shape[-1]
@@ -773,6 +780,221 @@ def fold_device(table: OverlayTable, msn) -> Tuple[
     return out, records, n_rec
 
 
+def fold_append_ref(table: OverlayTable, msn, log: torch.Tensor,
+                    counts: torch.Tensor, cursor: torch.Tensor,
+                    epoch: int) -> Tuple[OverlayTable, torch.Tensor]:
+    """The plain PyTorch version of the fold kernel's append form: the
+    fold (`fold_device_ref`), then the log step of a replay chunk
+    (`_chunk_step_body`'s): the whole ``[W, 5+KK]`` record block into
+    `log` at `cursor` (clamped so that it fits), ``counts[..., epoch] =
+    n_rec``. `log` and `counts` are updated in place; returns ``(table',
+    cursor + n_rec)``."""
+    table, records, n_rec = fold_device_ref(table, msn)
+    W = records.shape[-2]
+    if log.shape[-2] < W:
+        raise ValueError(f"fold log of {log.shape[-2]} rows < window {W}")
+    # lax.dynamic_update_slice clamps the start so the block fits.
+    start = torch.clamp(cursor, 0, log.shape[-2] - W).to(torch.int64)
+    rows = start[..., None] + torch.arange(W, dtype=torch.int64,
+                                           device=log.device)
+    log.scatter_(-2, rows[..., None].expand(records.shape), records)
+    counts.select(-1, epoch).copy_(n_rec)
+    return table, cursor + n_rec
+
+
+class OverlayFoldKernel:
+    """Launches ``csrc/overlay_fold.cu``: the fold of one document's
+    table (``[W]`` columns) or a stack of D documents (a leading
+    ``[D]`` axis on every field), one launch of one block per document.
+
+    Replaces the XLA functions `fold_device`
+    (fluidframework_tpu/ops/overlay_pallas.py:703) and, in its append
+    form, `fold_device` with the log step of `_chunk_step_body` (:836).
+    ``launches`` counts the kernel launches this wrapper made; it is
+    incremented where the kernel is launched and nowhere else. The
+    wrapper checks device, dtype, shape and contiguity, allocates the
+    output table (and the records, or the new cursor), launches on
+    PyTorch's current stream without synchronising, and raises if the
+    launch was refused: there is no fallback. The input table is never
+    written; the append form writes `log` and `counts` in place. The MSN
+    is an int (passed by value) or an int32 tensor on the table's device
+    of one int or ``[D]`` (read by the kernel: no host sync)."""
+
+    name = "overlay_fold"
+    source = "fluidframework_tpu_torch/csrc/overlay_fold.cu"
+    replaces = "fluidframework_tpu/ops/overlay_pallas.py:703"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fn = None
+
+    @staticmethod
+    def bind(lib: ctypes.CDLL):
+        """The C entry of a loaded kernel library, typed."""
+        fn = lib.overlay_fold_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 13 + [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        return fn
+
+    def _entry(self):
+        if self._fn is None:
+            self._fn = self.bind(_build.load(self.name))
+        return self._fn
+
+    @staticmethod
+    def args(table: OverlayTable, msn, log: Optional[torch.Tensor] = None,
+             counts: Optional[torch.Tensor] = None,
+             cursor: Optional[torch.Tensor] = None, epoch: int = 0,
+             empty=torch.empty):
+        """The launch of one call on `table`'s device, whatever it is:
+        ``(ints, tensors, result)`` for the C entry (``ints`` after the
+        device index, ``tensors`` the 27 pointers' tensors, None for a
+        null) and what the call returns, ``(table', records, n_rec)``,
+        or ``(table', cursor')`` when `log` is given (the append form).
+        Outputs and the kernel's scratch (5 W ints a document: its
+        row maps) are made by `empty` (the host emulation fills them
+        with garbage). Raises ValueError on what the kernel does not
+        take."""
+        dev = table.length.device
+        lead = _doc_shape(table)
+        D = lead[0] if lead else 1
+        W = table.length.shape[-1]
+        KR = table.rem_clients.shape[-1]
+        KK = table.props.shape[-1]
+        ins = [table.n_rows, table.settled_len, table.anchor,
+               table.buf_start, table.length, table.ins_seq,
+               table.ins_client, table.rem_seq, table.rem_clients,
+               table.props]
+        shapes = ([lead] * 2 + [lead + (W,)] * 6
+                  + [lead + (W, KR), lead + (W, KK)])
+        for t, shape in zip(ins, shapes):
+            if t.device != dev or t.dtype != I32:
+                raise ValueError(
+                    "overlay fold kernel inputs must be int32 tensors on "
+                    f"{dev}; got {t.dtype} on {t.device}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"overlay fold kernel: shape "
+                                 f"{tuple(t.shape)} where {shape} was "
+                                 "expected")
+        ins = [t.contiguous() for t in ins]
+        if isinstance(msn, torch.Tensor):
+            if (msn.device != dev or msn.dtype != I32
+                    or msn.numel() not in (1, D)):
+                raise ValueError(
+                    f"overlay fold kernel: msn must be an int or int32 of "
+                    f"one or {D} ints on {dev}")
+            msn_t, msn_v, msn_stride = msn.contiguous(), 0, int(
+                msn.numel() > 1)
+        else:
+            msn_t, msn_v, msn_stride = None, _i32(int(msn)), 0
+        out = OverlayTable(
+            n_rows=empty(lead, dtype=I32, device=dev),
+            anchor=empty((*lead, W), dtype=I32, device=dev),
+            buf_start=empty((*lead, W), dtype=I32, device=dev),
+            length=empty((*lead, W), dtype=I32, device=dev),
+            ins_seq=empty((*lead, W), dtype=I32, device=dev),
+            ins_client=empty((*lead, W), dtype=I32, device=dev),
+            rem_seq=empty((*lead, W), dtype=I32, device=dev),
+            rem_clients=empty((*lead, W, KR), dtype=I32, device=dev),
+            props=empty((*lead, W, KK), dtype=I32, device=dev),
+            settled_len=empty(lead, dtype=I32, device=dev),
+            error=table.error,
+        )
+        outs = [out.n_rows, out.settled_len, out.anchor, out.buf_start,
+                out.length, out.ins_seq, out.ins_client, out.rem_seq,
+                out.rem_clients, out.props]
+        scratch = empty((D, 5 * W), dtype=I32, device=dev)
+        if log is None:
+            records = empty((*lead, W, 5 + KK), dtype=I32, device=dev)
+            n_rec = empty(lead, dtype=I32, device=dev)
+            return ((D, W, KR, KK, msn_v, msn_stride, 0, 0, 0, 0, 0),
+                    ins + [msn_t] + outs + [records, n_rec, None, None, None,
+                                            scratch],
+                    (out, records, n_rec))
+        cap = log.shape[-2]
+        if cap < W:
+            raise ValueError(f"fold log of {cap} rows < window {W}")
+        n_epochs = counts.shape[-1]
+        if not 0 <= epoch < n_epochs:
+            raise IndexError(f"epoch {epoch} out of range for counts of "
+                             f"{n_epochs} epochs")
+        for name, t, shape in (("log", log, lead + (cap, 5 + KK)),
+                               ("counts", counts, lead + (n_epochs,))):
+            if (t.device != dev or t.dtype != I32
+                    or tuple(t.shape) != shape or not t.is_contiguous()):
+                raise ValueError(
+                    f"overlay fold kernel: {name} must be a contiguous "
+                    f"int32 tensor of shape {shape} on {dev}")
+        if (not isinstance(cursor, torch.Tensor) or cursor.device != dev
+                or cursor.dtype != I32 or cursor.numel() not in (1, D)):
+            raise ValueError(f"overlay fold kernel: cursor must be int32 of "
+                             f"one or {D} ints on {dev}")
+        new_cursor = empty(lead, dtype=I32, device=dev)
+        return ((D, W, KR, KK, msn_v, msn_stride, 1, cap, n_epochs, epoch,
+                 int(cursor.numel() > 1)),
+                ins + [msn_t] + outs + [log, None, cursor.contiguous(),
+                                        new_cursor, counts, scratch],
+                (out, new_cursor))
+
+    def _launch(self, table: OverlayTable, *args):
+        dev = table.length.device
+        if dev.type != "cuda":
+            raise ValueError(
+                f"the overlay fold CUDA kernel needs CUDA tensors, got {dev}")
+        ints, tensors, result = self.args(table, *args)
+        _build.launch(self.name, self._entry(), dev, ints, tensors)
+        self.launches += 1
+        return result
+
+    def __call__(self, table: OverlayTable, msn) -> Tuple[
+            OverlayTable, torch.Tensor, torch.Tensor]:
+        """The fold of `table` under `msn`: ``(table', records,
+        n_rec)``, as `fold_device_ref` returns them."""
+        return self._launch(table, msn)
+
+    def append(self, table: OverlayTable, msn, log: torch.Tensor,
+               counts: torch.Tensor, cursor: torch.Tensor,
+               epoch: int) -> Tuple[OverlayTable, torch.Tensor]:
+        """The fold and the log append of one replay step: ``(table',
+        cursor')``, `log` and `counts` written in place, as
+        `fold_append_ref` does."""
+        return self._launch(table, msn, log, counts, cursor, epoch)
+
+
+overlay_fold_kernel = OverlayFoldKernel()
+
+
+def fold_device(table: OverlayTable, msn) -> Tuple[
+        OverlayTable, torch.Tensor, torch.Tensor]:
+    """Settle-merge under applied MSN `msn`: ``(table', records,
+    n_rec)`` (see `fold_device_ref`), one document or a stack of D. A
+    CUDA table goes to the hand-written kernel (`OverlayFoldKernel`, one
+    launch, or it raises); a CPU table to the plain version. Same
+    result as the JAX `fold_device`."""
+    kind = table.length.device.type
+    if kind == "cuda":
+        return overlay_fold_kernel(table, msn)
+    if kind == "cpu":
+        return fold_device_ref(table, msn)
+    raise ValueError(f"fold_device: unsupported device {kind}")
+
+
+def fold_append(table: OverlayTable, msn, log: torch.Tensor,
+                counts: torch.Tensor, cursor: torch.Tensor,
+                epoch: int) -> Tuple[OverlayTable, torch.Tensor]:
+    """The fold and the log append of one replay step (see
+    `fold_append_ref`): a CUDA table goes to the kernel's append form
+    (one launch, or it raises), a CPU table to the plain version."""
+    kind = table.length.device.type
+    if kind == "cuda":
+        return overlay_fold_kernel.append(table, msn, log, counts, cursor,
+                                          epoch)
+    if kind == "cpu":
+        return fold_append_ref(table, msn, log, counts, cursor, epoch)
+    raise ValueError(f"fold_append: unsupported device {kind}")
+
+
 def _chunk_ops(table: OverlayTable, stream_ops: OpBatch, lo: int,
                chunk: int) -> OpBatch:
     """Ops ``[lo, lo+chunk)`` of the stream (views). Docs form (a
@@ -789,28 +1011,20 @@ def replay_chunk_step(
     epoch: int,
 ):
     """One replay step: ops ``[lo, lo+chunk)`` through the chunk kernel,
-    the fold at the chunk boundary, and the append of the fold records
-    to the log at ``cursor``. ``log`` and ``counts`` are updated IN
-    PLACE (the JAX version donates them). No host sync.
+    then the fold at the chunk boundary with the append of its records
+    to the log at ``cursor`` (`fold_append`). ``log`` and ``counts`` are
+    updated IN PLACE (the JAX version donates them). No host sync; on
+    the card two launches, kernel A and the fold.
 
     Returns ``(table', log, counts, cursor')``; ``counts[epoch]`` holds
     this epoch's record count. Docs form: a stacked table, stream ops
     ``[n_chunks, D, B]`` (`lo` a multiple of `chunk`), `msn` ``[D]``,
     log ``[D, cap, 5+KK]``, counts ``[D, n_chunks]`` and cursor
-    ``[D]``: one kernel launch and one fold for all documents."""
+    ``[D]``: one launch of each kernel for all documents."""
     table = overlay_apply_chunk(table, _chunk_ops(table, stream_ops, lo,
                                                   chunk))
-    table, records, n_rec = fold_device(table, msn)
-    W = records.shape[-2]
-    if log.shape[-2] < W:
-        raise ValueError(f"fold log of {log.shape[-2]} rows < window {W}")
-    # lax.dynamic_update_slice clamps the start so the block fits.
-    start = torch.clamp(cursor, 0, log.shape[-2] - W).to(torch.int64)
-    rows = start[..., None] + torch.arange(W, dtype=torch.int64,
-                                           device=log.device)
-    log.scatter_(-2, rows[..., None].expand(records.shape), records)
-    counts.select(-1, epoch).copy_(n_rec)
-    return table, log, counts, cursor + n_rec
+    table, cursor = fold_append(table, msn, log, counts, cursor, epoch)
+    return table, log, counts, cursor
 
 
 def replay_fused(
@@ -820,7 +1034,7 @@ def replay_fused(
 ):
     """The whole replay: every chunk of `stream_ops` through
     `replay_chunk_step`, in one Python loop with no host sync inside
-    it (one kernel launch per chunk, the fold's tensor ops around it).
+    it (on the card two launches a chunk: kernel A and the fold).
 
     `msn_by_chunk[ci]` is the applied MSN at chunk ci's end. `epoch0`
     numbers the first chunk globally, and the log cursor resumes where

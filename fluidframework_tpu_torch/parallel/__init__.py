@@ -26,6 +26,7 @@ from .mesh import (
     make_docs_mesh,
     shard_tables,
     shared_docs_mesh,
+    sharded_apply_docs,
     sharded_overlay_replay,
     sharded_overlay_replay_multi,
     sharded_pipeline_step,
@@ -48,6 +49,7 @@ __all__ = [
     "shard_tables",
     "shared_docs_mesh",
     "shared_plane",
+    "sharded_apply_docs",
     "sharded_overlay_replay",
     "sharded_overlay_replay_multi",
     "sharded_pipeline_step",

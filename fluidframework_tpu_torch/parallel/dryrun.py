@@ -77,10 +77,11 @@ class _Launches:
 
     def __init__(self):
         from ..ops.mergetree_scan import mergetree_scan_kernel
-        from ..ops.overlay import overlay_chunk_kernel
+        from ..ops.overlay import overlay_chunk_kernel, overlay_fold_kernel
         from ..ops.sequencer_kernel import sequencer_step_kernel
 
         self.kernels = {"overlay_chunk": overlay_chunk_kernel,
+                        "overlay_fold": overlay_fold_kernel,
                         "sequencer_step": sequencer_step_kernel,
                         "mergetree_scan": mergetree_scan_kernel}
         self.counts = dict.fromkeys(self.kernels, 0)

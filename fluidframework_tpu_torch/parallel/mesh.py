@@ -25,10 +25,9 @@ entry itself:
   first entry. A docs axis that is not a multiple of the size raises,
   as ``shard_map`` does.
 - each CUDA entry works on a CUDA stream of its own, so that N
-  entries on one card may overlap as N cards do. On an H100 they do
-  not yet: the host enqueues an entry's chunk more slowly than the
-  card runs it, so each entry's kernels end before the next entry's
-  are queued. `DocsMesh.parallel` makes every
+  entries on one card overlap as N cards do (on an H100 nearly all the
+  kernel time of 4 entries runs beside another entry's, now that a
+  replay chunk is two launches an entry: PERF.md section 5). `DocsMesh.parallel` makes every
   entry's stream wait for the caller's stream on entry and the
   caller's streams wait for every entry's on exit, and entry work runs
   only inside it (`DocsMesh.on`): a tensor made on one stream is read
@@ -314,28 +313,40 @@ def sharded_overlay_replay_multi(mesh: DocsMesh, chunk: int):
     return step
 
 
-def sharded_pipeline_step(mesh: DocsMesh):
-    """One multi-document tick of the row model over the mesh.
+def sharded_apply_docs(mesh: DocsMesh):
+    """`apply_op_batch_docs` over the mesh.
 
-    Returns ``step(tables, ops, doc_min_seqs) -> (tables, global_min_seq,
-    error)``: each entry applies its documents' chunks with
-    `ops.mergetree_kernel.apply_op_batch_docs` (one launch of the scan
+    Returns ``step(tables, ops) -> tables``: each entry applies its
+    slab of documents' chunks on its own stream (one launch of the scan
     kernel, ``csrc/mergetree_scan.cu``, per entry on the card; the plain
-    version on the CPU), then the fleet reduces the min of
-    `doc_min_seqs` and the per-bit OR of the error words. Tables and
-    ops carry a leading docs axis, a multiple of ``mesh.size``."""
+    version on the CPU); the outputs are gathered on the first entry.
+    Tables and ops carry a leading docs axis, a multiple of
+    ``mesh.size``."""
 
-    def step(tables, ops, doc_min_seqs):
+    def step(tables, ops):
         t_s = mesh.shard(tables)
         o_s = mesh.shard(ops)
-        m_s = mesh.shard(doc_min_seqs)
-        outs, mins = [], []
+        outs = []
         with mesh.parallel():
             for i in range(mesh.size):
                 with mesh.on(i):
                     outs.append(apply_op_batch_docs(t_s[i], o_s[i]))
-                    mins.append(torch.min(m_s[i]))
-        return (mesh.gather(outs), collectives.pmin(mins),
-                collectives.por([o.error for o in outs]))
+        return mesh.gather(outs)
+
+    return step
+
+
+def sharded_pipeline_step(mesh: DocsMesh):
+    """One multi-document tick of the row model over the mesh.
+
+    Returns ``step(tables, ops, doc_min_seqs) -> (tables, global_min_seq,
+    error)``: `sharded_apply_docs`, then the fleet reduces the min of
+    `doc_min_seqs` and the per-bit OR of the error words."""
+    apply = sharded_apply_docs(mesh)
+
+    def step(tables, ops, doc_min_seqs):
+        out = apply(tables, ops)
+        mins = [torch.min(m) for m in mesh.shard(doc_min_seqs)]
+        return out, collectives.pmin(mins), collectives.por([out.error])
 
     return step

@@ -8,9 +8,10 @@ Copied from fluidframework_tpu/server/deli_kernel.py: `_pow2` (:96),
 `_FlatResults` (:654), `PackedDeliCore` (:672-841), `KernelDeliLambda`
 (:849-1030), `_ScalarEmit` (:1043-1120) and `KernelDeliRole`
 (:1122-1639), with the pool's, core's and role's ``utils.metrics``
-instruments. Left out: the farm wiring around the role (the other
-roles, the supervisor and its ``--deli-devices`` / ``--device-plane``
-child seams: ROADMAP.md Queue 1 items 3 and 4).
+instruments. The supervisor's ``--deli-devices`` / ``--device-plane``
+child seams reach the role through `supervisor.serve_role`. Left out:
+the farm wiring around the role (the other roles and
+`ServiceSupervisor`: ROADMAP.md Queue 1 item 4).
 
 The scalar deli tickets one raw record at a time through a per-document
 `DocumentSequencer`. Here a pump drains the raw topic in micro-batches,

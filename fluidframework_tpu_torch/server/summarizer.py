@@ -31,9 +31,15 @@ Differences from the reference, each loud:
   its plain version on the CPU; ``kernel`` the scan kernel, likewise.
   ``FLUID_FOLD_INTERPRET`` and ``fold_interpret`` are not read, and
   ``summary_fold_backend_fallbacks_total`` stays registered at 0.
-- **No device plane.** ``device_plane=`` and ``FLUID_DEVICE_PLANE``
-  raise ValueError: the multi-device layer is ROADMAP.md Queue 1 item
-  3. ``summary_plane_folds_total`` stays registered at 0.
+- **The device plane** (``device_plane=``, else ``FLUID_DEVICE_PLANE``,
+  resolved at the first fold as the reference resolves it) is a
+  `parallel.device_plane.DevicePlane` of entries of the role's device:
+  the overlay backend lays each stacked round over every entry, the
+  kernel backend over the plane's ``docs`` axis, each document's table
+  whole on its entry (the reference also splits a table's rows over
+  ``model``: that waits for a row-split scan, ROADMAP.md Queue 1 item
+  3). Every fold over a plane counts in ``summary_plane_folds_total``;
+  the bytes are those of a run without one.
 - **The device** is an argument (``device=``, ``cuda`` when None; an
   explicit ``"cpu"`` runs the plain versions), for the role and for
   every `SummaryReplica`.
@@ -56,6 +62,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from ..parallel.device_plane import PLANE_ENV, resolve_plane
 from ..testing.digest import char_spans
 from ..utils.devices import DeviceLike, resolve_device
 from .castore import ContentAddressedStore
@@ -99,12 +106,6 @@ SUMMARY_OPS_ENV = "FLUID_SUMMARY_OPS"
 # order and default ("kernel"; `SummaryFolder` defaults to "overlay").
 FOLD_BACKEND_ENV = "FLUID_FOLD_BACKEND"
 FOLD_BACKENDS = ("kernel", "overlay")
-# The reference's device-plane env (`parallel.device_plane.PLANE_ENV`):
-# refused here, never ignored.
-PLANE_ENV = "FLUID_DEVICE_PLANE"
-
-_NO_PLANE = ("is the multi-device layer, ROADMAP.md Queue 1 item 3; the "
-             "port's summarizer runs on one device (device=)")
 
 
 def _summary_ops_default() -> int:
@@ -183,12 +184,6 @@ class SummarizerRole(SummaryEmitter, _Role):
                  store=None, historian_budget: int = 64 * 1024 * 1024,
                  fold_backend: Optional[str] = None, device_plane=None,
                  device: DeviceLike = None, **kw):
-        if device_plane is not None:
-            raise ValueError(f"SummarizerRole(device_plane=...) "
-                             f"{_NO_PLANE}")
-        if os.environ.get(PLANE_ENV, "").strip():
-            raise ValueError(f"{PLANE_ENV}="
-                             f"{os.environ[PLANE_ENV]!r} {_NO_PLANE}")
         backend = fold_backend or _fold_backend_default()
         if backend not in FOLD_BACKENDS:
             raise ValueError(
@@ -208,20 +203,50 @@ class SummarizerRole(SummaryEmitter, _Role):
         )
         m = self.metrics
         self._m_build_ms = m.histogram("summary_build_ms", **labels)
-        # The reference's instruments for its fallback and its device
-        # plane: registered, and 0 here (the port has neither).
+        # The reference's instrument for its backend fallback:
+        # registered, and 0 here (the port has none).
         self._m_backend_fallbacks = m.counter(
             "summary_fold_backend_fallbacks_total", **labels
         )
         self._m_plane_folds = m.counter("summary_plane_folds_total",
                                         **labels)
         m.gauge("summary_fold_backend", backend=backend, **labels).set(1)
+        # The device plane: a spec or a DevicePlane, resolved at the
+        # first fold (None falls back to PLANE_ENV then).
+        self._plane_arg = device_plane
+        self._plane_resolved = False
+        self._plane = None
         self._pinned = False
         self._pin_t = self._pin_hb = 0.0
 
     def fold_backend(self) -> str:
         """The fold backend: the one asked for, always."""
         return self._backend
+
+    def device_plane(self):
+        """The farm's device plane (None when unconfigured): the
+        explicit argument wins, else ``FLUID_DEVICE_PLANE`` (the
+        supervisor's ``--device-plane`` child seam). A spec resolves to
+        the process-wide plane of entries of the role's device; a plane
+        on another kind of device raises ValueError."""
+        if not self._plane_resolved:
+            plane = resolve_plane(self._plane_arg, env=True,
+                                  device=self.device)
+            if plane is not None and plane.entries[0].type != \
+                    self.device.type:
+                raise ValueError(
+                    f"device plane {plane.spec()} has "
+                    f"{plane.entries[0].type} entries; the role runs on "
+                    f"{self.device}")
+            self._plane = plane
+            self._plane_resolved = True
+        return self._plane
+
+    def _dispatch_fold(self, fold_jobs):
+        plane = self.device_plane()
+        if plane is not None:
+            self._m_plane_folds.inc()
+        return super()._dispatch_fold(fold_jobs, plane)
 
     # ------------------------------------------------------------ state
 

@@ -14,8 +14,14 @@ fold backends, with byte-identical blobs by contract:
 - ``kernel`` (the role's default): the row-model `KernelReplica`
   (`_boot_mergetree`), its documents grouped by (capacity, chunk) and
   each group's chunk of every document applied by one launch of the
-  scan kernel (`_fold_jobs`), serialized by `_canonical_rows`. The
-  reference's ``plane=`` placement over a device mesh is not ported.
+  scan kernel (`_fold_jobs`), serialized by `_canonical_rows`.
+
+Both take the reference's ``plane=`` placement over a device plane
+(`parallel.device_plane.DevicePlane`): the overlay backend lays a
+window group over every entry (`core.overlay_fold.run_rounds`), the
+kernel backend a capacity group's documents over the plane's ``docs``
+axis (`_place_fold_stack`). A plane changes where documents run, never
+a byte of what they produce.
 
 `SummaryEmitter` holds the emission logic once: the engine decision,
 the triggers, the round grouping, the fold dispatch, the freeze and
@@ -72,6 +78,7 @@ from ..ops.mergetree_kernel import (
     raise_kernel_errors,
     stack_segment_tables,
 )
+from ..parallel.mesh import sharded_apply_docs
 from ..protocol.constants import NO_CLIENT, UNIVERSAL_SEQ
 from ..protocol.mergetree_ops import op_from_json
 from ..protocol.messages import MessageType, SequencedMessage
@@ -145,20 +152,38 @@ def _boot_mergetree(rows: List[list], msn: int,
     return rep
 
 
-def _fold_jobs(jobs: List[tuple]) -> List[dict]:
+def _place_fold_stack(K: int, capacity: int, plane):
+    """The mesh a stacked kernel fold of K documents at `capacity` is
+    laid over: the plane's ``docs`` axis (the entries of model column
+    0), or None (no placement) unless ``K % plane.docs == 0`` and
+    ``capacity % plane.model == 0``, the reference's condition
+    (summarizer.py:274). The reference also splits each table's rows
+    over ``model``; the port's scan kernel takes whole tables, so each
+    document's table stays whole on its entry until a row-split scan
+    exists (ROADMAP.md Queue 1 item 3)."""
+    if K % plane.docs or capacity % plane.model:
+        return None
+    return plane.seq_mesh(0)
+
+
+def _fold_jobs(jobs: List[tuple], plane=None) -> List[dict]:
     """Drain the pending encoded rows of several `KernelReplica`s
     through the scan, stacking the replicas of one (capacity, chunk)
     into one launch of the docs-form kernel per chunk: K summarizing
     documents cost one launch per chunk and group, not K. `jobs` holds
     ``(replica, records)`` pairs, as the role passes them. After each
     chunk a replica past its watermark compacts, as
-    `KernelReplica._flush_chunks` does.
+    `KernelReplica._flush_chunks` does. With `plane` (a `DevicePlane`)
+    a stacked group's documents are laid over the plane's ``docs`` axis
+    where `_place_fold_stack` allows it: one launch per entry and chunk.
 
     Returns one summary per capacity group: ``{"capacity", "docs"
     (the most documents of one launch), "chunks" (the group's
-    launches), "device_ms"}``, where ``device_ms`` sums CUDA-event
-    spans around the group's launches alone, after the tables are
-    stacked and the ops uploaded (None on the CPU)."""
+    steps), "launches" (its scan launches, one an entry of a placed
+    step), "device_ms"}``, where ``device_ms`` sums CUDA-event spans
+    around the group's launches alone (a placed step's placement and
+    gather included), after the tables are stacked and the ops
+    uploaded (None on the CPU)."""
     reps = [rep for rep, _ in jobs]
     summary: Dict[int, dict] = {}
     timed = bool(reps) and reps[0].device.type == "cuda"
@@ -176,9 +201,11 @@ def _fold_jobs(jobs: List[tuple]) -> List[dict]:
                 chunks.append(r._encoded[:chunk_b])
                 del r._encoded[:chunk_b]
             g = summary.setdefault(cap, {"capacity": cap, "docs": 0,
-                                         "chunks": 0, "device_ms": None})
+                                         "chunks": 0, "launches": 0,
+                                         "device_ms": None})
             g["docs"] = max(g["docs"], len(grp))
             g["chunks"] += 1
+            mesh = None
             if len(grp) == 1:
                 tables = grp[0].table
                 ops = grp[0]._build_batch(chunks[0])
@@ -190,6 +217,11 @@ def _fold_jobs(jobs: List[tuple]) -> List[dict]:
                 tables = stack_segment_tables([r.table for r in grp])
                 ops = upload_op_batch(cols, grp[0].device)
                 apply = apply_op_batch_docs
+                if plane is not None:
+                    mesh = _place_fold_stack(len(grp), cap, plane)
+                if mesh is not None:
+                    apply = sharded_apply_docs(mesh)
+            g["launches"] += 1 if mesh is None else mesh.size
             if timed:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
@@ -357,13 +389,14 @@ class SummaryEmitter:
             return rep.canonical_rows(msn)
         return _canonical_rows(rep, msn)
 
-    def _dispatch_fold(self, fold_jobs: List[Tuple[Any, list]]
-                       ) -> List[dict]:
-        """Fold a round's jobs on the backend; its groups' summaries
-        (`_fold_jobs` / `fold_jobs_overlay`: launches and device ms)."""
+    def _dispatch_fold(self, fold_jobs: List[Tuple[Any, list]],
+                       plane=None) -> List[dict]:
+        """Fold a round's jobs on the backend, over `plane` if given;
+        its groups' summaries (`_fold_jobs` / `fold_jobs_overlay`:
+        launches and device ms)."""
         if self._backend == "overlay":
-            return fold_jobs_overlay(fold_jobs)
-        return _fold_jobs(fold_jobs)
+            return fold_jobs_overlay(fold_jobs, plane)
+        return _fold_jobs(fold_jobs, plane)
 
     def _take(self, rec: Any, line_idx: Optional[int],
               byte_off: Optional[int]) -> None:

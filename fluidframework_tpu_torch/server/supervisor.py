@@ -10,11 +10,12 @@ and `serve_role` (:1323) and `main` (:1964) cut to the two roles the
 port has: ``--role deli --impl kernel`` (`deli_kernel.KernelDeliRole`)
 and ``--role summarizer`` (`summarizer.SummarizerRole`, with
 ``--summary-ops`` and ``--fold-backend kernel|overlay``), each with a
-new ``--device`` (default ``cuda``). Every other role, the scalar
-deli, and the child seams ``--deli-devices`` and ``--device-plane``
-(which `KernelDeliRole` takes in process) are refused with a
-ValueError that names the ROADMAP.md item that ports them.
-`ServiceSupervisor` is not copied.
+new ``--device`` (default ``cuda``), and the device seams
+``--deli-devices`` (the kernel deli) and ``--device-plane`` (the kernel
+deli and the summarizer), checked as the reference checks them. Every
+other role and the scalar deli are refused with a ValueError that
+names the ROADMAP.md item that ports them. `ServiceSupervisor` is not
+copied.
 
 A role holds a FENCED lease on its name (`queue.LeaseManager`), renews
 it while alive and writes a liveness heartbeat each step. Every output
@@ -687,17 +688,12 @@ def partitioned_role_class(base: type, partition: int) -> type:
         attrs["bc_topic_name"] = partition_suffix(base.bc_topic_name, p)
     return type(f"{base.__name__}P{p}", (base,), attrs)
 
-# Where the roles, impls and options that the port does not serve yet
-# are to be ported (ROADMAP.md Queue 1).
+# Where the roles and impls that the port does not serve yet are to be
+# ported (ROADMAP.md Queue 1).
 _NOT_PORTED_ROLE = (
     "the port serves only --role deli --impl kernel and --role "
     "summarizer; the other roles (scriptorium, scribe, broadcaster, "
     "ingress, retention) are ROADMAP.md Queue 1 item 4"
-)
-_NOT_PORTED_DEVICES = (
-    "is the supervisor's child seam for the multi-device layer, not "
-    "ported yet (ROADMAP.md Queue 1 item 3); in process, "
-    "KernelDeliRole(deli_devices=..., device_plane=...) takes it"
 )
 
 
@@ -718,35 +714,54 @@ def serve_role(shared_dir: str, role: str, owner: str,
     """Child-process entry: run the kernel deli or the summarizer until
     killed, deposed or fenced. With `partition`, the role serves that
     partition's topic pair under its partition-suffixed lease.
-    `summary_ops` and `fold_backend` ("kernel" | "overlay") are the
-    summarizer's cadence and fold engine (``FLUID_SUMMARY_OPS`` and
-    ``FLUID_FOLD_BACKEND`` are the process-wide forms). `device` is the
+    `deli_devices=N` splits the kernel deli's doc-slot pool over N mesh
+    entries of `device`; `device_plane` ("DOCSxMODEL",
+    `parallel.device_plane`) serves the kernel deli on the plane's docs
+    slice and lays the summarizer's folds over the plane (the two are
+    exclusive, as in the reference). `summary_ops` and `fold_backend`
+    ("kernel" | "overlay") are the summarizer's cadence and fold engine
+    (``FLUID_SUMMARY_OPS``, ``FLUID_FOLD_BACKEND`` and
+    ``FLUID_DEVICE_PLANE`` are the process-wide forms). `device` is the
     torch device the role's kernels run on (None: ``cuda``, which
-    raises where there is none). Raises ValueError for a role, impl or
-    option the port does not serve."""
-    if not (role == "summarizer"
-            or (role == "deli" and deli_impl == "kernel")):
+    raises where there is none). Raises ValueError for an option the
+    role does not take (the reference's checks, in its order) and for a
+    role or impl the port does not serve."""
+    if deli_devices is not None and deli_devices > 1 and (
+            role != "deli" or deli_impl != "kernel"):
         raise ValueError(
-            f"role={role!r} impl={deli_impl!r}: {_NOT_PORTED_ROLE}"
+            f"deli_devices={deli_devices} needs role=deli with "
+            f"deli_impl='kernel' (got role={role!r}, impl={deli_impl!r})"
         )
-    if deli_devices is not None:
-        raise ValueError(f"deli_devices={deli_devices} "
-                         f"{_NOT_PORTED_DEVICES}")
-    if device_plane is not None:
-        raise ValueError(f"device_plane={device_plane!r} "
-                         f"{_NOT_PORTED_DEVICES}")
+    if device_plane is not None and (
+            role not in ("deli", "summarizer")
+            or (role == "deli" and deli_impl != "kernel")):
+        raise ValueError(
+            f"device_plane={device_plane!r} serves the kernel deli "
+            f"and the summarizer (got role={role!r}, "
+            f"impl={deli_impl!r})"
+        )
     for knob, val in (("fold_backend", fold_backend),
                       ("summary_ops", summary_ops)):
         if val is not None and role != "summarizer":
             raise ValueError(f"{knob}={val!r} is a summarizer knob "
                              f"(got role={role!r})")
+    if not (role == "summarizer"
+            or (role == "deli" and deli_impl == "kernel")):
+        raise ValueError(
+            f"role={role!r} impl={deli_impl!r}: {_NOT_PORTED_ROLE}"
+        )
     kw: Dict[str, Any] = {}
+    if device_plane is not None:
+        kw["device_plane"] = device_plane
     if role == "deli":
         from .deli_kernel import KernelDeliRole as cls
+
+        if deli_devices is not None and deli_devices > 1:
+            kw["deli_devices"] = deli_devices
     else:
         from .summarizer import SummarizerRole as cls
 
-        kw = dict(summary_ops=summary_ops, fold_backend=fold_backend)
+        kw.update(summary_ops=summary_ops, fold_backend=fold_backend)
     if partition is not None:
         cls = partitioned_role_class(cls, partition)
     r = cls(
@@ -815,7 +830,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             "supervisor import main; main()\" --role deli|summarizer "
             "[--impl kernel] --dir D [--owner O] [--ttl S] [--batch N] "
             "[--log-format json|columnar] [--partition K] "
-            "[--device cuda|cpu] [--hb-interval S] "
+            "[--device cuda|cpu] [--deli-devices N] "
+            "[--device-plane DOCSxMODEL] [--hb-interval S] "
             "[--summary-ops N] [--fold-backend kernel|overlay] "
             "[--ckpt-interval S] [--ckpt-bytes N] [--ckpt-duty F]",
             file=sys.stderr,

@@ -83,15 +83,17 @@ def write_deltas(shared: str, records: List[dict], log_format: str,
 def drive_summarizer(shared: str, log_format: str, summary_ops: int,
                      batch: int = 4096, device=None,
                      fold_backend: str = "kernel",
-                     setup: Optional[Callable] = None) -> dict:
+                     setup: Optional[Callable] = None,
+                     device_plane=None) -> dict:
     """Run the summarizer ROLE datapath (deltas → summaries + blobs) to
     quiescence over an already written deltas topic: the fold/emit
     path the supervised child runs, minus lease upkeep (no
     checkpoints; manifests carry ``byteOff`` None, as the reference's
     `_drive_summarizer` leaves them). `setup(role)` runs before the
-    first read (instrumentation). Returns ``seconds``, ``poll_s`` (the
-    reads and their decode), ``records``, ``summaries``, the kernels'
-    ``launches`` and the ``role``."""
+    first read (instrumentation); `device_plane` is the role's.
+    Returns ``seconds``, ``poll_s`` (the reads and their decode),
+    ``records``, ``summaries``, the kernels' ``launches`` and the
+    ``role``."""
     from ..server.columnar_log import make_tail_reader, make_topic
     from ..server.summarizer import SummarizerRole
 
@@ -100,7 +102,8 @@ def drive_summarizer(shared: str, log_format: str, summary_ops: int,
     )
     role = SummarizerRole(shared, owner="bench-summ", ttl_s=3600.0,
                           log_format=log_format, summary_ops=summary_ops,
-                          fold_backend=fold_backend, device=device)
+                          fold_backend=fold_backend, device=device,
+                          device_plane=device_plane)
     role.fence = 1
     if setup is not None:
         setup(role)

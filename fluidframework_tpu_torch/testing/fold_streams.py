@@ -112,14 +112,16 @@ def golden_streams(golden: dict, n_docs: int) -> Dict[str, List[dict]]:
 
 
 def run_fold_sweep(streams: Dict[str, List[dict]], summary_ops: int,
-                   device, backend: str = "overlay") -> dict:
+                   device, backend: str = "overlay", plane=None) -> dict:
     """The emission loop of the reference's fold bench
     (`run_fold_backend_bench`, deli_bench.py:603-690) on one of the
     port's fold backends: for each slice of `summary_ops` records, every
     document boots from its last canonical rows, encodes the slice, all
     documents fold in one call (``overlay``: `fold_jobs_overlay`;
     ``kernel``: `summary_fold._fold_jobs`), and each one serializes its
-    canonical rows and reboots.
+    canonical rows and reboots. `plane` (a `DevicePlane`) lays each
+    round's stacked fold over its entries, as the role's
+    ``device_plane`` does.
 
     Returns ``digests`` (doc -> sha256 of each emission's rows, the
     bench's digest), ``seconds``, ``op_records`` (the merge-tree ops
@@ -182,7 +184,7 @@ def run_fold_sweep(streams: Dict[str, List[dict]], summary_ops: int,
             triggers.append((doc, rep, msn_run[doc]))
         pending = [(rep, len(rep._encoded)) for rep, _ in jobs]
         t1 = time.perf_counter()
-        groups = fold(jobs)
+        groups = fold(jobs, plane)
         t2 = time.perf_counter()
         steps = max((-(-n // rep.chunk_size) for rep, n in pending),
                     default=0)

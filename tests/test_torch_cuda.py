@@ -1275,3 +1275,137 @@ def test_cuda_seqshard_matches_cpu_entries(cuda):
     ref.replay()
     assert state_digest(got.annotated_spans()) == state_digest(
         ref.annotated_spans())
+
+
+# ---------------------------------------------------------------------------
+# the overlay fold kernel (csrc/overlay_fold.cu)
+
+
+FOLD_FIELDS = ("n_rows", "anchor", "buf_start", "length", "ins_seq",
+               "ins_client", "rem_seq", "rem_clients", "props",
+               "settled_len", "error")
+
+
+def _assert_fold_equal(got, want, label):
+    for f in FOLD_FIELDS:
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), (
+            f"{label}: {f}")
+    for i, name in ((1, "records"), (2, "n_rec")):
+        assert torch.equal(got[i], want[i]), f"{label}: {name}"
+
+
+def _hold_fold_append(table, msn, cursor, cap, label, epoch=1):
+    """The append form against `fold_append_ref` on the same CUDA
+    inputs: the whole log, counts, the cursor and the table."""
+    KK = table.props.shape[-1]
+    lead = tuple(table.length.shape[:-1])
+    g = torch.Generator().manual_seed(cap)
+    log0 = torch.randint(-50, 50, lead + (cap, 5 + KK), generator=g,
+                         dtype=torch.int32).to(table.device)
+    counts0 = torch.zeros(lead + (3,), dtype=torch.int32,
+                          device=table.device)
+    cur = torch.as_tensor(np.broadcast_to(np.asarray(cursor, np.int32),
+                                          lead).copy()).to(table.device)
+    outs = []
+    for fn in (tov.fold_append, tov.fold_append_ref):
+        log, counts = log0.clone(), counts0.clone()
+        t, c = fn(table, msn, log, counts, cur, epoch)
+        outs.append((t, log, counts, c))
+    (t1, l1, c1, k1), (t2, l2, c2, k2) = outs
+    for f in FOLD_FIELDS:
+        assert torch.equal(getattr(t1, f), getattr(t2, f)), f"{label}: {f}"
+    assert torch.equal(l1, l2), f"{label}: log"
+    assert torch.equal(c1, c2), f"{label}: counts"
+    assert torch.equal(k1, k2), f"{label}: cursor"
+
+
+@pytest.mark.parametrize("W", [1024, 2048, 8192])
+def test_fold_kernel_edge_tables(cuda, W):
+    """Every table of `testing/fold_edges.py` through the fold kernel and
+    its append form (cursors that fit, clamp and pass the capacity),
+    against the plain versions on the same CUDA inputs, exactly: the
+    whole table, records, n_rec, log, counts and cursor; the MSN an int
+    and a tensor on the card; the input left as it was."""
+    from fluidframework_tpu_torch.testing.fold_edges import edge_cases
+
+    before = tov.overlay_fold_kernel.launches
+    cases = edge_cases(W, 4, 8, seed=W)
+    for i, case in enumerate(cases):
+        t = interop.table_from_numpy(case.table, cuda)
+        copy = interop.table_from_numpy(case.table, cuda)
+        msn = case.msn
+        if np.ndim(msn) or i % 2:
+            msn = torch.as_tensor(np.asarray(msn, np.int32)).to(cuda)
+        _assert_fold_equal(tov.fold_device(t, msn),
+                           tov.fold_device_ref(t, msn), case.name)
+        _hold_fold_append(t, msn, case.cursor, case.cap, case.name)
+        for f in FOLD_FIELDS:
+            assert torch.equal(getattr(t, f), getattr(copy, f)), case.name
+    assert tov.overlay_fold_kernel.launches - before == 2 * len(cases)
+
+
+@pytest.mark.parametrize("D,W,KR,KK", [(132, 2048, 4, 8), (1, 8192, 24, 8),
+                                        (132, 2048, 24, 8)])
+def test_fold_kernel_random_stacks(cuda, D, W, KR, KK):
+    """Random tables at the docs replay's and the fold's shapes (D = 132)
+    and the replica's default window, an MSN per document."""
+    from fluidframework_tpu_torch.testing.fold_edges import random_table
+
+    rng = np.random.default_rng(D + W + KR)
+    t = interop.table_from_numpy(
+        random_table(rng, W, KR, KK, D=None if D == 1 else D), cuda)
+    msn = torch.as_tensor(rng.integers(0, 100, (D,) if D > 1 else ())
+                          .astype(np.int32)).to(cuda)
+    _assert_fold_equal(tov.fold_device(t, msn), tov.fold_device_ref(t, msn),
+                       f"D{D} W{W}")
+    _hold_fold_append(t, msn, W // 3, 2 * W, f"D{D} W{W} append")
+    _hold_fold_append(t, msn, 2 * W, 2 * W, f"D{D} W{W} clamped")
+
+
+def test_fold_kernel_on_replay_chunks(cuda):
+    """The fold kernel after each chunk of kernel A on a lagged stream,
+    against the plain version on the same table, exactly."""
+    rep = OverlayDeviceReplica(_stream(), initial_len=64, chunk_size=256,
+                               window=2048, n_removers=24, device=cuda)
+    rep.prepare()
+    table = rep.table
+    for ci in range(rep.n_chunks):
+        ops = rep._dev.slice(ci * 256, (ci + 1) * 256)
+        table = tov.overlay_chunk_kernel(table, ops)
+        got = tov.fold_device(table, rep._msn_by_chunk[ci])
+        _assert_fold_equal(got, tov.fold_device_ref(
+            table, rep._msn_by_chunk[ci]), f"chunk {ci}")
+        table = got[0]
+
+
+def test_replay_is_two_launches_a_chunk(cuda):
+    """`replay_fused` on the card: kernel A and the fold kernel once a
+    chunk each, for one document and for the docs form; the results
+    equal the CPU replay's."""
+    stream = _stream()
+    kw = dict(initial_len=64, chunk_size=256, window=2048, n_removers=24)
+    a0 = tov.overlay_chunk_kernel.launches
+    f0 = tov.overlay_fold_kernel.launches
+    rep = OverlayDeviceReplica(stream, device=cuda, **kw)
+    rep.replay()
+    torch.cuda.synchronize()
+    n = rep.n_chunks
+    assert tov.overlay_chunk_kernel.launches - a0 == n
+    assert tov.overlay_fold_kernel.launches - f0 == n
+    cpu = OverlayDeviceReplica(stream, device="cpu", **kw)
+    cpu.replay()
+    assert int(rep.cursor) == int(cpu.cursor)
+    assert torch.equal(rep.counts.cpu(), cpu.counts)
+    c = int(cpu.cursor)
+    assert torch.equal(rep.log[:c].cpu(), cpu.log[:c])
+    reps = [OverlayDeviceReplica(stream, device=cuda, **kw) for _ in range(3)]
+    for r in reps:
+        r.prepare()
+    a0 = tov.overlay_chunk_kernel.launches
+    f0 = tov.overlay_fold_kernel.launches
+    _tables, _logs, counts, cursors, _gmsn, _gerr = replay_docs(reps)
+    torch.cuda.synchronize()
+    assert tov.overlay_chunk_kernel.launches - a0 == n
+    assert tov.overlay_fold_kernel.launches - f0 == n
+    assert torch.equal(cursors.cpu(), torch.full((3,), c, dtype=torch.int32))
+    assert torch.equal(counts[1].cpu(), cpu.counts)

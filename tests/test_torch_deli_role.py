@@ -349,9 +349,10 @@ def test_long_op_runs_take_plan_op_run(fmt, tmp_path):
 
 def test_role_refusals(tmp_path):
     """A mesh that is not a `DocsMesh`, ``deli_devices`` with a
-    ``device_plane``, the roles the port does not serve and the
-    supervisor's device seams raise ValueError (the last two naming the
-    ROADMAP.md item), before any file is made."""
+    ``device_plane`` (in process and through the supervisor's device
+    seams), a plane for the scalar deli and the roles the port does not
+    serve raise ValueError (the last naming the ROADMAP.md item), before
+    any file is made."""
     for kw, match in (({"mesh": object()}, "DocsMesh"),
                       ({"deli_devices": 2, "device_plane": "2x2"},
                        "exclusive")):
@@ -362,13 +363,13 @@ def test_role_refusals(tmp_path):
         with pytest.raises(ValueError, match="Queue 1 item 4"):
             tsup.serve_role(str(tmp_path), role, "x", deli_impl=impl,
                             device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="exclusive"):
         tsup.main(["--role", "deli", "--impl", "kernel", "--dir",
-                   str(tmp_path), "--device", "cpu", "--deli-devices", "2"])
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        tsup.main(["--role", "deli", "--impl", "kernel", "--dir",
-                   str(tmp_path), "--device", "cpu",
+                   str(tmp_path), "--device", "cpu", "--deli-devices", "2",
                    "--device-plane", "2x2"])
+    with pytest.raises(ValueError, match="device_plane"):
+        tsup.serve_role(str(tmp_path), "deli", "x", deli_impl="scalar",
+                        device_plane="2x2", device="cpu")
     with pytest.raises(SystemExit):
         tsup.main(["--role", "deli", "--dir", str(tmp_path),
                    "--log-format", "parquet"])

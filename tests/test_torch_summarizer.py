@@ -18,8 +18,8 @@ scan), over JSON and columnar topics, the tolerance exact (bytes):
   port's summarizer give the JAX pair's handles;
 - the GC pin is live while a round's blobs are put and gone once its
   manifests are appended; the instruments carry the reference's names;
-- **refusals**: ``device_plane=``, ``FLUID_DEVICE_PLANE``, an unknown
-  backend, a cadence below 1, and `serve_role` / `main` options the
+- **refusals**: an unknown backend, a cadence below 1, a device-plane
+  spec that does not parse, and `serve_role` / `main` options the
   summarizer does not take.
 """
 
@@ -484,27 +484,21 @@ def test_partitioned_summarizer(tmp_path):
 
 def test_refusals(tmp_path, monkeypatch):
     shared = str(tmp_path / "farm")
-    for kw, match in (({"device_plane": "2x2"}, "Queue 1 item 3"),
-                      ({"fold_backend": "pallas"}, "not in"),
+    for kw, match in (({"fold_backend": "pallas"}, "not in"),
                       ({"summary_ops": -1}, ">= 1")):
         with pytest.raises(ValueError, match=match):
             SummarizerRole(shared, owner="x", device="cpu", **kw)
-    monkeypatch.setenv(PLANE_ENV, "2x2")
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        SummarizerRole(shared, owner="x", device="cpu")
-    monkeypatch.delenv(PLANE_ENV)
     monkeypatch.setenv("FLUID_FOLD_BACKEND", "pallas")
     with pytest.raises(ValueError, match="FLUID_FOLD_BACKEND"):
         SummarizerRole(shared, owner="x", device="cpu")
     monkeypatch.delenv("FLUID_FOLD_BACKEND")
     with pytest.raises(TypeError):
         SummarizerRole(shared, owner="x", device="cpu", fold_interpret=True)
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        tsup.serve_role(shared, "summarizer", "x", device_plane="2x2",
+    # The device plane is taken now (tests/test_torch_summary_plane.py);
+    # the reference's refusal of a plane for a role that has none stays.
+    with pytest.raises(ValueError, match="device_plane"):
+        tsup.serve_role(shared, "scriptorium", "x", device_plane="2x2",
                         device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        tsup.main(["--role", "summarizer", "--dir", shared, "--device",
-                   "cpu", "--device-plane", "2x2"])
     for kw in ({"summary_ops": 8}, {"fold_backend": "kernel"}):
         with pytest.raises(ValueError, match="summarizer knob"):
             tsup.serve_role(shared, "deli", "x", device="cpu", **kw)
@@ -518,6 +512,10 @@ def test_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("FLUID_FOLD_BACKEND", "overlay")
     role = SummarizerRole(shared, owner="y", device="cpu")
     assert (role.fold_backend(), role.summary_ops) == ("overlay", 12)
+    monkeypatch.setenv(PLANE_ENV, "2y2")  # resolved at the first fold
+    role = SummarizerRole(shared, owner="z", device="cpu")
+    with pytest.raises(ValueError, match="DOCSxMODEL"):
+        role.device_plane()
 
 
 def test_restore_unwraps_the_old_checkpoint_shape(tmp_path):

@@ -21,10 +21,10 @@ lagged 1M-op stream at the bench geometry through
 
 For the overlay engine it first times, without the profiler, the whole
 replay (ops/s) and the host's side of one chunk: the microseconds one
-call of the kernel's wrapper and one `fold_device` take on the host's
-clock (256 and 16 calls on the first chunk, queued without a
-synchronise: fewer launches than the device's queue holds), then the
-same two under the profiler.
+call of kernel A's wrapper and one `fold_device` (the fold kernel's
+wrapper, or a parent's torch ops) take on the host's clock (256 and 16
+calls on the first chunk, queued without a synchronise: fewer launches
+than the device's queue holds), then the same two under the profiler.
 
 ``--docs D`` (overlay engine) replays D documents of N ops each at the
 bench geometry through `replay_docs` instead (one kernel launch per
@@ -45,7 +45,14 @@ can compare two trees with the same measurement.
 Prints the card's name and power limit, host wall time of the replay,
 device time per kernel name (summed over the run), the device-busy
 share of the replay window (union of all device activity from first to
-last device event) and the idle share. Writes the JSON summary as
+last device event), the idle share, the overlap (``overlap_ms``: the
+sum of every device event's time, copies and torch ops included, less
+the union: the device time hidden by concurrency, 0 when no two events
+ran at once), and the replay kernels' concurrency
+(``replay_kernel_ms``: the summed time of kernel A and the fold
+kernel; ``concurrent_kernel_ms``: the part of it that ran while
+another of them ran. One entry's kernels share its stream, so with
+``--entries`` that is kernel time beside another entry's). Writes the JSON summary as
 ``torch_replay_profile_<engine>.json`` into the run-output directory
 (see ``out_dir``). Imports nothing of JAX.
 """
@@ -67,6 +74,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_GOLDEN = 1_000_000
 CHUNK = 256
 STAGE_OPS = 100_000  # the GOLDEN stage size
+# kernel A's and the fold's CUDA kernels (csrc/overlay_chunk.cu,
+# csrc/overlay_fold.cu), as the profiler names them
+REPLAY_KERNELS = ("overlay_chunk_kernel", "overlay_fold_kernel")
+
+
+def concurrent_time(spans) -> float:
+    """The summed time of `spans` ((start, end) pairs) that ran while
+    another of them ran: each interval where k >= 2 are active counts k
+    times its length."""
+    edges = sorted([(s, 1) for s, _ in spans] + [(e, -1) for _, e in spans])
+    active, last, total = 0, 0.0, 0.0
+    for t, step in edges:
+        if active >= 2:
+            total += active * (t - last)
+        active += step
+        last = t
+    return total
 
 
 def main() -> int:
@@ -241,7 +265,7 @@ def main() -> int:
     rep.check_errors()
 
     by_name = defaultdict(lambda: [0.0, 0])
-    spans = []
+    spans, kspans = [], []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -249,6 +273,8 @@ def main() -> int:
         by_name[e.name][0] += us
         by_name[e.name][1] += 1
         spans.append((e.time_range.start, e.time_range.end))
+        if any(k in e.name for k in REPLAY_KERNELS):
+            kspans.append((e.time_range.start, e.time_range.end))
     gpu = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -276,10 +302,15 @@ def main() -> int:
                 cur_e = max(cur_e, e)
         busy += cur_e - cur_s
         window = max(e for _, e in spans) - spans[0][0]
+        total = sum(e - s for s, e in spans)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         summary.update({
             "device_window_ms": window / 1e3,
             "device_busy_ms": busy / 1e3,
+            "device_sum_ms": total / 1e3,
+            "overlap_ms": (total - busy) / 1e3,
+            "replay_kernel_ms": sum(e - s for s, e in kspans) / 1e3,
+            "concurrent_kernel_ms": concurrent_time(kspans) / 1e3,
             "idle_share": 1 - busy / window,
             "kernels": [{"name": n[:120], "total_ms": t / 1e3, "count": c}
                         for n, (t, c) in top[:15]],
@@ -289,7 +320,12 @@ def main() -> int:
         print(f"{gpu}: {args.engine} engine, {args.ops} ops{docs}, "
               f"{rep.n_chunks} chunks, replay wall {wall:.3f}s (profiled)")
         print(f"device window {window / 1e3:.1f} ms, busy {busy / 1e3:.1f} "
-              f"ms, idle share {1 - busy / window:.4f}")
+              f"ms, idle share {1 - busy / window:.4f}; device events summed "
+              f"{total / 1e3:.1f} ms, overlap (hidden by concurrency) "
+              f"{(total - busy) / 1e3:.1f} ms; kernel A and the fold "
+              f"{summary['replay_kernel_ms']:.1f} ms, of which "
+              f"{summary['concurrent_kernel_ms']:.1f} ms ran beside another "
+              f"of them")
         for n, (t, c) in top[:15]:
             print(f"  {t / 1e3:10.2f} ms  {c:7d}x  {n[:100]}")
     want = golden_digest(golden, args.ops)
