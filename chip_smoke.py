@@ -41,11 +41,15 @@ Phases, in order; any failure exits non-zero:
    inputs, exactly (int32, tolerance 0) on every output (the whole
    table, the whole record block, n_rec; the append form's whole log,
    counts and cursor): after each of phase 3's checked chunks, on the
-   edge tables of `testing/fold_edges.py` at the bench geometry and at
-   the summary fold's (cursors that fit, clamp and pass the capacity),
-   and on D = 132 stacks at both; then the append form's time per launch
-   by CUDA events behind a spin (one document, and D = 132) beside its
-   bytes bound, and the plain version's by CUDA events back to back;
+   edge tables of `testing/fold_edges.py` (the tile-boundary cases
+   among them) at the bench geometry and at the summary fold's
+   (cursors that fit, clamp and pass the capacity), and on D = 132
+   stacks at both, at the cluster size the wrapper picks (and on phase
+   3's tables tiled to D = 4, 8 and 32), then at each cluster size 1,
+   2, 4 and 8 forced; then the append form's time per launch by CUDA
+   events behind a spin (D = 1, 8 and 132) beside its bytes bound and
+   the time of an empty launch of the same grid and clusters, and the
+   plain version's by CUDA events back to back;
 4. the main path: `OverlayDeviceReplica(device="cuda")` replays the
    seed-7 lagged stream (1024 clients, collab window 1024, initial
    length 64; the first 500k of its 1M ops by default, cut to keep the
@@ -3798,22 +3802,28 @@ def fold_kernel_phase(dev, chunk_outs, log) -> dict:
     same CUDA inputs, exactly (int32, tolerance 0) on every output: the
     whole table, the whole record block and n_rec; in the append form
     the whole log, counts and the cursor. `chunk_outs` are phase 3's
-    (kernel A output, MSN) pairs of its checked chunks. Held: each of
-    them (both forms, the MSN read from the card), the edge tables of
-    `testing/fold_edges.py` at the bench geometry and at the summary
-    fold's (cursors that fit, clamp and pass the capacity), and D = 132
-    stacks at both (phase 3's tables tiled, and random tables, an MSN
-    per document). Then the append form's time by CUDA events behind a
-    spin on the checked chunks (one document, the main path's launch)
-    and on the D = 132 stack, beside its bytes bound, and the plain
-    version's by CUDA events back to back. Raises on any mismatch;
-    returns what the kernels line reports."""
+    (kernel A output, MSN) pairs of its checked chunks. Held at the
+    cluster size the wrapper picks: each of them (both forms, the MSN
+    read from the card), the edge tables of `testing/fold_edges.py` (the
+    tile-boundary cases among them) at the bench geometry and at the
+    summary fold's (cursors that fit, clamp and pass the capacity), D =
+    132 stacks at both (phase 3's tables tiled, and random tables, an
+    MSN per document), and phase 3's tables tiled to D = 4, 8 and 32.
+    Then the chunks, the edge tables and the tiled D = 132 stack again
+    at each cluster size G = 1, 2, 4, 8 forced. Then the append form's
+    time by CUDA events behind a spin at D = 1 (the checked chunks, the
+    main path's launch), 8 and 132 (phase 3's tables tiled), each beside
+    its bytes bound and the time of an empty launch of the same grid,
+    clusters and shared memory, and the plain version's by CUDA events
+    back to back. Raises on any mismatch; returns what the kernels line
+    reports."""
     import numpy as np
     import torch
 
     from fluidframework_tpu_torch.interop import table_from_numpy
     from fluidframework_tpu_torch.ops.overlay import (
-        fold_append_ref, fold_device_ref, overlay_fold_kernel, stack_tables,
+        FOLD_CLUSTERS, fold_append_ref, fold_cluster, fold_device_ref,
+        overlay_fold_kernel, stack_tables,
     )
     from fluidframework_tpu_torch.testing.fold_edges import (
         edge_cases, random_table,
@@ -3824,6 +3834,7 @@ def fold_kernel_phase(dev, chunk_outs, log) -> dict:
               "ins_client", "rem_seq", "rem_clients", "props",
               "settled_len", "error")
     max_err, held = 0, 0
+    sms = overlay_fold_kernel.sm_count(dev)
 
     def same(a, b, what):
         nonlocal max_err
@@ -3834,10 +3845,11 @@ def fold_kernel_phase(dev, chunk_outs, log) -> dict:
             raise AssertionError(f"fold kernel {what} differs from the plain "
                                  f"version (max |diff| {d})")
 
-    def hold(table, msn, cursor, cap, label):
+    def hold(table, msn, cursor, cap, label, cluster=None):
         nonlocal held
-        got, want = overlay_fold_kernel(table, msn), fold_device_ref(table,
-                                                                     msn)
+        label = f"{label} G {cluster or 'picked'}"
+        got = overlay_fold_kernel(table, msn, cluster=cluster)
+        want = fold_device_ref(table, msn)
         for f in fields:
             same(getattr(got[0], f), getattr(want[0], f), f"{label}: {f}")
         same(got[1], want[1], f"{label}: records")
@@ -3850,7 +3862,8 @@ def fold_kernel_phase(dev, chunk_outs, log) -> dict:
         cur = torch.as_tensor(np.broadcast_to(
             np.asarray(cursor, np.int32), lead).copy()).to(dev)
         outs = []
-        for fn in (overlay_fold_kernel.append, fold_append_ref):
+        for fn in (lambda *a: overlay_fold_kernel.append(*a, cluster=cluster),
+                   fold_append_ref):
             lg = log0.clone()
             counts = torch.zeros(lead + (4,), dtype=torch.int32, device=dev)
             t, c = fn(table, msn, lg, counts, cur, 2)
@@ -3863,30 +3876,59 @@ def fold_kernel_phase(dev, chunk_outs, log) -> dict:
         held += 1
 
     W, KR, KK = WINDOW, N_REMOVERS, N_PROP_KEYS
-    for ci, (out, msn) in enumerate(chunk_outs):
-        hold(out, msn, 64 * ci, 2 * W, f"chunk {ci}")
-    n_edges = 0
+    edges = []
     for shape in ((W, KR, KK), (1024, 4, 8)):
         for case in edge_cases(*shape, seed=shape[0]):
             msn = case.msn
-            if np.ndim(msn) or n_edges % 2:
+            if np.ndim(msn) or len(edges) % 2:
                 msn = torch.as_tensor(np.asarray(msn, np.int32)).to(dev)
-            hold(table_from_numpy(case.table, dev), msn, case.cursor,
-                 case.cap, f"edge {case.name} W {shape[0]} KR {shape[1]}")
-            n_edges += 1
+            edges.append((table_from_numpy(case.table, dev), msn,
+                          case.cursor, case.cap,
+                          f"edge {case.name} W {shape[0]} KR {shape[1]}"))
+
+    def tiled(D):
+        """Phase 3's tables tiled to D documents, with their MSNs."""
+        return (stack_tables([chunk_outs[d % len(chunk_outs)][0]
+                              for d in range(D)]),
+                torch.stack([chunk_outs[d % len(chunk_outs)][1]
+                             for d in range(D)]).contiguous())
+
     D = max(DOC_COUNTS)
-    tiled = stack_tables([chunk_outs[d % len(chunk_outs)][0]
-                          for d in range(D)])
-    tiled_msn = torch.stack([chunk_outs[d % len(chunk_outs)][1]
-                             for d in range(D)]).contiguous()
-    hold(tiled, tiled_msn, torch.arange(D, dtype=torch.int32) * 97, 2 * W,
-         f"D {D} bench geometry")
+    stack_d, msn_d = tiled(D)
+
+    def hold_all(cluster):
+        for ci, (out, msn) in enumerate(chunk_outs):
+            hold(out, msn, 64 * ci, 2 * W, f"chunk {ci}", cluster)
+        for edge in edges:
+            hold(*edge, cluster)
+        hold(stack_d, msn_d, torch.arange(D, dtype=torch.int32) * 97, 2 * W,
+             f"D {D} bench geometry", cluster)
+
+    hold_all(None)
     rng = np.random.default_rng(D)
     fold_kr = 4  # the summary fold's remover slots (core/overlay_fold.py)
     rand = table_from_numpy(random_table(rng, W, fold_kr, KK, D=D), dev)
     rand_msn = torch.as_tensor(rng.integers(0, 100, D).astype(np.int32)
                                ).to(dev)
     hold(rand, rand_msn, W, 2 * W, f"D {D} fold shape (KR {fold_kr})")
+    picked = {1: fold_cluster(1, W, KK, sms), D: fold_cluster(D, W, KK, sms)}
+    for n in (4, 8, 32):
+        t, m = tiled(n)
+        hold(t, m, torch.arange(n, dtype=torch.int32) * 31, 2 * W,
+             f"D {n} bench geometry")
+        picked[n] = fold_cluster(n, W, KK, sms)
+    held_picked = held
+    for G in FOLD_CLUSTERS:
+        hold_all(G)
+    log(f"overlay_fold == plain (fold_device_ref, fold_append_ref) on "
+        f"{held} tables, both forms, exactly (the whole table, records, "
+        f"n_rec, log, counts, cursor): {held_picked} at the cluster size "
+        f"the wrapper picks (phase 3's {len(chunk_outs)} chunks, "
+        f"{len(edges)} edge tables, D = {D} at the bench geometry and at "
+        f"the fold's shape, D = 4, 8, 32 tiled; G picked by D: "
+        f"{dict(sorted(picked.items()))}), then the chunks, the edge tables "
+        f"and the D = {D} stack at each G of {FOLD_CLUSTERS} forced; "
+        f"{time.perf_counter() - t0:.2f}s")
 
     # Times: the append form, as replay_chunk_step launches it.
     def append_call(table, msn):
@@ -3912,34 +3954,48 @@ def fold_kernel_phase(dev, chunk_outs, log) -> dict:
         k[0] += 1
 
     plain_ms = events_ms(plain_one, len(one))
-    many = append_call(tiled, tiled_msn)
-    ms_d = spin_time(lambda: overlay_fold_kernel.append(*many), 16)
-    plain_ms_d = events_ms(lambda: fold_append_ref(*many), 4)
     # The bounds from this run's tables: the one-document bound is the
     # mean over the chunks the timed launches cycle through.
     b1 = sum(fold_bytes(t, fold_device_ref(t, m)[0].n_rows, True)
              for t, m in chunk_outs) / len(chunk_outs) / PEAK_BYTES_S * 1e3
-    bd = fold_bytes(tiled, fold_device_ref(tiled, tiled_msn)[0].n_rows,
-                    True) / PEAK_BYTES_S * 1e3
-    # int32 work: ~24 operations a row (the tests, three prefix adds, the
+    # int32 work: ~24 operations a row (the tests, the prefix adds, the
     # destinations and selects): far below the bytes at these shapes.
     o1 = 24 * W / PEAK_OPS_S * 1e3
     bound_ms, bound_by = max(b1, o1), "bytes" if b1 >= o1 else "operations"
-    log(f"overlay_fold == plain (fold_device_ref, fold_append_ref) on "
-        f"{held} tables, both forms, exactly (the whole table, records, "
-        f"n_rec, log, counts, cursor): phase 3's {len(chunk_outs)} chunks, "
-        f"{n_edges} edge tables, D = {D} at the bench geometry and at the "
-        f"fold's shape; {time.perf_counter() - t0:.2f}s")
-    log(f"overlay_fold per launch (append form, W {W}, KR {KR}, KK {KK}): "
-        f"one document {ms:.6f} ms (CUDA events behind a spin, phase 3's "
-        f"chunks), bound {bound_ms:.6f} ms ({bound_by}), share "
-        f"{bound_ms / ms:.4f}; D = {D} {ms_d:.6f} ms, bound {bd:.6f} ms, "
-        f"share {bd / ms_d:.4f}; the plain version (torch ops on the card, "
-        f"the parent's path) {plain_ms:.6f} / {plain_ms_d:.6f} ms back to "
-        f"back")
+    empty = {1: spin_time(lambda: overlay_fold_kernel.launch_empty(dev, 1, W, KK),
+                          64)}
+    times = {}
+    for n, reps in ((8, 32), (D, 16)):
+        t, m = tiled(n)
+        call = append_call(t, m)
+        times[n] = dict(
+            ms=spin_time(lambda: overlay_fold_kernel.append(*call), reps),
+            plain_ms=events_ms(lambda: fold_append_ref(*call), 4),
+            bound_ms=fold_bytes(t, fold_device_ref(t, m)[0].n_rows, True)
+            / PEAK_BYTES_S * 1e3)
+        empty[n] = spin_time(
+            lambda: overlay_fold_kernel.launch_empty(dev, n, W, KK), reps)
+    log(f"overlay_fold per launch (append form, W {W}, KR {KR}, KK {KK}; "
+        f"CUDA events behind a spin; the empty launch has the same grid, "
+        f"clusters and shared memory): one document (G {picked[1]}, "
+        f"phase 3's chunks) {ms:.6f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}), share {bound_ms / ms:.4f}, empty launch "
+        f"{empty[1]:.6f} ms; the plain version (torch ops on the card) "
+        f"{plain_ms:.6f} ms back to back")
+    for n in (8, D):
+        r = times[n]
+        log(f"overlay_fold per launch at D = {n} (G {fold_cluster(n, W, KK, sms)},"
+            f" phase 3's tables tiled): {r['ms']:.6f} ms, bound "
+            f"{r['bound_ms']:.6f} ms (bytes), share "
+            f"{r['bound_ms'] / r['ms']:.4f}, empty launch {empty[n]:.6f} ms;"
+            f" plain {r['plain_ms']:.6f} ms back to back")
     return dict(max_abs_err=max_err, held=held, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, ms_d132=ms_d,
-                plain_ms_d132=plain_ms_d, bound_ms_d132=bd,
+                bound_ms=bound_ms, bound_by=bound_by,
+                empty_ms=empty[1], clusters=picked,
+                ms_d8=times[8]["ms"], bound_ms_d8=times[8]["bound_ms"],
+                plain_ms_d8=times[8]["plain_ms"], empty_ms_d8=empty[8],
+                ms_d132=times[D]["ms"], plain_ms_d132=times[D]["plain_ms"],
+                bound_ms_d132=times[D]["bound_ms"], empty_ms_d132=empty[D],
                 shape=dict(W=W, KR=KR, KK=KK, append=True))
 
 
@@ -5162,6 +5218,13 @@ def main() -> int:
         "ms_d132": fold_k["ms_d132"],
         "plain_ms_d132": fold_k["plain_ms_d132"],
         "bound_ms_d132": fold_k["bound_ms_d132"],
+        "ms_d8": fold_k["ms_d8"],
+        "plain_ms_d8": fold_k["plain_ms_d8"],
+        "bound_ms_d8": fold_k["bound_ms_d8"],
+        "empty_launch_ms": {"1": fold_k["empty_ms"],
+                            "8": fold_k["empty_ms_d8"],
+                            "132": fold_k["empty_ms_d132"]},
+        "clusters": {str(k): v for k, v in fold_k["clusters"].items()},
         "path_launches": {
             "overlay_replay": launches_f,
             "default_window_replica": launches_def_f,

@@ -802,10 +802,44 @@ def fold_append_ref(table: OverlayTable, msn, log: torch.Tensor,
     return table, cursor + n_rec
 
 
+# The fold kernel's geometry (csrc/overlay_fold.cu): a cluster of G CTAs
+# a document, each staging at most `fold_max_segment(KK)` rows at once.
+FOLD_CLUSTERS = (1, 2, 4, 8)  # the portable cluster sizes
+FOLD_MIN_TILE = 128  # rows a CTA at least, where G > 1
+FOLD_MAX_SEGMENT = 4096
+FOLD_SMEM = 232448  # an sm_90 block's dynamic shared memory, bytes
+FOLD_SMS = 132  # an H100 SXM's SMs, where no card is asked
+
+
+def fold_max_segment(KK: int) -> int:
+    """The most rows a CTA of the fold stages at once: FOLD_MAX_SEGMENT,
+    or fewer where 36 + 4 KK bytes a row (nine columns and the props)
+    and the 96 bytes of its head would not fit in FOLD_SMEM; a multiple
+    of 4."""
+    return min(FOLD_MAX_SEGMENT, (FOLD_SMEM - 96) // (36 + 4 * KK) // 4 * 4)
+
+
+def fold_cluster(D: int, W: int, KK: int, sms: int = FOLD_SMS) -> int:
+    """The cluster size the fold kernel's wrapper picks for D documents
+    of W rows with KK prop keys: the largest G of `FOLD_CLUSTERS` with
+    D G <= `sms` and at least FOLD_MIN_TILE rows a CTA, then doubled
+    (up to 8) while a CTA's tile would not fit in one segment."""
+    G = 1
+    while (2 * G <= FOLD_CLUSTERS[-1] and D * 2 * G <= sms
+           and -(-W // (2 * G)) >= FOLD_MIN_TILE):
+        G *= 2
+    while (2 * G <= FOLD_CLUSTERS[-1]
+           and -(-W // G) > fold_max_segment(KK)):
+        G *= 2
+    return G
+
+
 class OverlayFoldKernel:
     """Launches ``csrc/overlay_fold.cu``: the fold of one document's
     table (``[W]`` columns) or a stack of D documents (a leading
-    ``[D]`` axis on every field), one launch of one block per document.
+    ``[D]`` axis on every field), one launch of D clusters of G CTAs
+    (`fold_cluster` picks G from D, W and the card's SMs; a caller may
+    force it with ``cluster=``).
 
     Replaces the XLA functions `fold_device`
     (fluidframework_tpu/ops/overlay_pallas.py:703) and, in its append
@@ -833,35 +867,62 @@ class OverlayFoldKernel:
         """The C entry of a loaded kernel library, typed."""
         fn = lib.overlay_fold_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 13 + [
+        fn.argtypes = [ctypes.c_int] * 15 + [
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
         return fn
+
+    @staticmethod
+    def geometry(D: int, W: int, KK: int, cluster: Optional[int] = None,
+                 segment: Optional[int] = None,
+                 sms: int = FOLD_SMS) -> Tuple[int, int]:
+        """``(G, S)``: the cluster size (`fold_cluster` unless forced) and
+        the rows a CTA stages at once: its whole tile (W / G rounded up
+        to 4 rows) up to `fold_max_segment`, or `segment` (rounded up to
+        4 rows, capped at the tile) where a test forces more segments.
+        Raises ValueError on a size the kernel does not take."""
+        if fold_max_segment(KK) < 4:
+            raise ValueError(f"overlay fold kernel: {KK} prop keys leave no "
+                             "room for a segment in shared memory")
+        G = fold_cluster(D, W, KK, sms) if cluster is None else int(cluster)
+        if G not in FOLD_CLUSTERS:
+            raise ValueError(f"overlay fold kernel: cluster size {G} not in "
+                             f"{FOLD_CLUSTERS}")
+        S = min((-(-W // G) + 3) // 4 * 4, fold_max_segment(KK))
+        if segment is not None:
+            if not 1 <= segment <= fold_max_segment(KK):
+                raise ValueError(f"overlay fold kernel: segment {segment} "
+                                 f"not in [1, {fold_max_segment(KK)}]")
+            S = min(S, (int(segment) + 3) // 4 * 4)
+        return G, S
 
     def _entry(self):
         if self._fn is None:
             self._fn = self.bind(_build.load(self.name))
         return self._fn
 
-    @staticmethod
-    def args(table: OverlayTable, msn, log: Optional[torch.Tensor] = None,
+    @classmethod
+    def args(cls, table: OverlayTable, msn,
+             log: Optional[torch.Tensor] = None,
              counts: Optional[torch.Tensor] = None,
              cursor: Optional[torch.Tensor] = None, epoch: int = 0,
-             empty=torch.empty):
+             cluster: Optional[int] = None, segment: Optional[int] = None,
+             sms: int = FOLD_SMS, empty=torch.empty):
         """The launch of one call on `table`'s device, whatever it is:
         ``(ints, tensors, result)`` for the C entry (``ints`` after the
-        device index, ``tensors`` the 27 pointers' tensors, None for a
+        device index, ``tensors`` the 26 pointers' tensors, None for a
         null) and what the call returns, ``(table', records, n_rec)``,
         or ``(table', cursor')`` when `log` is given (the append form).
-        Outputs and the kernel's scratch (5 W ints a document: its
-        row maps) are made by `empty` (the host emulation fills them
-        with garbage). Raises ValueError on what the kernel does not
-        take."""
+        `cluster`, `segment` and `sms` go to `geometry`. Outputs are
+        made by `empty` (the host emulation fills them with garbage);
+        the kernel needs no scratch. Raises ValueError on what the
+        kernel does not take."""
         dev = table.length.device
         lead = _doc_shape(table)
         D = lead[0] if lead else 1
         W = table.length.shape[-1]
         KR = table.rem_clients.shape[-1]
         KK = table.props.shape[-1]
+        G, S = cls.geometry(D, W, KK, cluster, segment, sms)
         ins = [table.n_rows, table.settled_len, table.anchor,
                table.buf_start, table.length, table.ins_seq,
                table.ins_client, table.rem_seq, table.rem_clients,
@@ -904,13 +965,11 @@ class OverlayFoldKernel:
         outs = [out.n_rows, out.settled_len, out.anchor, out.buf_start,
                 out.length, out.ins_seq, out.ins_client, out.rem_seq,
                 out.rem_clients, out.props]
-        scratch = empty((D, 5 * W), dtype=I32, device=dev)
         if log is None:
             records = empty((*lead, W, 5 + KK), dtype=I32, device=dev)
             n_rec = empty(lead, dtype=I32, device=dev)
-            return ((D, W, KR, KK, msn_v, msn_stride, 0, 0, 0, 0, 0),
-                    ins + [msn_t] + outs + [records, n_rec, None, None, None,
-                                            scratch],
+            return ((D, W, KR, KK, G, S, msn_v, msn_stride, 0, 0, 0, 0, 0),
+                    ins + [msn_t] + outs + [records, n_rec, None, None, None],
                     (out, records, n_rec))
         cap = log.shape[-2]
         if cap < W:
@@ -931,35 +990,71 @@ class OverlayFoldKernel:
             raise ValueError(f"overlay fold kernel: cursor must be int32 of "
                              f"one or {D} ints on {dev}")
         new_cursor = empty(lead, dtype=I32, device=dev)
-        return ((D, W, KR, KK, msn_v, msn_stride, 1, cap, n_epochs, epoch,
-                 int(cursor.numel() > 1)),
+        return ((D, W, KR, KK, G, S, msn_v, msn_stride, 1, cap, n_epochs,
+                 epoch, int(cursor.numel() > 1)),
                 ins + [msn_t] + outs + [log, None, cursor.contiguous(),
-                                        new_cursor, counts, scratch],
+                                        new_cursor, counts],
                 (out, new_cursor))
 
-    def _launch(self, table: OverlayTable, *args):
-        dev = table.length.device
+    @staticmethod
+    def _cuda(dev: torch.device) -> None:
         if dev.type != "cuda":
             raise ValueError(
                 f"the overlay fold CUDA kernel needs CUDA tensors, got {dev}")
-        ints, tensors, result = self.args(table, *args)
+
+    _sms: dict = {}
+
+    @classmethod
+    def sm_count(cls, dev: torch.device) -> int:
+        """The SMs of the card `dev` (a CUDA device), asked once."""
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        if index not in cls._sms:
+            cls._sms[index] = torch.cuda.get_device_properties(
+                index).multi_processor_count
+        return cls._sms[index]
+
+    def _launch(self, table: OverlayTable, *args, cluster=None):
+        dev = table.length.device
+        self._cuda(dev)
+        ints, tensors, result = self.args(table, *args, cluster=cluster,
+                                          sms=self.sm_count(dev))
         _build.launch(self.name, self._entry(), dev, ints, tensors)
         self.launches += 1
         return result
 
-    def __call__(self, table: OverlayTable, msn) -> Tuple[
-            OverlayTable, torch.Tensor, torch.Tensor]:
+    def __call__(self, table: OverlayTable, msn,
+                 cluster: Optional[int] = None) -> Tuple[
+                     OverlayTable, torch.Tensor, torch.Tensor]:
         """The fold of `table` under `msn`: ``(table', records,
-        n_rec)``, as `fold_device_ref` returns them."""
-        return self._launch(table, msn)
+        n_rec)``, as `fold_device_ref` returns them; `cluster` forces
+        the cluster size."""
+        return self._launch(table, msn, cluster=cluster)
 
     def append(self, table: OverlayTable, msn, log: torch.Tensor,
-               counts: torch.Tensor, cursor: torch.Tensor,
-               epoch: int) -> Tuple[OverlayTable, torch.Tensor]:
+               counts: torch.Tensor, cursor: torch.Tensor, epoch: int,
+               cluster: Optional[int] = None) -> Tuple[OverlayTable,
+                                                       torch.Tensor]:
         """The fold and the log append of one replay step: ``(table',
         cursor')``, `log` and `counts` written in place, as
-        `fold_append_ref` does."""
-        return self._launch(table, msn, log, counts, cursor, epoch)
+        `fold_append_ref` does; `cluster` forces the cluster size."""
+        return self._launch(table, msn, log, counts, cursor, epoch,
+                            cluster=cluster)
+
+    def launch_empty(self, dev: torch.device, D: int, W: int, KK: int,
+                     cluster: Optional[int] = None) -> None:
+        """An empty kernel with the grid, clusters and shared memory of
+        the fold of D documents of W rows with KK prop keys, on
+        PyTorch's current stream: the launch floor beside the fold's
+        time. Not a fold launch: ``launches`` does not count it."""
+        self._cuda(dev)
+        fn = _build.load(self.name).overlay_fold_empty_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        _build.launch(f"{self.name} empty", fn, dev,
+                      (D, W, KK, *self.geometry(D, W, KK, cluster,
+                                                sms=self.sm_count(dev))), [])
 
 
 overlay_fold_kernel = OverlayFoldKernel()

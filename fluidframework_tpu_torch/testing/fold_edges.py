@@ -17,7 +17,15 @@ every row live; every live row folding; none folding; dropped spans
 beside settled text; an MSN below every seq (only live spans settle);
 ``n_rows`` above W and below 0; anchors and lengths that wrap int32;
 a cursor the append must clamp; the docs form with an MSN per
-document.
+document. Then the edges of the kernel's tiles (a cluster of G CTAs a
+document, CTA c owning rows [c T, c T + T), T = W / G rounded up to 4):
+``n_rows`` on a tile edge at every G and on the first tile's edge at G
+8; every kept row in the first eighth of the rows (the first tile at G
+8); every folding row in the last eighth; a W that 8 does not divide
+(W - 24: 1000 at 1024); and a W of 9 rows, whose tiles at G 8 are 4
+rows and three of them empty (the last two cases are other windows
+than W, and rows that are not a multiple of 4 take the kernel's 4-byte
+copies).
 """
 
 from __future__ import annotations
@@ -120,4 +128,28 @@ def edge_cases(W: int = 1024, KR: int = 4, KK: int = 8,
     add("docs_msn_per_document", random_table(rng, W, KR, KK, D=D),
         msn=np.asarray([0, MSN, 99], np.int32),
         cursor=np.asarray([0, cap - W, cap], np.int32))
+    # The kernel's tile edges.
+    eighth = W // 8
+    add("n_rows_on_tile_edge", random_table(rng, W, KR, KK, n_rows=W // 2))
+    add("n_rows_on_first_tile_edge",
+        random_table(rng, W, KR, KK, n_rows=eighth))
+    t = random_table(rng, W, KR, KK, n_rows=W - 5, span_p=0.0,
+                     removed_p=0.0)
+    t["ins_seq"][:eighth] = MSN + 1 + rng.integers(0, 40, eighth)
+    t["ins_seq"][eighth:] = rng.integers(1, MSN + 1, W - eighth)
+    add("kept_rows_in_first_tile_only", t)
+    t = random_table(rng, W, KR, KK, n_rows=W, span_p=0.0, removed_p=0.0)
+    t["ins_seq"][:] = MSN + 1 + rng.integers(0, 40, W)
+    tail = np.arange(W - eighth, W)
+    t["buf_start"][tail[::2]] += SETTLED_BASE  # spans: they settle
+    t["ins_seq"][tail[::2]] = 0
+    t["ins_seq"][tail[1::2]] = rng.integers(1, MSN + 1, len(tail[1::2]))
+    drop = tail[1::4]
+    t["rem_seq"][drop] = rng.integers(1, MSN + 1, len(drop))
+    t["rem_clients"][drop, 0] = 3
+    add("folding_rows_in_last_tile_only", t)
+    for name, w in (("w_not_divided_by_cluster", W - 24),
+                    ("empty_tile", 9)):
+        cases.append(FoldCase(name, random_table(rng, w, KR, KK), MSN,
+                              w // 4, w + w // 2))
     return cases

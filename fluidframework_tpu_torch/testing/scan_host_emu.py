@@ -6,7 +6,13 @@ thread of a block is an OS thread, ``__syncthreads`` and named barrier
 1 (``bar.sync`` / ``bar.red.or.pred``) are counting barriers, and the
 warp shuffles and votes are exchanges behind a barrier of the warp's
 32 threads. The blocks run one after another; shared memory and the
-outputs start as garbage, as on the card. Its two ``asm`` barriers and
+outputs start as garbage, as on the card. The header also emulates
+what the other kernels' sources use: thread-block clusters (the CTAs
+of a cluster run at once, each with its own shared memory; a split
+cluster barrier; distributed shared memory as a pointer into another
+rank's), mbarriers with transaction bytes, ``cp.async`` and the bulk
+copy as a copy plus its arrival, and ``cudaLaunchKernelEx`` with
+cluster dimensions and programmatic dependent launches. Its two ``asm`` barriers and
 its launch are rewritten (`translate`); nothing else of the source
 changes, so the tests hold the kernel's own logic (the op loops, the
 layouts, the copies of the live rows) against the plain version
@@ -44,6 +50,7 @@ EMU_HEADER = r"""
 #include <stddef.h>
 #include <condition_variable>
 #include <cstring>
+#include <map>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -76,12 +83,36 @@ struct EmuBar {
         cv.wait(l, [&] { return gen != g; });
         return res;
     }
+    // The split form: arrive returns the phase that `wait_phase` waits out.
+    int arrive(int n) {
+        std::lock_guard<std::mutex> l(m);
+        const int g = gen;
+        if (++arrived == n) { arrived = 0; ++gen; cv.notify_all(); }
+        return g;
+    }
+    void wait_phase(int g) {
+        std::unique_lock<std::mutex> l(m);
+        cv.wait(l, [&] { return gen != g; });
+    }
 };
+// An mbarrier: `count` arrivals and the expected transaction bytes
+// complete a phase.
+struct EmuMbar { int count = 0, pending = 0; long long tx = 0; unsigned phase = 0; };
 struct EmuWarp { EmuBar b; long long buf[32]; };
-struct EmuBlock { EmuBar b0, b1; EmuWarp w[32]; };
+struct EmuBlock {
+    EmuBar b0, b1; EmuWarp w[32];
+    std::mutex mm; std::condition_variable mcv;
+    std::map<const void*, EmuMbar> mbar;
+};
+// The CTAs of one cluster run at once; `smem` holds each rank's shared
+// memory, so distributed shared memory is a pointer into another rank's.
+struct EmuCluster { EmuBar bar; int n = 0; std::vector<int*> smem; };
 static thread_local Dim3 threadIdx, blockIdx;
-static EmuBlock* emu_block;
-static int* emu_smem;
+static thread_local EmuBlock* emu_block;
+static thread_local int* emu_smem;
+static thread_local EmuCluster* emu_cluster;
+static thread_local unsigned emu_rank;
+static thread_local int emu_cluster_phase;
 static int emu_nt;
 static std::mutex emu_atomic;
 inline int emu_lane() { return threadIdx.x & 31; }
@@ -107,6 +138,7 @@ inline unsigned __ballot_sync(unsigned, int p) {
 }
 inline bool __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 inline int __ffs(unsigned v) { return __builtin_ffs(v); }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline void __syncthreads() { emu_block->b0.wait(emu_nt); }
 inline void __syncwarp() { emu_warp().b.wait(32); }
 inline void emu_bar1(int n) { emu_block->b1.wait(n); }
@@ -117,6 +149,51 @@ inline unsigned long long atomicMin(unsigned long long* a, unsigned long long v)
     if (v < o) *a = v;
     return o;
 }
+// Clusters: the rank, the split cluster barrier over all the cluster's
+// threads, and `p`'s offset in rank `r`'s shared memory.
+inline unsigned emu_cluster_rank() { return emu_rank; }
+inline void emu_cluster_arrive() {
+    emu_cluster_phase = emu_cluster->bar.arrive(emu_cluster->n);
+}
+inline void emu_cluster_wait() { emu_cluster->bar.wait_phase(emu_cluster_phase); }
+template <class T> T* emu_dsmem(T* p, unsigned r) {
+    return (T*)((const char*)emu_cluster->smem[r]
+                + ((const char*)p - (const char*)emu_smem));
+}
+// mbarriers of this CTA, by address; an asynchronous copy is a copy and
+// then its transaction bytes on the barrier.
+inline void emu_mbar_done(EmuMbar& b) {
+    if (b.pending == 0 && b.tx == 0) {
+        ++b.phase; b.pending = b.count; emu_block->mcv.notify_all();
+    }
+}
+inline void emu_mbar_init(const void* p, unsigned n) {
+    std::lock_guard<std::mutex> l(emu_block->mm);
+    EmuMbar& b = emu_block->mbar[p];
+    b = EmuMbar(); b.count = b.pending = (int)n;
+}
+inline void emu_mbar_arrive_tx(const void* p, unsigned bytes) {
+    std::lock_guard<std::mutex> l(emu_block->mm);
+    EmuMbar& b = emu_block->mbar.at(p);
+    b.tx += bytes; --b.pending;
+    emu_mbar_done(b);
+}
+inline void emu_mbar_wait(const void* p, unsigned parity) {
+    std::unique_lock<std::mutex> l(emu_block->mm);
+    EmuMbar& b = emu_block->mbar.at(p);
+    emu_block->mcv.wait(l, [&] { return (b.phase & 1u) != (parity & 1u); });
+}
+inline void emu_bulk_copy(void* dst, const void* src, unsigned bytes,
+                          const void* p) {
+    std::memcpy(dst, src, bytes);
+    std::lock_guard<std::mutex> l(emu_block->mm);
+    EmuMbar& b = emu_block->mbar.at(p);
+    b.tx -= bytes;
+    emu_mbar_done(b);
+}
+inline void emu_cp_async(void* dst, const void* src, unsigned bytes) {
+    std::memcpy(dst, src, bytes);
+}
 inline long long clock64() { return 0; }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -124,25 +201,74 @@ inline cudaError_t cudaFuncSetAttribute(const void*, int, int) { return cudaSucc
 template <class T> cudaError_t cudaMemcpyToSymbol(T&, const void*, size_t) {
     return cudaSuccess;
 }
+// A launch of n_ctas CTAs of NT threads in clusters of G: each cluster's
+// CTAs run at once, every thread an OS thread; the clusters one after
+// another. Shared memory starts as garbage, as on the card.
+template <class A>
+void emu_launch_cluster(void (*k)(A), unsigned n_ctas, int NT, size_t smem,
+                        int G, A a) {
+    emu_nt = NT;
+    const size_t words = (smem + 3) / 4 + 4;
+    for (unsigned c0 = 0; c0 < n_ctas; c0 += (unsigned)G) {
+        EmuCluster cl;
+        cl.n = G * NT;
+        std::vector<EmuBlock*> blocks;
+        std::vector<std::vector<int>> sms(G, std::vector<int>(words));
+        for (int g = 0; g < G; ++g) {
+            blocks.push_back(new EmuBlock());
+            std::memset(sms[g].data(), 0xAB, words * 4);
+            cl.smem.push_back(sms[g].data());
+        }
+        std::vector<std::thread> ts;
+        for (int g = 0; g < G; ++g)
+            for (int t = 0; t < NT; ++t)
+                ts.emplace_back([=, &cl, &blocks] {
+                    threadIdx = {(unsigned)t, 0, 0};
+                    blockIdx = {c0 + (unsigned)g, 0, 0};
+                    emu_block = blocks[g];
+                    emu_smem = cl.smem[g];
+                    emu_cluster = &cl;
+                    emu_rank = (unsigned)g;
+                    k(a);
+                });
+        for (auto& t : ts) t.join();
+        for (EmuBlock* b : blocks) delete b;
+    }
+}
 template <class A>
 void emu_launch(void (*k)(A), unsigned D, int NT, size_t smem, A a) {
-    emu_nt = NT;
-    std::vector<int> sm((smem + 3) / 4 + 4);
-    for (unsigned d = 0; d < D; ++d) {
-        EmuBlock* b = new EmuBlock();
-        emu_block = b;
-        std::memset(sm.data(), 0xAB, sm.size() * 4);
-        emu_smem = sm.data();
-        std::vector<std::thread> ts;
-        for (int t = 0; t < NT; ++t)
-            ts.emplace_back([=] {
-                threadIdx = {(unsigned)t, 0, 0};
-                blockIdx = {d, 0, 0};
-                k(a);
-            });
-        for (auto& t : ts) t.join();
-        delete b;
-    }
+    emu_launch_cluster(k, D, NT, smem, 1, a);
+}
+// The extended launch API: programmatic dependent launches (a launch
+// runs its CTAs once the launch before has ended, so the device side's
+// wait and trigger do nothing) and cluster dimensions (G along x).
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+enum cudaLaunchAttributeID {
+    cudaLaunchAttributeClusterDimension = 4,
+    cudaLaunchAttributeProgrammaticStreamSerialization = 5 };
+union cudaLaunchAttributeValue {
+    int programmaticStreamSerializationAllowed;
+    struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+    cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+    dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream;
+    cudaLaunchAttribute* attrs; unsigned numAttrs; };
+template <class A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(A),
+                               A a) {
+    unsigned G = 1;
+    for (unsigned i = 0; i < c->numAttrs; ++i)
+        if (c->attrs[i].id == cudaLaunchAttributeClusterDimension)
+            G = c->attrs[i].val.clusterDim.x;
+    if (G < 1 || c->gridDim.x % G) return cudaErrorInvalidValue;
+    emu_launch_cluster(k, c->gridDim.x, (int)c->blockDim.x,
+                       c->dynamicSmemBytes, (int)G, a);
+    return cudaSuccess;
 }
 """
 

@@ -34,29 +34,9 @@ from . import scan_host_emu
 from .scan_host_emu import GARBAGE
 
 
-# The launch API of programmatic dependent launches, for `translate`: a
-# launch runs its blocks at once (the launch before has ended), so the
-# device side's wait and trigger do nothing.
-PDL_SHIM = r"""
-struct dim3 {
-    unsigned x, y, z;
-    dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-enum cudaLaunchAttributeID {
-    cudaLaunchAttributeProgrammaticStreamSerialization = 5 };
-union cudaLaunchAttributeValue { int programmaticStreamSerializationAllowed; };
-struct cudaLaunchAttribute {
-    cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
-struct cudaLaunchConfig_t {
-    dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream;
-    cudaLaunchAttribute* attrs; unsigned numAttrs; };
-template <class A>
-cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(A),
-                               A a) {
-    emu_launch(k, c->gridDim.x, (int)c->blockDim.x, c->dynamicSmemBytes, a);
-    return cudaSuccess;
-}
-"""
+# The launch-control instructions of its programmatic dependent
+# launches: the emulation header's `cudaLaunchKernelEx` runs a launch's
+# blocks once the launch before has ended, so they do nothing.
 PDL_ASM = ('asm volatile("griddepcontrol.launch_dependents;");',
            'asm volatile("griddepcontrol.wait;" ::: "memory");')
 
@@ -64,15 +44,12 @@ PDL_ASM = ('asm volatile("griddepcontrol.launch_dependents;");',
 def translate(src: str) -> str:
     """The kernel source with its shared-memory declarations, its launch
     site and its two launch-control instructions rewritten for
-    `EMU_HEADER` (with `PDL_SHIM`); raises if they are not found."""
+    `EMU_HEADER`; raises if they are not found."""
     decl = "extern __shared__ __align__(16) int smem[];"
-    include = "#include <cuda_runtime.h>"
-    if decl not in src or include not in src or any(
-            asm not in src for asm in PDL_ASM):
-        raise ValueError("zamboni_host_emu: the shared memory, the include "
-                         "or the launch control was not found")
+    if decl not in src or any(asm not in src for asm in PDL_ASM):
+        raise ValueError("zamboni_host_emu: the shared memory or the launch "
+                         "control was not found")
     src = src.replace(decl, "int* smem = emu_smem;")
-    src = src.replace(include, include + "\n" + PDL_SHIM)
     for asm in PDL_ASM:
         src = src.replace(asm, "")
     src, n = re.subn(r"(\w+)<<<\s*(\w+),\s*(\w+),\s*(\(size_t\)smem),\s*\w+"

@@ -1294,9 +1294,11 @@ def _assert_fold_equal(got, want, label):
         assert torch.equal(got[i], want[i]), f"{label}: {name}"
 
 
-def _hold_fold_append(table, msn, cursor, cap, label, epoch=1):
+def _hold_fold_append(table, msn, cursor, cap, label, epoch=1,
+                      cluster=None):
     """The append form against `fold_append_ref` on the same CUDA
-    inputs: the whole log, counts, the cursor and the table."""
+    inputs: the whole log, counts, the cursor and the table; the kernel
+    at the cluster size the wrapper picks, or at `cluster`."""
     KK = table.props.shape[-1]
     lead = tuple(table.length.shape[:-1])
     g = torch.Generator().manual_seed(cap)
@@ -1307,7 +1309,9 @@ def _hold_fold_append(table, msn, cursor, cap, label, epoch=1):
     cur = torch.as_tensor(np.broadcast_to(np.asarray(cursor, np.int32),
                                           lead).copy()).to(table.device)
     outs = []
-    for fn in (tov.fold_append, tov.fold_append_ref):
+    kernel = tov.fold_append if cluster is None else (
+        lambda *a: tov.overlay_fold_kernel.append(*a, cluster=cluster))
+    for fn in (kernel, tov.fold_append_ref):
         log, counts = log0.clone(), counts0.clone()
         t, c = fn(table, msn, log, counts, cur, epoch)
         outs.append((t, log, counts, c))
@@ -1360,6 +1364,68 @@ def test_fold_kernel_random_stacks(cuda, D, W, KR, KK):
                        f"D{D} W{W}")
     _hold_fold_append(t, msn, W // 3, 2 * W, f"D{D} W{W} append")
     _hold_fold_append(t, msn, 2 * W, 2 * W, f"D{D} W{W} clamped")
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_fold_kernel_cluster_sizes(cuda, G):
+    """The fold kernel with its cluster size forced to G: every table
+    of `testing/fold_edges.py` (the tile-boundary cases among them) at
+    W 1024 and 2048, and random stacks of D = 8 and 132 at the bench
+    geometry, both forms, against the plain versions on the same CUDA
+    inputs, exactly; one launch a call."""
+    from fluidframework_tpu_torch.testing.fold_edges import (
+        edge_cases, random_table,
+    )
+
+    before = tov.overlay_fold_kernel.launches
+    n = 0
+    for W in (1024, 2048):
+        for case in edge_cases(W, 4, 8, seed=W + G):
+            t = interop.table_from_numpy(case.table, cuda)
+            msn = torch.as_tensor(np.asarray(case.msn, np.int32)).to(cuda)
+            label = f"{case.name} W{W} G{G}"
+            _assert_fold_equal(tov.overlay_fold_kernel(t, msn, cluster=G),
+                               tov.fold_device_ref(t, msn), label)
+            _hold_fold_append(t, msn, case.cursor, case.cap, label,
+                              cluster=G)
+            n += 2
+    rng = np.random.default_rng(G)
+    for D in (8, 132):
+        t = interop.table_from_numpy(random_table(rng, 2048, 24, 8, D=D),
+                                     cuda)
+        msn = torch.as_tensor(rng.integers(0, 100, D).astype(np.int32)
+                              ).to(cuda)
+        _assert_fold_equal(tov.overlay_fold_kernel(t, msn, cluster=G),
+                           tov.fold_device_ref(t, msn), f"D{D} G{G}")
+        _hold_fold_append(t, msn, 2048, 4096, f"D{D} G{G} append",
+                          cluster=G)
+        n += 2
+    assert tov.overlay_fold_kernel.launches - before == n
+
+
+def test_fold_kernel_picked_cluster_sizes(cuda):
+    """The cluster size the wrapper picks for D = 1, 4, 8, 32 and 132
+    documents of 2048 rows on this card (8, 8, 8, 4, 1 on 132 SMs),
+    each fold exact against the plain version; an empty launch of the
+    same shape is accepted and not counted."""
+    from fluidframework_tpu_torch.testing.fold_edges import random_table
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rng = np.random.default_rng(5)
+    for D in (1, 4, 8, 32, 132):
+        t = interop.table_from_numpy(random_table(
+            rng, 2048, 24, 8, D=None if D == 1 else D), cuda)
+        msn = torch.as_tensor(rng.integers(0, 100, (D,) if D > 1 else ())
+                              .astype(np.int32)).to(cuda)
+        _assert_fold_equal(tov.fold_device(t, msn),
+                           tov.fold_device_ref(t, msn), f"D{D}")
+        if sms == 132:
+            assert tov.fold_cluster(D, 2048, 8, sms) == {
+                1: 8, 4: 8, 8: 8, 32: 4, 132: 1}[D]
+        before = tov.overlay_fold_kernel.launches
+        tov.overlay_fold_kernel.launch_empty(cuda, D, 2048, 8)
+        torch.cuda.synchronize()
+        assert tov.overlay_fold_kernel.launches == before
 
 
 def test_fold_kernel_on_replay_chunks(cuda):

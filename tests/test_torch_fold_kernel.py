@@ -4,9 +4,10 @@ version vs the JAX package's `fold_device` and `replay_chunk_step`.
 On the CPU, tolerance 0 (int32):
 
 - the kernel's own source runs on the host through
-  `testing/fold_host_emu.py` (g++, an OS thread per CUDA thread: the
-  threads' row ranges, the warp and block scans, the computed
-  destinations, the clamped append) and is held to `fold_device_ref`
+  `testing/fold_host_emu.py` (g++, an OS thread per CUDA thread, the
+  CTAs of a cluster at once: the tiles and segments, the warp scans,
+  the cluster's exchange over distributed shared memory, the maps and
+  runs, the clamped append) and is held to `fold_device_ref`
   on the whole output table, the whole ``[W, 5+KK]`` record block and
   n_rec; both are held to the JAX `fold_device` on the same table,
   document by document;
@@ -15,8 +16,11 @@ On the CPU, tolerance 0 (int32):
   counts and the cursor, at cursors that fit and that lie past the
   log's capacity (the start clamps);
 - shapes W 1024 and 2048 x KR 1, 4, 24 x KK 1, 8 x D 1, 3 on random
-  tables; the edge tables of `testing/fold_edges.py`; the tables a
-  lagged stream's replay leaves after each of its first chunks;
+  tables; the edge tables of `testing/fold_edges.py` (the tile-boundary
+  cases among them); the tables a lagged stream's replay leaves after
+  each of its first chunks; each at the cluster size the wrapper picks
+  and at G = 1, 2, 4 and 8 forced (the ``_per_cluster`` tests), and
+  some with tiles forced into several segments;
 - the port's `replay_chunk_step` (plain kernel A, then the plain fold
   and append, and the same with the emulated fold) against the JAX
   `replay_chunk_step` (Pallas in interpret mode) chunk by chunk:
@@ -46,6 +50,7 @@ FIELDS = ("n_rows", "anchor", "buf_start", "length", "ins_seq", "ins_client",
 SHAPES = [(W, KR, KK, D) for W in (1024, 2048) for KR in (1, 4, 24)
           for KK in (1, 8) for D in (1, 3)]
 EDGES = [c.name for c in edge_cases()]
+CLUSTERS = [1, 2, 4, 8]
 
 
 @pytest.fixture(autouse=True)
@@ -92,11 +97,14 @@ def _msn_arg(msn):
         else int(msn)
 
 
-def _hold_fold(table_np: dict, msn, what: str) -> None:
-    """Emulated kernel == plain version == JAX, whole outputs."""
+def _hold_fold(table_np: dict, msn, what: str, cluster=None,
+               segment=None) -> None:
+    """Emulated kernel == plain version == JAX, whole outputs; the
+    kernel in clusters of `cluster` CTAs staging `segment` rows at once
+    (None: the wrapper's choice)."""
     table = interop.table_from_numpy(table_np, "cpu")
     want = tov.fold_device_ref(table, _msn_arg(msn))
-    got = fold_host_emu.run(table, _msn_arg(msn))
+    got = fold_host_emu.run(table, _msn_arg(msn), cluster, segment)
     _assert_tables_equal(got[0], want[0], what)
     assert torch.equal(got[1], want[1]), f"{what}: records"
     assert torch.equal(got[2], want[2]), f"{what}: n_rec"
@@ -114,9 +122,14 @@ def _hold_fold(table_np: dict, msn, what: str) -> None:
 
 
 def _hold_append(table_np: dict, msn, cursor, cap: int, what: str,
-                 epoch: int = 2, n_epochs: int = 5) -> None:
+                 epoch: int = 2, n_epochs: int = 5, cluster=None,
+                 segment=None) -> None:
     """Emulated append == plain append, on the whole log, counts and
     cursor; neither writes the input table."""
+    def emulated(*args):
+        return fold_host_emu.run_append(*args, cluster=cluster,
+                                        segment=segment)
+
     table = interop.table_from_numpy(table_np, "cpu")
     lead = _lead(table)
     KK = table.props.shape[-1]
@@ -129,8 +142,7 @@ def _hold_append(table_np: dict, msn, cursor, cap: int, what: str,
         np.asarray(cursor, np.int32), lead).copy())
     before = {f: getattr(table, f).clone() for f in FIELDS}
     logs, counts, outs = [], [], []
-    for fn in (tov.fold_append_ref, fold_host_emu.run_append,
-               tov.fold_append):
+    for fn in (tov.fold_append_ref, emulated, tov.fold_append):
         log, cnt = log0.clone(), counts0.clone()
         outs.append(fn(table, _msn_arg(msn), log, cnt, cur, epoch))
         logs.append(log)
@@ -159,6 +171,20 @@ def test_random_tables(W, KR, KK, D):
         _hold_append(t, msn, cursor, cap, f"W{W} D{D} cursor {cursor}")
 
 
+@pytest.mark.parametrize("G", CLUSTERS)
+@pytest.mark.parametrize("W,KR,KK,D", SHAPES)
+def test_random_tables_per_cluster(W, KR, KK, D, G):
+    """`test_random_tables` with the cluster size forced to each G."""
+    rng = np.random.default_rng(1000 * W + 10 * KR + KK + D)
+    t = random_table(rng, W, KR, KK, D=None if D == 1 else D)
+    msn = 50 if D == 1 else np.asarray([10, 50, 90], np.int32)
+    _hold_fold(t, msn, f"W{W} KR{KR} KK{KK} D{D} G{G}", cluster=G)
+    cap = W + 300
+    for cursor in (200, cap):
+        _hold_append(t, msn, cursor, cap, f"W{W} D{D} G{G} cursor {cursor}",
+                     cluster=G)
+
+
 @pytest.mark.parametrize("name", EDGES)
 @pytest.mark.parametrize("W", [1024, 2048])
 def test_edge_tables(name, W):
@@ -166,6 +192,67 @@ def test_edge_tables(name, W):
     _hold_fold(case.table, case.msn, f"{name} W{W}")
     _hold_append(case.table, case.msn, case.cursor, case.cap,
                  f"{name} W{W} append")
+
+
+@pytest.mark.parametrize("G", CLUSTERS)
+@pytest.mark.parametrize("name", EDGES)
+@pytest.mark.parametrize("W", [1024, 2048])
+def test_edge_tables_per_cluster(name, W, G):
+    """`test_edge_tables` with the cluster size forced to each G (the
+    tile-boundary cases among them)."""
+    case = next(c for c in edge_cases(W, 4, 8, seed=W) if c.name == name)
+    _hold_fold(case.table, case.msn, f"{name} W{W} G{G}", cluster=G)
+    _hold_append(case.table, case.msn, case.cursor, case.cap,
+                 f"{name} W{W} G{G} append", cluster=G)
+
+
+@pytest.mark.parametrize("segment", [64, 100, 256])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("name", ["every_row_live", "int32_wraparound",
+                                  "docs_msn_per_document",
+                                  "w_not_divided_by_cluster",
+                                  "folding_rows_in_last_tile_only"])
+def test_segmented_tiles(name, G, segment):
+    """Tiles staged in several segments (forced short here; the wrapper
+    takes more than one only above 8 x 4096 rows): each segment staged
+    twice, its partial ranks carried from the segments before it."""
+    case = next(c for c in edge_cases(1024, 4, 8, seed=3) if c.name == name)
+    what = f"{name} G{G} segment {segment}"
+    _hold_fold(case.table, case.msn, what, cluster=G, segment=segment)
+    _hold_append(case.table, case.msn, case.cursor, case.cap,
+                 f"{what} append", cluster=G, segment=segment)
+
+
+def test_wrapper_geometry():
+    """The cluster size and segment the wrapper picks: the largest
+    power of two up to 8 with D G <= 132 SMs and 128 rows a CTA, then
+    larger where a tile would not fit one segment (4096 rows, fewer
+    where the props fill shared memory); forced sizes outside the
+    kernel's range raise."""
+    picks = {(D, W): tov.fold_cluster(D, W, 8) for D in (1, 4, 8, 32, 132)
+             for W in (1024, 2048, 8192)}
+    assert [picks[D, 2048] for D in (1, 4, 8, 32, 132)] == [8, 8, 8, 4, 1]
+    assert picks[1, 1024] == 8 and picks[132, 8192] == 4
+    assert tov.fold_cluster(1, 200, 8) == 1
+    assert tov.fold_cluster(1, 256, 8) == 2
+    assert tov.fold_cluster(132, 40000, 8) == 8
+    assert tov.fold_cluster(66, 2048, 8) == 2
+    assert tov.fold_cluster(16, 2048, 8, sms=64) == 4
+    assert tov.fold_cluster(132, 4096, 1) == 1
+    assert tov.fold_max_segment(8) == 3416
+    assert tov.fold_max_segment(1) == 4096
+    geo = tov.OverlayFoldKernel.geometry
+    assert geo(1, 2048, 8) == (8, 256)
+    assert geo(132, 2048, 8) == (1, 2048)
+    assert geo(1, 1000, 8) == (4, 252)
+    assert geo(1, 1000, 8, cluster=8) == (8, 128)
+    assert geo(132, 40000, 8) == (8, 3416)
+    assert geo(1, 2048, 8, cluster=1, segment=101) == (1, 104)
+    assert geo(1, 9, 8, cluster=8) == (8, 4)
+    for bad in (dict(cluster=3), dict(cluster=16), dict(segment=0),
+                dict(segment=3417)):
+        with pytest.raises(ValueError):
+            geo(1, 2048, 8, **bad)
 
 
 GEOM = dict(initial_len=64, chunk_size=128, window=1024, n_removers=8)
@@ -177,9 +264,7 @@ def lagged():
                                        window=512, initial_len=64)
 
 
-def test_replay_tables(lagged):
-    """The tables a lagged replay leaves after kernel A, chunk by chunk:
-    the emulated fold == the plain fold == JAX on each."""
+def _hold_replay_tables(lagged, cluster=None) -> None:
     rep = OverlayDeviceReplica(interop.stream_from_numpy(lagged),
                                device="cpu", **GEOM)
     rep.prepare()
@@ -188,9 +273,22 @@ def test_replay_tables(lagged):
         ops = rep._dev.slice(ci * rep.chunk_size, (ci + 1) * rep.chunk_size)
         table = tov.overlay_apply_chunk(table, ops)
         msn = int(rep._msn_by_chunk[ci])
-        _hold_fold(interop.table_to_numpy(table), msn, f"chunk {ci}")
+        _hold_fold(interop.table_to_numpy(table), msn, f"chunk {ci}",
+                   cluster=cluster)
         table = tov.fold_device_ref(table, msn)[0]
     assert int(table.n_rows) > 0
+
+
+def test_replay_tables(lagged):
+    """The tables a lagged replay leaves after kernel A, chunk by chunk:
+    the emulated fold == the plain fold == JAX on each."""
+    _hold_replay_tables(lagged)
+
+
+@pytest.mark.parametrize("G", CLUSTERS)
+def test_replay_tables_per_cluster(lagged, G):
+    """`test_replay_tables` with the cluster size forced to each G."""
+    _hold_replay_tables(lagged, cluster=G)
 
 
 def test_replay_steps_match_jax(lagged):
