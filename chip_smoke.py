@@ -64,7 +64,7 @@ Phases, in order; any failure exits non-zero:
    prop keys, chunks of 256 ops), exactly (tolerance 0) on n_rows,
    error and rows [:n_rows]: the first 16 chunks of the same stream
    with a compaction every 4 chunks as the replica runs it (each one
-   the compaction kernel, `compact_gather_text`'s three launches of
+   the compaction kernel, `compact_gather_text`'s one launch of
    `csrc/zamboni.cu`, held against its plain version
    `compact_gather_text_ref` on the card, exactly: the whole table,
    n_rows, error and the whole new arena), a
@@ -84,14 +84,15 @@ Phases, in order; any failure exits non-zero:
    the schedule of one uninterrupted replay (plus one scalar read when
    it resumes), and the table the first call leaves is kept. The
    launches must equal the chunk count, the compaction kernel's
-   launches the compactions times three, and the digest must equal
+   launches the compactions times one, and the digest must equal
    GOLDEN.json's stage digest at that depth;
 7. the chunks from k to the end of that replay, on the kept table
    (tens of thousands of rows), kernel against plain version again,
    exactly; both are timed there. Then the replay's compaction after
    chunk k + 4: the compaction kernel against its plain version again,
    exactly, and both timed (the kernel behind a spin, and both by CUDA
-   events around back-to-back calls) beside the kernel's bound.
+   events around back-to-back calls) beside the kernel's bound and the
+   earlier three-launch design's time.
 
 8. (in the background, from here on) lagged streams of 100k ops for
    many documents: the DOC_SEEDS of `testing/golden.py` with the
@@ -376,7 +377,7 @@ launches of each path, the kernel fold's runs, the scan engine's run
 and split, and the summary role's runs (phase 29; kernel A's entry has
 their overlay launches); the zamboni's, its launches on the scan
 engine's path and in the smoke; the compaction's, its launches on the
-row replay, three a compaction; phase 30's sharded paths in the
+row replay, one a compaction; phase 30's sharded paths in the
 path_launches of kernel A, the sequencer and the scan, with kernel A's
 entry holding the dry run's report and the sharded docs replay's
 timing, the sequencer's the sharded deli's; the fold kernel's, its
@@ -608,6 +609,11 @@ ZAMBONI_EDGE_CAPACITIES = (1024, 16384, 131072)
 # prefix adds (2); per run the length's subtract (1); and one select per
 # output int.
 ZAMBONI_OPS_LIVE, ZAMBONI_OPS_KEPT, ZAMBONI_OPS_RUN = 5, 10, 1
+# Phase 7's deep compaction under the compaction's earlier design (three
+# launches: zb_tiles, zb_rows and a text gather reading the kept rows'
+# offsets back from a global scratch), ms a call behind a spin on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's time.
+COMPACTION_THREE_LAUNCH_MS = 0.030549
 # The scan engine's stages that phase 27's split run times from outside
 # the replica (`scan_engine_run(split=True)`): the chunk's upload, the
 # scan launch, and compact() with its pull and push.
@@ -4710,7 +4716,8 @@ def main() -> int:
         f"calls), {comp_path_ms:.6f} ms back to back; the plain version "
         f"(torch ops on the card, the parent's path) {comp_plain_ms:.6f} ms "
         f"back to back; bound {comp_bound_ms:.6f} ms ({comp_bound_by}), "
-        f"share {comp_bound_ms / comp_ms:.4f}; {smi}")
+        f"share {comp_bound_ms / comp_ms:.4f}; the three-launch design "
+        f"{COMPACTION_THREE_LAUNCH_MS:.6f} ms; {smi}")
 
     n_ins_d = sum(int((b.op_type == OP_INSERT).sum()) for _, b in deep)
     n_rng_d = sum(int(((b.op_type == OP_REMOVE)
@@ -5319,6 +5326,8 @@ def main() -> int:
         "plain_on": "cuda",
         "ms_back_to_back": comp_path_ms,
         "launches_per_call": comp_launches_per_call,
+        "design": "one launch: tiles by ticket, a decoupled look-back, "
+                  "each tile moving its own text",
         "path_launches": {"row_replay": launches_c},
         "compactions": rrep.compactions,
         "held_compactions": held_c,

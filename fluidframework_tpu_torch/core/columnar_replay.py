@@ -10,7 +10,7 @@ document order, one row per segment).
   `apply_chunk_at` (the hand-written CUDA kernel
   ``csrc/mergetree_chunk.cu`` on the card, its plain PyTorch version on
   the CPU), and every `sync_interval` chunks `compact_gather_text`
-  (the hand-written kernel ``csrc/zamboni.cu``, three launches, on the
+  (the hand-written kernel ``csrc/zamboni.cu``, one launch, on the
   card; its plain version on the CPU) drops settled tombstones,
   re-gathers the live text into a fresh device arena and coalesces
   settled runs. The host reads ``n_rows``

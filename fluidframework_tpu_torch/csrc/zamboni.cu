@@ -1,7 +1,7 @@
 // Row-model compactions for Hopper (sm_90a): the zamboni and the chunk
-// path's full compaction, one device-wide, stable, multi-column
-// compaction of a segment table in two launches (the zamboni) or three
-// (the compaction, with its text gather), with no host sync.
+// path's full compaction, each a device-wide, stable, multi-column
+// compaction of a segment table with no host sync: the zamboni in two
+// launches, the compaction (with its text move) in one.
 //
 // Replaces two XLA functions of fluidframework_tpu/ops/zamboni.py:
 //
@@ -43,64 +43,99 @@
 //   spans are disjoint and lie inside one region (or in neither), with
 //   non-negative lengths summing to at most 2^31 - 1: every table the
 //   replay produces. Outside that domain the sweep's result depends on
-//   the scatter order, and the gather only stays in bounds.
+//   the scatter order, and the kernel only stays in bounds.
 //
-// Design: reduce, then scan. The table is cut into G tiles of TILE =
-// 512 rows, one block of NT = 256 threads a tile (2 consecutive rows a
-// thread). A run's start depends on the previous kept row, which may lie
-// in any earlier tile, so run starts are counted only after kept rows
-// are placed, in this order:
+// The zamboni (reduce, then scan; its two-launch design): tiles of
+// TILE = 512 rows, one block of NT = 256 threads a tile. `zb_tiles`
+// counts each tile's kept rows, their lengths and their run starts
+// (a tile's first kept row is decided against the tile before where
+// that tile keeps a row, else left pending) and publishes them with the
+// keep and start flags as ballot words; `zb_rows`, a programmatic
+// dependent launch, scans every tile's aggregate itself, resolves a
+// pending flag, writes each run's output row, the tile's runs' wide
+// columns as one contiguous range and the fills at and above m.
 //
-//   1. zb_tiles (G blocks): each tile tests its rows' keep flags, counts
-//      its kept rows, sums their lengths, and tests the start flag of
-//      each kept row but its first against the kept row before it in
-//      the tile. Its first kept row's flag needs the previous kept row:
-//      the tile reads the keep flags of the tile before it too, so the
-//      flag is decided here whenever that tile keeps a row (else it is
-//      left pending, -1). It publishes these aggregates, the local
-//      length prefix of its last start, and its keep and start flags as
-//      ballot words (two a warp each);
-//   2. zb_rows (G blocks): each tile scans the aggregates of every tile
-//      itself (no launch is spent on them): kept-row, length and run
-//      offsets, m and the total, resolving a pending first-row flag
-//      against the last kept row of the tiles before (the scan's max)
-//      and taking the new offset of the last start before it. From its
-//      flag words and lengths, each start row writes its run's output
-//      row and the length of the run before it (the last start also
-//      its own); the wide columns of a tile's runs go out as one
-//      contiguous range, element by element; each tile fills its rows
-//      at and above m with 16-byte stores. The compaction also writes
-//      each kept row's new offset and buf_start in packed order, and for
-//      each arena tile of GT elements the kept row that owns its first
-//      element;
-//   3. zb_gather (the compaction only, ceil(A / GT) blocks): a block
-//      stages the kept rows that own its GT elements (from the tile map,
-//      no search), marks where each starts, and a block max-scan gives
-//      every element its row; each element then reads its text (or 0).
+// The compaction: one launch, a single pass with a decoupled look-back.
+// G tiles of TILE rows and E = clamp(G / 8, 1, 32) blocks more, NT
+// threads a block. Each block takes a ticket from a counter in the
+// scratch (atomicAdd) and works on ticket order, not on blockIdx: a
+// block waits only on blocks that took their tickets before it, which
+// are all running, so the grid cannot deadlock. The last block to end
+// sets the counter back to 0 (and its done counter). With
+// L = min(max(n_rows, 0), C) the live rows and t_L the tile of row
+// L - 1, tickets 0 .. t_L are tiles that may keep rows and every later
+// ticket is a free block. A tile block:
 //
-// The zamboni is launches 1-2, the compaction 1-3. Launches 2 and 3 are
-// programmatic dependent launches: their blocks start while the launch
-// before still runs, load what depends only on the call's inputs, and
-// wait for it (`wait_for_prior_launch`) before they read its scratch,
-// which hides the gap between launches. Beyond that wait, the launches'
-// order on the stream is the only synchronisation: no grid barrier, no
-// atomics, and every output int is written by one thread. Scratch
-// (allocated by the wrapper, reused per capacity): NA + 32 ints a tile;
-// for the compaction also two ints a row (new offsets and buf_start of
-// the kept rows), two totals and one int an arena tile.
+//   1. stages its live rows' rem_seq, buf_start, length, ins_seq,
+//      ins_client and [rows, KK] props in shared memory (`cp.async.bulk`
+//      reported to an mbarrier where the slice is 16-byte aligned and a
+//      multiple of 16 bytes, else 4-byte `cp.async`), each column read
+//      once; meanwhile warp 0 reads rem_seq of the 32 rows before the
+//      tile and, where one of them is kept, its ins_seq and props;
+//   2. scans the tile in shared memory: keep flags, kept count, length
+//      sum, start flags (the tile's first kept row's against the kept
+//      row found in step 1, else pending), the local offset of each kept
+//      row and start; it publishes its aggregate (below) and lays out
+//      its kept rows' (offset, buf_start) and its run list in shared
+//      memory;
+//   3. writes its output rows at and above L (only tile t_L has any);
+//      warp 0 looks back (below) while warps 1-7 read the tile's text
+//      (up to TEXT_CAP ints) into shared memory: each element finds its
+//      kept row by a binary search over the staged offsets, so a row of
+//      any length is spread over threads;
+//   4. with the prefix of the tiles before it (runs r0, text offset
+//      len0, the last kept row and the offset of the last start)
+//      resolves a pending first flag (the rows' fields are inputs, so
+//      no ordering is needed) and publishes its inclusive prefix; then
+//      each start writes its run's narrow columns and the length of the
+//      run before it; the runs' rem_clients (from device memory) and
+//      props (staged) go out as one contiguous range of rows; the text goes to
+//      arena[len0, len0 + tile length) clipped to [0, A), one store an
+//      element.
 //
-// What bounds it on this card: bytes, at 3.35 TB/s. The function must
-// read rem_seq of every live row (the keep test), buf_start, length,
-// ins_seq and the KK props of the kept rows (the merge test, the text
-// offsets) and ins_client and the KR removers of the run firsts alone,
-// and write all C rows of 5 + KR + KK int32 columns once; the
-// compaction also reads the text it moves and writes the A-element
-// arena. At C 131072, KR 24, KK 8 the table's writes alone are 19.4 MB,
-// about 5.8 us: most of the bound, so the fills use 16-byte stores and
-// every other step is kept to a few dependent loads. Launch 1 reads the
-// previous tile's rem_seq again and launch 2 the G tile aggregates; the
-// wide rem_clients columns move once, as in the plain version's gather
-// of run firsts.
+// A free block, the w-th of W, writes the output rows of its tile (when
+// its ticket is a tile past t_L: all of them lie at or above L) at once;
+// sums the aggregates of tiles 0 .. t_L for the total text length (no
+// junction to decide, so it waits on no tile's prefix) and writes its
+// share of the arena's tail [min(total, A), A); then looks back from
+// t_L + 1 for the run count m and the last start's offset and writes its
+// share of rows [m, L). The first free block writes n_rows, error and
+// the last run's length (total minus its offset). Every output int is
+// written once.
+//
+// The look-back, in the style of single-pass prefix scans. A tile's
+// aggregate over a range of tiles is (kept rows, their length sum,
+// first and last kept row, the first kept row's start flag: 1, 0 or
+// pending, the starts among the other kept rows, the local offset of
+// the last of those). Two aggregates combine associatively: the
+// junction's flag is the later one's first flag where decided, else the
+// merge test of the earlier one's last kept row and the later one's
+// first kept row (read from the inputs). Each tile publishes its
+// aggregate (flag AGGREGATE), then its inclusive prefix (PREFIX), in a
+// 16-int record of the scratch: the fields, then the status word
+// (epoch << 2 | flag) by a release store; a reader loads the status by
+// an acquire load, then the fields. The epoch is the wrapper's call
+// count on this scratch (30 bits, never 0, passed by value), so a
+// status left by an earlier call never reads as ready. Warp 0 reads 32
+// statuses at once, spins until the lanes up to the nearest PREFIX are
+// ready, combines those 32 aggregates by a warp tree, and moves 32
+// tiles back while it has found no PREFIX.
+//
+// What bounds it on this card: bytes, at 3.35 TB/s. The compaction must
+// read rem_seq of every live row, buf_start, length, ins_seq and the KK
+// props of the kept rows, ins_client and the KR removers of the run
+// firsts and the text it moves, and write all C rows of 5 + KR + KK int32
+// columns and the A-int arena once. At C 131072, KR 24, KK 8 the table's
+// writes alone are 19.4 MB (5.8 us) and the arena 10.5 MB (3.1 us): most
+// of the bound, and most of them fills, which go out evict-first so
+// that L2 keeps what the tiles read. The latency is the stage's first
+// copy, the scan, and the look-back chain (an L2 round trip a window of
+// 32 tiles, after the slowest tile before has published); the arena's
+// tail waits on every tile's aggregate, the rows [m, L) on tile t_L's
+// prefix. The earlier design took three launches (`zb_tiles`, `zb_rows`, a
+// text gather reading the kept rows' offsets back from a global
+// scratch): 0.030549 ms at phase 7's table on an H100 80GB HBM3 at
+// 700 W (5.962, 14.925, 18.165 us by the profiler).
 
 #include <cuda_runtime.h>
 
@@ -111,8 +146,6 @@ constexpr int RPT = 2;           // rows a thread
 constexpr int TILE = NT * RPT;   // rows a tile
 constexpr int WARPS = NT / 32;
 constexpr int WORDS = WARPS * RPT;  // flag words a tile, of each kind
-constexpr int GT = 2048;         // arena elements a gather block
-constexpr int EPT = GT / NT;     // arena elements a gather thread
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NOT_REMOVED = 2147483647;
 constexpr int NO_CLIENT = -3;
@@ -121,9 +154,9 @@ constexpr int STREAM_BASE = 1 << 28;
 constexpr int N_PTRS_ZAMBONI = 20;
 constexpr int N_PTRS_COMPACTION = 23;
 
-// A tile's aggregate (written by launch 1): field f of tile j is
-// agg[f * G + j], so that launch 2 reads each field of every tile in one
-// coalesced sweep. Then each tile's 2 WORDS flag words, at
+// The zamboni's tile aggregate (written by zb_tiles): field f of tile j
+// is agg[f * G + j], so that zb_rows reads each field of every tile in
+// one coalesced sweep. Then each tile's 2 WORDS flag words, at
 // words[j * 2 WORDS].
 enum {
     AG_KEEP,     // kept rows
@@ -135,11 +168,10 @@ enum {
     AG_FSTART,   // the first kept row starts a run: 1, 0, or -1 (pending)
     NA
 };
-constexpr int TILE_INTS = NA + 2 * WORDS;  // scratch ints a tile
+constexpr int TILE_INTS = NA + 2 * WORDS;  // zamboni scratch ints a tile
 
-// Shared memory (ints): scan scratch, the tile values of launch 2,
-// then launch 2's per-thread prefixes and run-first list, or a gather
-// block's element rows and staged kept rows.
+// The zamboni's shared memory (ints): scan scratch, the tile values of
+// zb_rows, its per-thread prefixes and run-first list.
 constexpr int MAXF = 8;                        // fields a scan
 constexpr int SH_SCAN = 0;                     // WARPS * MAXF
 constexpr int SH_AT = SH_SCAN + WARPS * MAXF;  // MAXF
@@ -147,16 +179,48 @@ constexpr int SH_REST = SH_AT + MAXF;
 constexpr int SH_LSG = SH_REST;                // NT
 constexpr int SH_PRE = SH_LSG + NT;            // NT
 constexpr int SH_LIST = SH_PRE + NT;           // TILE
-constexpr int SH_OWNER = SH_REST;              // GT
-constexpr int SH_OFF = SH_OWNER + GT;          // GT
-constexpr int SH_BUF = SH_OFF + GT;            // GT
 constexpr int SMEM_ROWS = SH_LIST + TILE;
-constexpr int SMEM_GATHER = SH_BUF + GT;
+
+// The compaction's scratch (ints): the ticket and done counters, then a
+// record of REC ints a tile: [0] the status word, [1, 8) the aggregate,
+// [9, 16) the inclusive prefix (fields in `Agg` order).
+constexpr int CNT_INTS = 32;
+constexpr int REC = 16;
+constexpr int REC_AGG = 0;     // the aggregate's int4 pair starts here
+constexpr int REC_PREFIX = 8;  // and the prefix's
+constexpr int ST_AGG = 1, ST_PREFIX = 2;
+constexpr int MAX_EXTRA = 32;  // free blocks past the tiles, at most
+constexpr int TEXT_CAP = 3072; // text ints a tile reads before its look-back
+
+// The compaction's shared memory (ints). block_exscan uses SH_SCAN.
+enum { M_TICKET, M_FIRST, M_FST, M_LSO, M_PK, M_PKRS, M_PKIS, M_LEN0, M_R0,
+       M_PS, M_HASPS, M_M, M_TOTAL, M_LASTS, M_NONE };
+constexpr int SC_MISC = SH_SCAN + WARPS * MAXF;  // 32
+constexpr int SC_BAR = SC_MISC + 32;             // the mbarrier (4 ints)
+constexpr int SC_COLS = SC_BAR + 4;              // 5 TILE: buf_start, length,
+                                                 // ins_seq, ins_client, rem_seq
+constexpr int SC_KOFF = SC_COLS + 5 * TILE;      // TILE: kept rows' local offsets
+constexpr int SC_KBUF = SC_KOFF + TILE;          // TILE: their buf_start
+constexpr int SC_LIST = SC_KBUF + TILE;          // TILE + 4: run list
+constexpr int SC_PRE = SC_LIST + TILE + 4;       // NT: each thread's last start
+constexpr int SC_TEXT = SC_PRE + NT;             // TEXT_CAP
+constexpr int SC_PROPS = SC_TEXT + TEXT_CAP;     // TILE KK, then KK (the row
+                                                 // before the tile)
+static_assert(SC_COLS % 4 == 0 && SC_PROPS % 4 == 0, "16-byte slices");
+
+__host__ __device__ constexpr long long compaction_smem(int KK) {
+    return 4LL * (SC_PROPS + (long long)(TILE + 1) * KK);
+}
+// The shared memory a block of sm_90 may opt in to: compaction_launch
+// refuses a KK past it (KK 99 and over); past 48 KB (KK 10 and over)
+// `launch` opts in.
+constexpr long long SMEM_OPT_IN = 227 * 1024;
 
 struct Args {
     int C, KR, KK, G;
-    int gather;          // 1: compact_gather_text, 0: zamboni
-    int A, S, GA;        // arena and stream text lengths, arena tiles
+    int A, S;            // arena and stream text lengths (compaction)
+    int grid;            // blocks of the compaction's launch
+    unsigned epoch;      // the compaction's call count on its scratch
     int msn_value;       // the MSN, where msn_ptr is null
     const int* msn_ptr;
     const int* n_rows_in;
@@ -164,24 +228,130 @@ struct Args {
     const int* col[5];   // buf_start, length, ins_seq, ins_client, rem_seq
     const int* rcl;      // [C, KR]
     const int* props;    // [C, KK]
-    const int* doc;      // [A]   (gather)
-    const int* stream;   // [S]   (gather)
+    const int* doc;      // [A]   (compaction)
+    const int* stream;   // [S]   (compaction)
     int* out[5];
     int* rcl_out;
     int* props_out;
     int* n_rows_out;
     int* err_out;
-    int* arena_out;      // [A]   (gather)
-    int* agg;            // [NA * G] tile aggregates
-    int* words;          // [G * 2 WORDS] keep and start flag words
-    int* off;            // [C] new offset of kept row d (gather)
-    int* sbuf;           // [C] buf_start of kept row d (gather)
-    int* tot;            // [2] kept rows, total length (gather)
-    int* tmap;           // [GA] kept row owning each arena tile's first
+    int* arena_out;      // [A]   (compaction)
+    int* agg;            // [NA * G] tile aggregates (zamboni)
+    int* words;          // [G * 2 WORDS] keep and start flag words (zamboni)
+    int* counter;        // [CNT_INTS] ticket, done (compaction)
+    int* tiles;          // [G * REC] tile records (compaction)
 };
 
-__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+// ---- Hopper primitives (PTX; the host emulation replaces this block) ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// zb_rows is a programmatic dependent launch: its blocks may start once
+// every block of zb_tiles has begun, read only inputs of the call until
+// `wait_for_prior_launch` returns (that launch done, its writes
+// visible), and so hide the gap between the launches.
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;");
+}
+
+__device__ __forceinline__ void wait_for_prior_launch() {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b, unsigned n) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(b)), "r"(n) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* b,
+                                               unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(b)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* b,
+                                          unsigned parity) {
+    unsigned done;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// Orders this thread's earlier shared-memory accesses before the
+// bulk-copy engine's writes that follow.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the bulk-copy engine, completion reported to `b`.
+__device__ __forceinline__ void bulk_load(int* dst, const int* src,
+                                          unsigned bytes,
+                                          unsigned long long* b) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(b))
+        : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// A status word: an acquire load (the fields read after it see what was
+// written before its release store) and that release store.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+    asm volatile("st.release.gpu.global.s32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+}
+
+// Another block's record fields, from L2 (not a stale L1 line).
+__device__ __forceinline__ int ld_cg(const int* p) { return __ldcg(p); }
+
+__device__ __forceinline__ int4 ld_cg4(const int* p) {
+    return __ldcg(reinterpret_cast<const int4*>(p));
+}
+
+// A fill's store, evict-first in L2 (`st.global.cs`): nothing reads the
+// fills soon, and as plain stores they push the rows and text that the
+// compaction's tiles read out of L2.
+__device__ __forceinline__ void st_stream(int* p, int v) { __stcs(p, v); }
+__device__ __forceinline__ void st_stream(int4* p, int4 v) { __stcs(p, v); }
+
+// ---- end of the PTX ----
+
+__host__ __device__ __forceinline__ int imax(int a, int b) {
+    return a > b ? a : b;
+}
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+    return a < b ? a : b;
+}
+__device__ __forceinline__ long long lmax(long long a, long long b) {
+    return a > b ? a : b;
+}
+__device__ __forceinline__ long long lmin(long long a, long long b) {
+    return a < b ? a : b;
+}
 __device__ __forceinline__ bool aligned16(const void* p) {
     return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
@@ -243,17 +413,6 @@ __device__ void block_exscan(int (&x)[N], int (&tot)[N], int* smem) {
     __syncthreads();  // the scratch may be reused right after
 }
 
-// Launches 2 and 3 are programmatic dependent launches: their blocks
-// may start once every block of the launch before has begun, read only
-// inputs of the call until `wait_for_prior_launch` returns (that launch
-// done, its writes visible), and so hide the gap between launches.
-__device__ __forceinline__ void launch_dependents() {
-    asm volatile("griddepcontrol.launch_dependents;");
-}
-__device__ __forceinline__ void wait_for_prior_launch() {
-    asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
 __device__ __forceinline__ int msn_of(const Args& a) {
     return a.msn_ptr ? *a.msn_ptr : a.msn_value;
 }
@@ -262,7 +421,29 @@ __device__ __forceinline__ bool keeps(int rem_seq, int msn) {
     return !(rem_seq != NOT_REMOVED && rem_seq <= msn);
 }
 
-// The merge test's narrow fields of a row.
+__device__ __forceinline__ bool settled(int rem_seq, int ins_seq, int msn) {
+    return rem_seq == NOT_REMOVED && ins_seq <= msn;
+}
+
+// Every prop of two rows equal (16-byte words where both rows are).
+__device__ bool same_props(const int* p, const int* q, int KK) {
+    int diff = 0;
+    if ((KK & 3) == 0 && aligned16(p) && aligned16(q)) {
+        const int4* p4 = reinterpret_cast<const int4*>(p);
+        const int4* q4 = reinterpret_cast<const int4*>(q);
+#pragma unroll 2
+        for (int k = 0; k < KK / 4; ++k) {
+            const int4 x = p4[k], y = q4[k];
+            diff |= (x.x ^ y.x) | (x.y ^ y.y) | (x.z ^ y.z) | (x.w ^ y.w);
+        }
+    } else {
+#pragma unroll 4
+        for (int k = 0; k < KK; ++k) diff |= p[k] ^ q[k];
+    }
+    return diff == 0;
+}
+
+// The zamboni's merge test's narrow fields of a row.
 struct Key {
     int rs, is, buf, len;  // rem_seq, ins_seq, buf_start, length
 };
@@ -271,56 +452,53 @@ __device__ __forceinline__ Key key_of(const Args& a, int i) {
     return Key{a.col[4][i], a.col[2][i], a.col[0][i], a.col[1][i]};
 }
 
-// Kept row s merges into the kept row p before it (see the header),
-// given both rows' narrow fields: one round trip to memory, for the
-// props, where the narrow fields allow a merge.
+// The zamboni: kept row s merges into the kept row p before it (see the
+// header), given both rows' narrow fields: one round trip to memory, for
+// the props, where the narrow fields allow a merge.
 __device__ bool merges(const Args& a, int p, const Key& kp, int s,
                        const Key& ks, int msn) {
-    const bool m = ks.rs == NOT_REMOVED && kp.rs == NOT_REMOVED &&
-                   ks.is <= msn && kp.is <= msn &&
-                   (a.gather || (unsigned)kp.buf + (unsigned)kp.len ==
-                                    (unsigned)ks.buf);
+    const bool m = settled(ks.rs, ks.is, msn) && settled(kp.rs, kp.is, msn) &&
+                   (unsigned)kp.buf + (unsigned)kp.len == (unsigned)ks.buf;
     if (!m) return false;
-    const int* ps = a.props + (long long)s * a.KK;
-    const int* pp = a.props + (long long)p * a.KK;
-    int diff = 0;
-    if ((a.KK & 3) == 0 && aligned16(a.props)) {
-        // rows of 16-byte words
-        const int4* qs = reinterpret_cast<const int4*>(ps);
-        const int4* qp = reinterpret_cast<const int4*>(pp);
-#pragma unroll 2
-        for (int k = 0; k < a.KK / 4; ++k) {
-            const int4 x = qs[k], y = qp[k];
-            diff |= (x.x ^ y.x) | (x.y ^ y.y) | (x.z ^ y.z) | (x.w ^ y.w);
-        }
-    } else {
-#pragma unroll 4
-        for (int k = 0; k < a.KK; ++k) diff |= ps[k] ^ pp[k];
-    }
-    return diff == 0;
+    return same_props(a.props + (long long)p * a.KK,
+                      a.props + (long long)s * a.KK, a.KK);
 }
 
-// Every int of p[lo, hi) set to v: 16-byte stores on the aligned middle.
+// The compaction: kept row s merges into kept row p, both read from the
+// inputs (a junction of the look-back).
+__device__ bool merges_rows(const Args& a, int p, int s, int msn) {
+    if (!settled(a.col[4][p], a.col[2][p], msn) ||
+        !settled(a.col[4][s], a.col[2][s], msn))
+        return false;
+    return same_props(a.props + (long long)p * a.KK,
+                      a.props + (long long)s * a.KK, a.KK);
+}
+
+// Every int of p[lo, hi) set to v: 16-byte stores on the aligned middle,
+// all evict-first (`st_stream`).
 __device__ void fill_range(int* p, long long lo, long long hi, int v) {
     if (lo >= hi) return;
     const long long a4 = (lo + 3) & ~3LL, b4 = hi & ~3LL;
     const long long head = a4 < hi ? a4 : hi;
-    for (long long e = lo + threadIdx.x; e < head; e += NT) p[e] = v;
+    for (long long e = lo + threadIdx.x; e < head; e += NT) st_stream(p + e, v);
     for (long long e = (a4 > b4 ? a4 : b4) + threadIdx.x; e < hi; e += NT)
-        p[e] = v;
+        st_stream(p + e, v);
     int4 v4;
     v4.x = v4.y = v4.z = v4.w = v;
     int4* q = reinterpret_cast<int4*>(p);
-    for (long long e = a4 / 4 + threadIdx.x; e < b4 / 4; e += NT) q[e] = v4;
+    for (long long e = a4 / 4 + threadIdx.x; e < b4 / 4; e += NT)
+        st_stream(q + e, v4);
 }
 
 // Rows list[0 .. ns) of the two wide columns (w1 and w2 units a row) to
 // rows r0 .. r0 + ns of their outputs, in one pass: element by element
 // (neighbouring threads on neighbouring units), U loads in flight a
-// thread.
+// thread. Row q of the first column is in1[(base1 + list[q]) w1 ..], of
+// the second in2[(base2 + list[q]) w2 ..].
 template <class T>
-__device__ void copy_rows(const T* in1, T* out1, int w1, const T* in2,
-                          T* out2, int w2, int r0, int ns, const int* list) {
+__device__ void copy_rows(const T* in1, long long base1, T* out1, int w1,
+                          const T* in2, long long base2, T* out2, int w2,
+                          int r0, int ns, const int* list) {
     constexpr int U = 8;
     const int n1 = ns * w1, n_el = n1 + ns * w2;
     out1 += (long long)r0 * w1;
@@ -332,10 +510,10 @@ __device__ void copy_rows(const T* in1, T* out1, int w1, const T* in2,
             const int e = e0 + u * NT + (int)threadIdx.x;
             if (e < n1) {
                 const int q = e / w1;
-                v[u] = in1[(long long)list[q] * w1 + (e - q * w1)];
+                v[u] = in1[(base1 + list[q]) * w1 + (e - q * w1)];
             } else if (e < n_el) {
                 const int f = e - n1, q = f / w2;
-                v[u] = in2[(long long)list[q] * w2 + (f - q * w2)];
+                v[u] = in2[(base2 + list[q]) * w2 + (f - q * w2)];
             }
         }
 #pragma unroll
@@ -347,20 +525,25 @@ __device__ void copy_rows(const T* in1, T* out1, int w1, const T* in2,
     }
 }
 
-// The removers and props of the tile's runs: in 16-byte words where the
-// rows of both are whole words, else in ints.
-__device__ void copy_runs(const Args& a, int r0, int ns, const int* list) {
+// The removers and props of ns runs whose first rows are list[0 .. ns)
+// (rows of the table, or with `staged_props`, rows of the tile staged at
+// that pointer, tile row 0 being table row `tile0`): in 16-byte words
+// where the rows of both are whole words, else in ints.
+__device__ void copy_runs(const Args& a, int r0, int ns, const int* list,
+                          const int* staged_props, int tile0) {
     if (ns == 0) return;
+    const int* pin = staged_props ? staged_props : a.props;
+    const long long pbase = staged_props ? 0 : tile0;
     if ((a.KR & 3) == 0 && (a.KK & 3) == 0 && aligned16(a.rcl) &&
-        aligned16(a.props) && aligned16(a.rcl_out) && aligned16(a.props_out))
-        copy_rows(reinterpret_cast<const int4*>(a.rcl),
+        aligned16(pin) && aligned16(a.rcl_out) && aligned16(a.props_out))
+        copy_rows(reinterpret_cast<const int4*>(a.rcl), tile0,
                   reinterpret_cast<int4*>(a.rcl_out), a.KR / 4,
-                  reinterpret_cast<const int4*>(a.props),
+                  reinterpret_cast<const int4*>(pin), pbase,
                   reinterpret_cast<int4*>(a.props_out), a.KK / 4, r0, ns,
                   list);
     else
-        copy_rows(a.rcl, a.rcl_out, a.KR, a.props, a.props_out, a.KK, r0, ns,
-                  list);
+        copy_rows(a.rcl, tile0, a.rcl_out, a.KR, pin, pbase, a.props_out,
+                  a.KK, r0, ns, list);
 }
 
 // Output rows [lo, hi) take the empty-row fills.
@@ -374,6 +557,8 @@ __device__ void fill_rows(const Args& a, long long lo, long long hi) {
     fill_range(a.rcl_out, lo * a.KR, hi * a.KR, NO_CLIENT);
     fill_range(a.props_out, lo * a.KK, hi * a.KK, PROP_ABSENT);
 }
+
+// ======================================================== the zamboni
 
 __global__ void zb_tiles(Args a) {
     extern __shared__ __align__(16) int smem[];
@@ -462,12 +647,11 @@ __global__ void zb_tiles(Args a) {
     }
 }
 
-// Launch 2's scan of every tile's aggregate: the values before tile t
-// and the totals, into smem[SH_AT ..]: kept-row offset, length offset,
-// run offset, the first kept row's start flag, the new offset of the
-// last start before the tile; n_keep, the total length, m.
-enum { AT_KEEP, AT_LEN, AT_START, AT_FSTART, AT_PREVPRE, AT_NKEEP, AT_TOTAL,
-       AT_M };
+// zb_rows' scan of every tile's aggregate: the values before tile t
+// and the totals, into smem[SH_AT ..]: length offset, run offset, the
+// first kept row's start flag, the new offset of the last start before
+// the tile; the total length, m.
+enum { AT_LEN, AT_START, AT_FSTART, AT_PREVPRE, AT_TOTAL, AT_M };
 
 __device__ void scan_tiles(const Args& a, int t, int msn, int* smem) {
     int ca[3] = {0, 0, -1};  // kept rows, lengths, last kept row
@@ -501,7 +685,6 @@ __device__ void scan_tiles(const Args& a, int t, int msn, int* smem) {
         block_exscan<2u, 2>(xb, tb, smem);
         if (j == t) {
             const int p = imax(cb[1], xb[1]);
-            smem[SH_AT + AT_KEEP] = ca[0] + xa[0];
             smem[SH_AT + AT_LEN] = (int)lenoff;
             smem[SH_AT + AT_START] = cb[0] + xb[0];
             smem[SH_AT + AT_FSTART] = fst;
@@ -519,7 +702,6 @@ __device__ void scan_tiles(const Args& a, int t, int msn, int* smem) {
         __syncthreads();  // SH_LSG is rewritten by the next round
     }
     if (threadIdx.x == 0) {
-        smem[SH_AT + AT_NKEEP] = ca[0];
         smem[SH_AT + AT_TOTAL] = ca[1];
         smem[SH_AT + AT_M] = cb[0];
     }
@@ -532,7 +714,7 @@ __global__ void zb_rows(Args a) {
     const int tile0 = t * TILE;
     const int row0 = tile0 + threadIdx.x * RPT;
     launch_dependents();
-    // The inputs first, while launch 1 may still run: the rows' length,
+    // The inputs first, while zb_tiles may still run: the rows' length,
     // buf_start and the fields a run's first row carries.
     int ln[RPT], fc[RPT][4];  // buf_start, ins_seq, ins_client, rem_seq
 #pragma unroll
@@ -554,7 +736,6 @@ __global__ void zb_rows(Args a) {
     }
     const int first = a.agg[AG_FIRST * a.G + t];
     scan_tiles(a, t, msn, smem);
-    const int keep0 = smem[SH_AT + AT_KEEP];
     const unsigned len0 = (unsigned)smem[SH_AT + AT_LEN];
     const int r0 = smem[SH_AT + AT_START];
     const bool fstart = smem[SH_AT + AT_FSTART] != 0;
@@ -595,50 +776,206 @@ __global__ void zb_rows(Args a) {
     __syncthreads();
     unsigned prev_pre = x[3] >= 0
         ? (unsigned)smem[SH_PRE + (x[3] - tile0) / RPT] : tile_prev_pre;
-    int d = keep0 + x[0];  // packed index of this thread's next kept row
-    int li = x[2];         // the tile's index of this thread's next start
+    int li = x[2];  // the tile's index of this thread's next start
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
-        if (!k[j]) continue;
-        const int i = row0 + j;
-        if (a.gather) {
-            a.off[d] = (int)pre[j];
-            a.sbuf[d] = fc[j][0];
-            const long long o = (int)pre[j], e = o + ln[j];
-            if (o >= 0 && ln[j] > 0) {  // the arena tiles whose first it owns
-                const long long last = (e - 1) / GT < a.GA ? (e - 1) / GT
-                                                           : a.GA - 1;
-                for (long long b = (o + GT - 1) / GT; b <= last; ++b)
-                    a.tmap[b] = d;
-            }
-        }
-        ++d;
         if (!s[j]) continue;
         const int r = r0 + li;
-        a.out[0][r] = a.gather ? (int)pre[j] : fc[j][0];
+        a.out[0][r] = fc[j][0];
         a.out[2][r] = fc[j][1];
         a.out[3][r] = fc[j][2];
         a.out[4][r] = fc[j][3];
         if (r > 0) a.out[1][r - 1] = (int)(pre[j] - prev_pre);
         if (r == m - 1) a.out[1][r] = (int)(total - pre[j]);
-        smem[SH_LIST + li] = i;
+        smem[SH_LIST + li] = row0 + j - tile0;
         prev_pre = pre[j];
         ++li;
     }
     __syncthreads();
     // The wide columns of the tile's runs: one contiguous output range.
-    const int ns = tot[2];
-    copy_runs(a, r0, ns, smem + SH_LIST);
+    copy_runs(a, r0, tot[2], smem + SH_LIST, nullptr, tile0);
     // The tile's output rows at and above m take the fills.
     fill_rows(a, imax(m, tile0), imin(a.C, tile0 + TILE));
     if (t == 0 && threadIdx.x == 0) {
         *a.n_rows_out = m;
         *a.err_out = *a.err_in;
-        if (a.gather) {
-            a.tot[0] = smem[SH_AT + AT_NKEEP];
-            a.tot[1] = (int)total;
-        }
     }
+}
+
+// ===================================================== the compaction
+
+// An aggregate over a range of tiles (see the header): kept rows, their
+// length sum, first and last kept row (-1: none), the first kept row's
+// start flag (1, 0, or -1 pending), the starts among the other kept
+// rows, and the offset of the last of those from the range's text start.
+struct Agg {
+    int keep;
+    unsigned len;
+    int first, last, fst, starts;
+    unsigned lso;
+};
+
+__device__ __forceinline__ Agg agg_none() {
+    return Agg{0, 0u, -1, -1, -1, 0, 0u};
+}
+
+// x then y (adjacent ranges, x first): associative, with agg_none() its
+// identity on both sides.
+__device__ Agg combine(const Args& a, const Agg& x, const Agg& y, int msn) {
+    if (x.keep == 0) return y;
+    if (y.keep == 0) return x;
+    const int j = y.fst >= 0 ? y.fst : !merges_rows(a, x.last, y.first, msn);
+    Agg r;
+    r.keep = x.keep + y.keep;
+    r.len = x.len + y.len;
+    r.first = x.first;
+    r.fst = x.fst;
+    r.last = y.last;
+    r.starts = x.starts + j + y.starts;
+    r.lso = y.starts ? x.len + y.lso : j ? x.len : x.lso;
+    return r;
+}
+
+__device__ __forceinline__ Agg shfl_down_agg(const Agg& v, int o) {
+    Agg r;
+    r.keep = __shfl_down_sync(FULL, v.keep, o);
+    r.len = (unsigned)__shfl_down_sync(FULL, (int)v.len, o);
+    r.first = __shfl_down_sync(FULL, v.first, o);
+    r.last = __shfl_down_sync(FULL, v.last, o);
+    r.fst = __shfl_down_sync(FULL, v.fst, o);
+    r.starts = __shfl_down_sync(FULL, v.starts, o);
+    r.lso = (unsigned)__shfl_down_sync(FULL, (int)v.lso, o);
+    return r;
+}
+
+// Tile t's record: its aggregate (at REC_AGG) or its inclusive prefix
+// (at REC_PREFIX), then the status word.
+__device__ void publish(const Args& a, int t, const Agg& g, int at,
+                        int flag) {
+    int* rec = a.tiles + (long long)t * REC;
+    rec[at + 1] = g.keep;
+    rec[at + 2] = (int)g.len;
+    rec[at + 3] = g.first;
+    rec[at + 4] = g.last;
+    rec[at + 5] = g.fst;
+    rec[at + 6] = g.starts;
+    rec[at + 7] = (int)g.lso;
+    st_release(rec, (int)((a.epoch << 2) | (unsigned)flag));
+}
+
+__device__ __forceinline__ Agg load_rec(const int* p) {
+    const int4 x = ld_cg4(p), y = ld_cg4(p + 4);
+    return Agg{x.y, (unsigned)x.z, x.w, y.x, y.y, y.z, (unsigned)y.w};
+}
+
+// Warp 0, lane l on tile base - l: spins until the records of this call
+// are ready on the lanes up to the nearest inclusive prefix (a tile
+// below 0 reads as a prefix of nothing); returns the lane of that prefix
+// (32: none in the window) and leaves each lane's status in `st`.
+__device__ int await_window(const Args& a, int base, int& st) {
+    const int k = base - (threadIdx.x & 31);
+    const int* rec = a.tiles + (long long)(k < 0 ? 0 : k) * REC;
+    for (;;) {
+        bool valid = true, pre = true;
+        if (k >= 0) {
+            st = ld_acquire(rec);
+            valid = ((unsigned)st >> 2) == a.epoch && (st & 3) != 0;
+            pre = valid && (st & 3) == ST_PREFIX;
+        }
+        const unsigned vm = __ballot_sync(FULL, valid);
+        const unsigned pm = __ballot_sync(FULL, pre);
+        const unsigned need = pm ? ((pm & (0u - pm)) << 1) - 1u : FULL;
+        if ((vm & need) == need) return pm ? __ffs(pm) - 1 : 32;
+    }
+}
+
+// The record of tile k that `await_window` found: its inclusive prefix
+// where the status says so, else its aggregate.
+__device__ __forceinline__ const int* ready_rec(const Args& a, int k, int st) {
+    return a.tiles + (long long)k * REC +
+           ((st & 3) == ST_PREFIX ? REC_PREFIX : REC_AGG);
+}
+
+// Warp 0: the combination of tiles [0, u), from their records.
+__device__ Agg look_back(const Args& a, int u, int msn) {
+    const int lane = threadIdx.x & 31;
+    Agg acc = agg_none();
+    for (int base = u - 1;; base -= 32) {
+        const int k = base - lane;
+        int st = 0;
+        const int lim = await_window(a, base, st);
+        Agg v = agg_none();
+        if (lane <= lim && k >= 0) v = load_rec(ready_rec(a, k, st));
+        // lane l holds tile base - l: a tree from the back
+        for (int o = 1; o < 32; o <<= 1) {
+            const Agg w = shfl_down_agg(v, o);
+            if ((lane & (2 * o - 1)) == 0) v = combine(a, w, v, msn);
+        }
+        // lane 0's window, to every lane
+        v.keep = __shfl_sync(FULL, v.keep, 0);
+        v.len = (unsigned)__shfl_sync(FULL, (int)v.len, 0);
+        v.first = __shfl_sync(FULL, v.first, 0);
+        v.last = __shfl_sync(FULL, v.last, 0);
+        v.fst = __shfl_sync(FULL, v.fst, 0);
+        v.starts = __shfl_sync(FULL, v.starts, 0);
+        v.lso = (unsigned)__shfl_sync(FULL, (int)v.lso, 0);
+        acc = combine(a, v, acc, msn);
+        if (lim < 32) return acc;
+    }
+}
+
+// Warp 0: the text length of tiles [0, u) alone, which needs only their
+// aggregates: a sum, with no junction to decide.
+__device__ unsigned look_back_len(const Args& a, int u) {
+    const int lane = threadIdx.x & 31;
+    unsigned acc = 0;
+    for (int base = u - 1;; base -= 32) {
+        const int k = base - lane;
+        int st = 0;
+        const int lim = await_window(a, base, st);
+        unsigned v = lane <= lim && k >= 0
+            ? (unsigned)ld_cg(ready_rec(a, k, st) + 2) : 0u;
+        for (int o = 16; o; o >>= 1)
+            v += (unsigned)__shfl_xor_sync(FULL, (int)v, o);
+        acc += v;
+        if (lim < 32) return acc;
+    }
+}
+
+// The tile's live rows [tile0, tile0 + nst) of the five narrow columns
+// and the props into shared memory: six contiguous slices, each by the
+// bulk-copy engine where it can take it, else by 4-byte copies; not
+// waited for here.
+__device__ void stage_tile(const Args& a, int tile0, int nst, int* smem) {
+    unsigned long long* bar = (unsigned long long*)(smem + SC_BAR);
+    const int* src[6];
+    int* dst[6];
+    int n[6];
+    for (int c = 0; c < 5; ++c) {
+        src[c] = a.col[c] + tile0;
+        dst[c] = smem + SC_COLS + c * TILE;
+        n[c] = nst;
+    }
+    src[5] = a.props + (long long)tile0 * a.KK;
+    dst[5] = smem + SC_PROPS;
+    n[5] = nst * a.KK;
+    bool bulk[6];
+    unsigned tx = 0;
+    for (int c = 0; c < 6; ++c) {
+        bulk[c] = n[c] % 4 == 0 && aligned16(src[c]);
+        tx += bulk[c] ? 4u * (unsigned)n[c] : 0u;
+    }
+    if (threadIdx.x == 0) {
+        fence_proxy_async();
+        mbar_arrive_tx(bar, tx);
+        for (int c = 0; c < 6; ++c)
+            if (bulk[c] && n[c])
+                bulk_load(dst[c], src[c], 4u * (unsigned)n[c], bar);
+    }
+    for (int c = 0; c < 6; ++c)
+        if (!bulk[c])
+            for (int i = threadIdx.x; i < n[c]; i += NT)
+                cp_async4(dst[c] + i, src[c] + i);
 }
 
 // The text of element i of a span whose buf_start is b (see the header).
@@ -654,66 +991,265 @@ __device__ __forceinline__ int fetch(const Args& a, int b, long long i) {
     return 0;
 }
 
-__global__ void zb_gather(Args a) {
+// Element i of the tile's text: the last of its kt kept rows whose local
+// offset is at most i (a zero-length row never owns an element).
+__device__ __forceinline__ int tile_text(const Args& a, const int* smem,
+                                         int kt, int i) {
+    const int* koff = smem + SC_KOFF;
+    int lo = 0, hi = kt;  // koff[lo] <= i < koff[hi]
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (koff[mid] <= i) lo = mid;
+        else hi = mid;
+    }
+    return fetch(a, smem[SC_KBUF + lo], (long long)i - koff[lo]);
+}
+
+// A tile that may keep rows: tile t, rows [tile0, tile0 + TILE), its
+// live rows [tile0, tile0 + nst).
+__device__ void tile_block(const Args& a, int t, int L, int msn, int* smem) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int tile0 = t * TILE, nst = imin(TILE, L - tile0);
+    int* misc = smem + SC_MISC;
+    const int* s_buf = smem + SC_COLS;
+    const int* s_len = s_buf + TILE;
+    const int* s_is = s_len + TILE;
+    const int* s_ic = s_is + TILE;
+    const int* s_rs = s_ic + TILE;
+    const int* s_props = smem + SC_PROPS;
+    int* s_pp = smem + SC_PROPS + TILE * a.KK;  // the kept row before
+    int* koff = smem + SC_KOFF;
+    int* kbuf = smem + SC_KBUF;
+    int* list = smem + SC_LIST;
+
+    // 1. the stage; warp 0 looks for a kept row among the 32 before the tile
+    stage_tile(a, tile0, nst, smem);
+    if (warp == 0) {
+        int pk = -1;
+        if (t > 0) {  // every row before the tile is live
+            const int i = tile0 - 32 + lane;
+            const unsigned b = __ballot_sync(FULL, keeps(a.col[4][i], msn));
+            pk = b ? tile0 - 32 + 31 - __clz((int)b) : -1;
+            if (pk >= 0)
+                for (int c = lane; c < a.KK; c += 32)
+                    s_pp[c] = a.props[(long long)pk * a.KK + c];
+        }
+        if (lane == 0) {
+            misc[M_PK] = pk;
+            if (pk >= 0) {
+                misc[M_PKRS] = a.col[4][pk];
+                misc[M_PKIS] = a.col[2][pk];
+            }
+        }
+    }
+    cp_async_wait_all();
+    mbar_wait((unsigned long long*)(smem + SC_BAR), 0);
+    __syncthreads();
+
+    // 2. the scan: kept rows, their lengths, the last kept row before
+    const int l0 = threadIdx.x * RPT;
+    bool k[RPT];
+    int x[3] = {0, 0, -1};
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+        const int li = l0 + j;
+        k[j] = li < nst && keeps(s_rs[li], msn);
+        if (k[j]) {
+            ++x[0];
+            x[1] = (int)((unsigned)x[1] + (unsigned)s_len[li]);
+            x[2] = li;
+        }
+    }
+    int tot[3];
+    block_exscan<4u, 3>(x, tot, smem);
+    const int kt = tot[0];
+    // start flags: the tile's first kept row against the row found in
+    // step 1 (else pending), every other kept row against the kept row
+    // before it in the tile
+    bool s[RPT];
+    unsigned pre[RPT], my_pre = 0;
+    int st[2] = {0, -1};  // starts but the first kept row, the last one
+    {
+        int prev = x[2], d = x[0];
+        unsigned p = (unsigned)x[1];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+            const int li = l0 + j;
+            s[j] = false;
+            pre[j] = p;
+            if (!k[j]) continue;
+            if (prev < 0) {
+                const int pk = misc[M_PK];
+                misc[M_FIRST] = li;
+                misc[M_FST] = t == 0 ? 1 : pk < 0 ? -1
+                    : !(settled(misc[M_PKRS], misc[M_PKIS], msn) &&
+                        settled(s_rs[li], s_is[li], msn) &&
+                        same_props(s_pp, s_props + li * a.KK, a.KK));
+            } else if (!(settled(s_rs[prev], s_is[prev], msn) &&
+                         settled(s_rs[li], s_is[li], msn) &&
+                         same_props(s_props + prev * a.KK,
+                                    s_props + li * a.KK, a.KK))) {
+                s[j] = true;
+                ++st[0];
+                st[1] = li;
+                my_pre = p;
+            }
+            koff[d] = (int)p;
+            kbuf[d] = s_buf[li];
+            ++d;
+            p += (unsigned)s_len[li];
+            prev = li;
+        }
+    }
+    const int my_last = st[1];
+    int stot[2];
+    block_exscan<2u, 2>(st, stot, smem);
+    if (my_last >= 0 && my_last == stot[1]) misc[M_LSO] = (int)my_pre;
+    smem[SC_PRE + threadIdx.x] = (int)my_pre;
+    {
+        int ls = 1 + st[0];  // list[0]: the first kept row
+#pragma unroll
+        for (int j = 0; j < RPT; ++j)
+            if (s[j]) list[ls++] = l0 + j;
+    }
+    __syncthreads();
+    const int first = kt ? misc[M_FIRST] : -1;
+    Agg own = agg_none();  // the tile's aggregate, in thread 0
+    if (threadIdx.x == 0) {
+        list[0] = first;
+        if (kt)
+            own = Agg{kt, (unsigned)tot[1], tile0 + first, tile0 + tot[2],
+                      misc[M_FST], stot[0],
+                      stot[0] ? (unsigned)misc[M_LSO] : 0u};
+        publish(a, t, own, REC_AGG, ST_AGG);
+    }
+
+    // 3. the fills at and above L; the look-back beside the text's reads
+    fill_rows(a, imax(L, tile0), imin(a.C, tile0 + TILE));
+    const int tl = tot[1];  // the tile's text length
+    if (warp == 0) {
+        const Agg e = look_back(a, t, msn);
+        if (lane == 0) {
+            if (kt && own.fst < 0)  // pending: decided against the prefix
+                own.fst = e.keep ? !merges_rows(a, e.last, own.first, msn) : 1;
+            publish(a, t, combine(a, e, own, msn), REC_PREFIX, ST_PREFIX);
+            misc[M_FST] = kt ? own.fst : 0;
+            misc[M_LEN0] = (int)e.len;
+            misc[M_R0] = e.starts + (e.keep ? 1 : 0);
+            misc[M_HASPS] = e.keep ? 1 : 0;
+            misc[M_PS] = (int)(e.starts ? e.lso : 0u);
+        }
+    } else {
+        for (int i = threadIdx.x - 32; i < imin(tl, TEXT_CAP); i += NT - 32)
+            smem[SC_TEXT + i] = tile_text(a, smem, kt, i);
+    }
+    __syncthreads();
+
+    // 4. the runs' rows and the text
+    const unsigned len0 = (unsigned)misc[M_LEN0];
+    const int r0 = misc[M_R0], fst = misc[M_FST];
+    {
+        int ls = fst + st[0];  // the tile's run index of the next start
+        bool has;
+        unsigned prevs;
+        if (st[1] >= 0) {  // a start of a thread before
+            has = true;
+            prevs = len0 + (unsigned)smem[SC_PRE + st[1] / RPT];
+        } else if (fst) {  // the first kept row, at the tile's offset 0
+            has = true;
+            prevs = len0;
+        } else {
+            has = misc[M_HASPS] != 0;
+            prevs = (unsigned)misc[M_PS];
+        }
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+            const int li = l0 + j;
+            const bool isfirst = k[j] && li == first;
+            if (!(isfirst ? fst != 0 : s[j])) continue;
+            const unsigned o = len0 + pre[j];
+            int r;
+            if (isfirst) {
+                r = r0;
+                if (misc[M_HASPS])
+                    a.out[1][r - 1] = (int)(o - (unsigned)misc[M_PS]);
+            } else {
+                r = r0 + ls++;
+                if (has) a.out[1][r - 1] = (int)(o - prevs);
+                has = true;
+                prevs = o;
+            }
+            a.out[0][r] = (int)o;
+            a.out[2][r] = s_is[li];
+            a.out[3][r] = s_ic[li];
+            a.out[4][r] = s_rs[li];
+        }
+    }
+    copy_runs(a, r0, fst + stot[0], list + (fst ? 0 : 1), s_props, tile0);
+    const long long base = (int)len0;
+    const long long i_hi = lmin(tl, (long long)a.A - base);
+    for (long long i = lmax(0, -base) + threadIdx.x; i < i_hi; i += NT)
+        a.arena_out[base + i] = i < TEXT_CAP ? smem[SC_TEXT + i]
+                                             : tile_text(a, smem, kt, (int)i);
+}
+
+// A block past the last tile that may keep rows, the w-th of W: its
+// tile's fills at once (where its ticket is a tile); once every tile's
+// aggregate is out, the total text length and its share of the arena's
+// tail; once the last tile's prefix is out, its share of rows [m, L).
+__device__ void free_block(const Args& a, int ticket, int L, int t_last,
+                           int msn, int* smem) {
+    int* misc = smem + SC_MISC;
+    const long long W = a.grid - (t_last + 1), w = ticket - (t_last + 1);
+    if (ticket < a.G)
+        fill_rows(a, imax(L, ticket * TILE), imin(a.C, (ticket + 1) * TILE));
+    if (threadIdx.x < 32) {
+        const unsigned total = t_last >= 0 ? look_back_len(a, t_last + 1) : 0u;
+        if (threadIdx.x == 0) misc[M_TOTAL] = (int)total;
+    }
+    __syncthreads();
+    const long long z = lmin(lmax((int)misc[M_TOTAL], 0), a.A);
+    const long long tail = a.A - z;
+    fill_range(a.arena_out, z + tail * w / W, z + tail * (w + 1) / W, 0);
+    if (threadIdx.x < 32) {
+        const Agg g = t_last >= 0 ? look_back(a, t_last + 1, msn) : agg_none();
+        if (threadIdx.x == 0) {
+            misc[M_M] = g.starts + (g.keep ? 1 : 0);
+            misc[M_LASTS] = (int)(g.starts ? g.lso : 0u);
+        }
+    }
+    __syncthreads();
+    const int m = misc[M_M];
+    const long long rows = L - m;
+    fill_rows(a, m + rows * w / W, m + rows * (w + 1) / W);
+    if (w == 0 && threadIdx.x == 0) {
+        *a.n_rows_out = m;
+        *a.err_out = *a.err_in;
+        if (m > 0)
+            a.out[1][m - 1] = (int)((unsigned)misc[M_TOTAL] -
+                                    (unsigned)misc[M_LASTS]);
+    }
+}
+
+__global__ void zb_compact(Args a) {
     extern __shared__ __align__(16) int smem[];
-    wait_for_prior_launch();
-    const int b = blockIdx.x;
-    const int e0 = b * GT, e1 = imin(a.A, e0 + GT);
-    const int nk = a.tot[0], total = a.tot[1];
-    if (nk <= 0 || e0 >= total) {  // past the text: zeros
-        fill_range(a.arena_out, e0, e1, 0);
-        return;
+    int* misc = smem + SC_MISC;
+    if (threadIdx.x == 0) {
+        misc[M_TICKET] = atomicAdd(a.counter, 1);
+        mbar_init((unsigned long long*)(smem + SC_BAR), 1);
     }
-    // The kept rows that own this tile's elements: the owner of its first
-    // element to the owner of the next tile's first (or the last row).
-    const int klo = imin(imax(a.tmap[b], 0), nk - 1);
-    int khi = e1 < total && b + 1 < a.GA ? a.tmap[b + 1] : nk - 1;
-    khi = imin(imax(khi, klo), nk - 1);
-    const int cnt = khi - klo + 1;
-    int* owner = smem + SH_OWNER;
-    for (int p = threadIdx.x; p < GT; p += NT) owner[p] = -1;
+    const int n = *a.n_rows_in, msn = msn_of(a);
     __syncthreads();
-    for (int q = threadIdx.x; q < cnt; q += NT) {
-        const int o = a.off[klo + q];
-        const int nx = klo + q + 1 < nk ? a.off[klo + q + 1] : total;
-        const int bb = a.sbuf[klo + q];
-        if (q < GT) {
-            smem[SH_OFF + q] = o;
-            smem[SH_BUF + q] = bb;
-        }
-        if (nx > o && o > e0 && o < e1) owner[o - e0] = q;  // where it starts
-    }
-    if (threadIdx.x == 0) owner[0] = 0;
+    const int ticket = misc[M_TICKET];
+    const int L = imin(imax(n, 0), a.C);
+    const int t_last = L > 0 ? (L - 1) / TILE : -1;
+    if (ticket <= t_last) tile_block(a, ticket, L, msn, smem);
+    else free_block(a, ticket, L, t_last, msn, smem);
+    // The last block to end sets the counters back for the next call.
     __syncthreads();
-    // Each element's row: the last start at or before it (a max-scan).
-    int loc[EPT], run = -1;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-        run = imax(run, owner[threadIdx.x * EPT + i]);
-        loc[i] = run;
-    }
-    int x[1] = {run}, tot[1];
-    block_exscan<1u, 1>(x, tot, smem);
-#pragma unroll
-    for (int i = 0; i < EPT; ++i)
-        owner[threadIdx.x * EPT + i] = imax(x[0], loc[i]);
-    __syncthreads();
-    int v[EPT];
-#pragma unroll
-    for (int j = 0; j < EPT; ++j) {
-        const int e = e0 + j * NT + (int)threadIdx.x;
-        v[j] = 0;
-        if (e < e1 && e < total) {
-            const int q = owner[j * NT + threadIdx.x];
-            const int o = q < GT ? smem[SH_OFF + q] : a.off[klo + q];
-            const int bb = q < GT ? smem[SH_BUF + q] : a.sbuf[klo + q];
-            v[j] = fetch(a, bb, (long long)e - o);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < EPT; ++j) {
-        const int e = e0 + j * NT + (int)threadIdx.x;
-        if (e < e1) a.arena_out[e] = v[j];
+    if (threadIdx.x == 0 && atomicAdd(a.counter + 1, 1) == a.grid - 1) {
+        a.counter[0] = 0;
+        a.counter[1] = 0;
     }
 }
 
@@ -721,6 +1257,12 @@ __global__ void zb_gather(Args a) {
 // dependent launch (see `wait_for_prior_launch`).
 int launch(void (*kernel)(Args), int grid, size_t smem, cudaStream_t s,
            const Args& a, bool dependent) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
     if (!dependent) {
         kernel<<<grid, NT, (size_t)smem, s>>>(a);
     } else {
@@ -738,14 +1280,6 @@ int launch(void (*kernel)(Args), int grid, size_t smem, cudaStream_t s,
         if (e != cudaSuccess) return (int)e;
     }
     return (int)cudaGetLastError();
-}
-
-int launch_all(const Args& a, cudaStream_t s) {
-    int e = launch(zb_tiles, a.G, sizeof(int) * SH_REST, s, a, false);
-    if (e) return e;
-    e = launch(zb_rows, a.G, sizeof(int) * SMEM_ROWS, s, a, true);
-    if (e || !a.gather || a.GA == 0) return e;
-    return launch(zb_gather, a.GA, sizeof(int) * SMEM_GATHER, s, a, true);
 }
 
 // The table pointers shared by both entries: n_rows, error, min_seq
@@ -786,22 +1320,33 @@ extern "C" int zamboni_launch(int device, int C, int KR, int KK, int G,
     a.KR = KR;
     a.KK = KK;
     a.G = G;
-    a.gather = 0;
     a.msn_value = msn;
     table_args(a, ptrs);
     a.agg = (int*)ptrs[19];
     a.words = a.agg + (long long)NA * G;
-    return launch_all(a, (cudaStream_t)stream);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int r = launch(zb_tiles, G, sizeof(int) * SH_REST, s, a, false);
+    if (r) return r;
+    return launch(zb_rows, G, sizeof(int) * SMEM_ROWS, s, a, true);
+}
+
+// The dynamic shared memory of a compaction block at KK prop keys, in
+// bytes.
+extern "C" long long compaction_smem_bytes(int KK) {
+    return compaction_smem(KK);
 }
 
 // ptrs: the 19 table pointers (`table_args`); the int32 scratch of
-// TILE_INTS G + 2 C + 2 + ceil(A / GT) ints; doc_arena [A], stream_text
-// [S]; the new arena [A] (23 pointers).
+// CNT_INTS + REC G ints (zeroed when it is made, and left with its
+// counters at 0 by every call); doc_arena [A], stream_text [S]; the new
+// arena [A] (23 pointers). `epoch`: this call's count on the scratch,
+// 1 to 2^30 - 1, another than the last call's.
 extern "C" int compaction_launch(int device, int C, int KR, int KK, int G,
-                                 int A, int S, int msn, int n_ptrs,
-                                 void** ptrs, void* stream) {
+                                 int A, int S, int msn, int epoch,
+                                 int n_ptrs, void** ptrs, void* stream) {
     if (n_ptrs != N_PTRS_COMPACTION || bad_shape(C, KR, KK, G) || A < 0 ||
-        S < 0)
+        S < 0 || epoch <= 0 || epoch >= (1 << 30) ||
+        compaction_smem(KK) > SMEM_OPT_IN)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
@@ -810,21 +1355,17 @@ extern "C" int compaction_launch(int device, int C, int KR, int KK, int G,
     a.KR = KR;
     a.KK = KK;
     a.G = G;
-    a.gather = 1;
     a.A = A;
     a.S = S;
-    a.GA = (A + GT - 1) / GT;
+    a.grid = G + imin(imax(G / 8, 1), MAX_EXTRA);
+    a.epoch = (unsigned)epoch;
     a.msn_value = msn;
     table_args(a, ptrs);
-    int* scratch = (int*)ptrs[19];
-    a.agg = scratch;
-    a.words = a.agg + (long long)NA * G;
-    a.off = scratch + (long long)TILE_INTS * G;
-    a.sbuf = a.off + C;
-    a.tot = a.sbuf + C;
-    a.tmap = a.tot + 2;
+    a.counter = (int*)ptrs[19];
+    a.tiles = a.counter + CNT_INTS;
     a.doc = (const int*)ptrs[20];
     a.stream = (const int*)ptrs[21];
     a.arena_out = (int*)ptrs[22];
-    return launch_all(a, (cudaStream_t)stream);
+    return launch(zb_compact, a.grid, (size_t)compaction_smem(KK),
+                  (cudaStream_t)stream, a, false);
 }

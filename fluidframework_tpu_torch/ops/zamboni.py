@@ -16,7 +16,7 @@ Counterparts in fluidframework_tpu/ops/zamboni.py:
   tensor ops with no host sync, bit-identical to the JAX function. The
   dispatcher `compact_gather_text` sends a CUDA table to the
   hand-written kernel ``csrc/zamboni.cu`` (`ops/zamboni_kernel.py`,
-  three launches) or raises, and a CPU table to the plain version. The
+  one launch) or raises, and a CPU table to the plain version. The
   chunk path of `core/columnar_replay.py` runs it every `sync_interval`
   chunks.
 - `zamboni_device_ref` of `zamboni_device` (line 42): the compaction
@@ -122,7 +122,7 @@ def compact_gather_text_ref(
        text offsets.
 
     The text move is a function of the table (and so equal to the
-    kernel's gather: kept row k's destination ``[new_off, new_off +
+    kernel's text move: kept row k's destination ``[new_off, new_off +
     length)`` reads its span of the region its buf_start lies in, every
     other element 0) on tables whose surviving spans are disjoint and
     lie inside one region or in neither, with non-negative lengths

@@ -3,8 +3,8 @@ launchers.
 
 The source holds one device-wide, stable compaction of a segment table
 under an applied MSN (tombstones removed at or below it dropped, settled
-neighbours merged), in launches of one block a tile of `TILE` rows on
-PyTorch's current stream, with no host sync, behind two C entries:
+neighbours merged), with blocks of `TILE` rows on PyTorch's current
+stream and no host sync, behind two C entries:
 
 - `ZamboniKernel` (``zamboni_launch``) replaces the XLA function
   `zamboni_device` (fluidframework_tpu/ops/zamboni.py:42): neighbours
@@ -14,8 +14,10 @@ PyTorch's current stream, with no host sync, behind two C entries:
 - `CompactionKernel` (``compaction_launch``) replaces the XLA function
   `compact_gather_text` (fluidframework_tpu/ops/zamboni.py:185), the
   chunk path's compaction: every settled neighbour pair with equal props
-  merges, and the kept rows' text is gathered into a new arena. Its
-  plain version is `ops/zamboni.compact_gather_text_ref`; the dispatcher
+  merges, and the kept rows' text moves into a new arena, in one launch
+  (tiles ordered by a ticket, a decoupled look-back over their
+  aggregates, each tile moving its own text). Its plain version is
+  `ops/zamboni.compact_gather_text_ref`; the dispatcher
   `ops/zamboni.compact_gather_text` sends CUDA tables here.
 """
 
@@ -35,26 +37,50 @@ I32 = torch.int32
 THREADS = 256
 TILE = 512  # rows a tile: 2 a thread
 TILE_INTS = 7 + 2 * 16  # a tile's aggregate and its keep and start words
-GATHER_TILE = 2048  # arena elements a gather block
+COUNTER_INTS = 32  # the compaction's ticket and done counters
+RECORD_INTS = 16  # a tile's status word, aggregate and inclusive prefix
+TEXT_CAP = 3072  # text ints a compaction tile reads before its look-back
+EPOCHS = 1 << 30  # the compaction's status words carry the epoch mod this
+SMEM_FIXED = 7528  # a compaction block's shared ints before its props
+SMEM_OPT_IN = 227 * 1024  # bytes of shared memory a block may opt in to
 
 LIB = "zamboni"  # csrc/zamboni.cu, both entries
 SOURCE = "fluidframework_tpu_torch/csrc/zamboni.cu"
 
 
 def tiles(capacity: int) -> int:
-    """The tiles of a table of `capacity` rows (blocks of launches 1
-    and 2)."""
+    """The tiles of a table of `capacity` rows."""
     return -(-capacity // TILE)
 
 
-def scratch_ints(capacity: int, arena: int = -1) -> int:
-    """The int32 scratch of one call: `TILE_INTS` a tile, and for the
-    compaction (given its `arena` length) two a row (the kept rows' new
-    offsets and buf_start), two totals and one an arena tile."""
-    if arena < 0:
-        return TILE_INTS * tiles(capacity)
-    return (TILE_INTS * tiles(capacity) + 2 * capacity + 2
-            + -(-arena // GATHER_TILE))
+def scratch_ints(capacity: int) -> int:
+    """The zamboni's int32 scratch of one call: `TILE_INTS` a tile."""
+    return TILE_INTS * tiles(capacity)
+
+
+def compaction_scratch_ints(capacity: int) -> int:
+    """The compaction's int32 scratch: its two counters (in
+    `COUNTER_INTS`) and a record of `RECORD_INTS` a tile. It must start
+    zeroed; every call leaves the counters at 0."""
+    return COUNTER_INTS + RECORD_INTS * tiles(capacity)
+
+
+def compaction_smem(kk: int) -> int:
+    """The dynamic shared memory of a compaction block at `kk` prop
+    keys, in bytes: the fixed part and the tile's props with the row
+    before it."""
+    return 4 * (SMEM_FIXED + (TILE + 1) * kk)
+
+
+# The most prop keys a compaction takes: a block's shared memory stays
+# within what sm_90 lets it opt in to (98).
+COMPACTION_MAX_KK = (SMEM_OPT_IN // 4 - SMEM_FIXED) // (TILE + 1)
+
+
+def next_epoch(epoch: int) -> int:
+    """The epoch of the call after one with `epoch` on the same scratch:
+    1 to EPOCHS - 1, never 0 (a zeroed status word's)."""
+    return epoch % (EPOCHS - 1) + 1
 
 
 def check_table(table: SegmentTable, who: str) -> Tuple[int, int, int]:
@@ -121,9 +147,10 @@ class _Launcher:
     """What both entries share: the library, the launch count and the
     scratch. ``launches`` counts kernel launches (`LAUNCHES` a call); it
     is incremented where the kernels are launched and nowhere else. The
-    scratch is one buffer per (device, capacity, arena length), reused by
-    every call on it: the launches of a call run in order on one stream,
-    and a call's scratch is dead once its last launch ends."""
+    scratch is one zeroed buffer per (device, stream, capacity), reused by
+    every call on that stream: calls on one stream run in order, and a
+    call's scratch is dead once its last launch ends; calls on two streams
+    never share one."""
 
     name = ""
     replaces = ""
@@ -133,20 +160,29 @@ class _Launcher:
     def __init__(self) -> None:
         self.launches = 0
         self._fn = None
-        self._scratch: Dict[Tuple[str, int, int], torch.Tensor] = {}
+        self._scratch: Dict[Tuple[str, int, int], list] = {}
 
     def _entry(self):
         if self._fn is None:
             self._fn = self.bind(_build.load(LIB))
         return self._fn
 
-    def scratch(self, dev: torch.device, capacity: int,
-                arena: int = -1) -> torch.Tensor:
-        key = (str(dev), capacity, arena)
-        if key not in self._scratch:
-            self._scratch[key] = torch.empty(
-                scratch_ints(capacity, arena), dtype=I32, device=dev)
-        return self._scratch[key]
+    def scratch_ints(self, capacity: int) -> int:
+        return scratch_ints(capacity)
+
+    def scratch(self, dev: torch.device,
+                capacity: int) -> Tuple[torch.Tensor, int]:
+        """The scratch of (dev, its current stream, capacity), zeroed when
+        it is made, and this call's epoch on it: the last call's
+        `next_epoch`, 1 at first."""
+        key = (str(dev), torch.cuda.current_stream(dev).cuda_stream,
+               capacity)
+        entry = self._scratch.get(key)
+        if entry is None:
+            entry = self._scratch[key] = [torch.zeros(
+                self.scratch_ints(capacity), dtype=I32, device=dev), 0]
+        entry[1] = next_epoch(entry[1])
+        return entry[0], entry[1]
 
     def _launch(self, dev, ints, ptrs) -> None:
         _build.launch(self.name, self._entry(), dev, ints, ptrs)
@@ -184,31 +220,38 @@ class ZamboniKernel(_Launcher):
         msn, msn_t = msn_arg(min_seq, dev, "zamboni")
         out = empty_like_table(table)
         self._launch(dev, (C, KR, KK, tiles(C), msn),
-                     table_ptrs(table, msn_t, out) + [self.scratch(dev, C)])
+                     table_ptrs(table, msn_t, out)
+                     + [self.scratch(dev, C)[0]])
         return out
 
 
 class CompactionKernel(_Launcher):
     """Launches ``compaction_launch``: the chunk path's compaction of one
-    table with its text gather into a new arena.
+    table with its text moved into a new arena.
 
     The wrapper checks the table as `ZamboniKernel` does and the two
     text arrays (int32, 1-D, contiguous, on the table's device),
     allocates the output table and the new arena (``doc_arena``'s
     length), and raises if a launch was refused: there is no fallback.
-    The inputs are never written; every output row and every arena
-    element is written once."""
+    It takes at most `COMPACTION_MAX_KK` prop keys (a tile's props are
+    staged in shared memory) and raises ValueError past that before it
+    reaches the C entry. The inputs are never written; every output row and every arena
+    element is written once. The epoch goes to the kernel by value, so
+    a call is not to be captured into a CUDA graph and replayed."""
 
     name = "compact_gather_text"
     replaces = "fluidframework_tpu/ops/zamboni.py:185"
-    LAUNCHES = 3  # the zamboni's two, then the text gather
+    LAUNCHES = 1  # one single-pass launch
+
+    def scratch_ints(self, capacity: int) -> int:
+        return compaction_scratch_ints(capacity)
 
     @staticmethod
     def bind(lib: ctypes.CDLL):
         """The C entry of a loaded kernel library, typed."""
         fn = lib.compaction_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_int] * 10 + [
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
         return fn
 
@@ -228,6 +271,17 @@ class CompactionKernel(_Launcher):
             raise ValueError("compaction kernel: doc_arena is empty")
         return doc_arena.shape[0], stream_text.shape[0]
 
+    @staticmethod
+    def check_kk(kk: int) -> None:
+        """Raises ValueError where `kk` prop keys pass the shared memory
+        a block may have (`COMPACTION_MAX_KK`)."""
+        if kk > COMPACTION_MAX_KK:
+            raise ValueError(
+                f"compaction kernel: {kk} prop keys need "
+                f"{compaction_smem(kk)} bytes of shared memory a block, "
+                f"past the {SMEM_OPT_IN} a block may have; at most "
+                f"{COMPACTION_MAX_KK} keys")
+
     def __call__(self, table: SegmentTable, min_seq, doc_arena: torch.Tensor,
                  stream_text: torch.Tensor) -> Tuple[SegmentTable,
                                                      torch.Tensor]:
@@ -236,14 +290,15 @@ class CompactionKernel(_Launcher):
             raise ValueError(
                 f"the compaction CUDA kernel needs CUDA tensors, got {dev}")
         C, KR, KK = check_table(table, "compaction")
+        self.check_kk(KK)
         A, S = self.check_text(dev, doc_arena, stream_text)
         msn, msn_t = msn_arg(min_seq, dev, "compaction")
         out = empty_like_table(table)
         arena = torch.empty_like(doc_arena)
-        self._launch(dev, (C, KR, KK, tiles(C), A, S, msn),
+        scratch, epoch = self.scratch(dev, C)
+        self._launch(dev, (C, KR, KK, tiles(C), A, S, msn, epoch),
                      table_ptrs(table, msn_t, out)
-                     + [self.scratch(dev, C, A), doc_arena, stream_text,
-                        arena])
+                     + [scratch, doc_arena, stream_text, arena])
         return out, arena
 
 

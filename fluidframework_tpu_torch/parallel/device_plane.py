@@ -22,8 +22,8 @@ environment (`PLANE_ENV`) into farm children.
 
 The reference's `table_sharding` (:146) shards a stacked table's rows
 over ``model``. The port's hand kernels take whole tables, so it has no
-counterpart: it waits with the summarizer's plane placement (ROADMAP.md
-Queue 1 item 3).
+counterpart yet: it waits for a row-split scan, a scan kernel that works
+on a share of a table's rows (ROADMAP.md Queue 1 item 3, Queue 2 item 1).
 """
 
 from __future__ import annotations

@@ -27,9 +27,17 @@ easy to get wrong:
   zamboni's contiguity test would split every pair;
 - int32 length sums near the wrap: rows of ~2^29 characters in neither
   region, one run of length near 2^31 - 1;
-- more kept rows in one gather block's arena elements than it stages in
-  shared memory (rows of one character);
-- random tables mixing all of these, from a seed.
+- every row kept, each a run of one character: every tile's text as
+  long as its row count, every row a start;
+- random tables mixing all of these, from a seed;
+- for the single-pass kernel's look-back over tiles: three tiles that
+  keep nothing between two kept rows of one run, and of two runs; a run
+  that starts in one tile and ends four tiles later; the last live tile
+  keeping nothing; one kept row whose text is longer than several
+  blocks' worth of elements (and than a tile's staged text); a total
+  text length of 0, and of exactly A; ``n_rows`` at the int32 maximum;
+- tables with many prop keys (`wide_prop_cases`), whose staged props
+  take a block past 48 KB of shared memory.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import numpy as np
 
 from ..ops.mergetree_kernel import NO_CLIENT, NOT_REMOVED, PROP_ABSENT
 from ..ops.zamboni import STREAM_BASE
-from ..ops.zamboni_kernel import GATHER_TILE, TILE
+from ..ops.zamboni_kernel import TEXT_CAP, THREADS, TILE
 
 MSN = 1000  # the cases' applied MSN
 NEITHER = 1 << 27  # a buf_start between the regions
@@ -148,11 +156,35 @@ def settled_run(C: int, KR: int, KK: int, n: int, seed: int, A: int,
     return case_of(t, MSN, rng, A, S)
 
 
+def packed_case(C: int, KR: int, KK: int, n: int, seed: int,
+                long_row: int = -1, long_len: int = 0) -> dict:
+    """`n` live rows, none removed, lengths 1-8 (row `long_row` of
+    `long_len`), every span in the doc arena, which they fill with no gap:
+    the total text length is exactly A. Insert seqs on both sides of the
+    MSN, props from a palette of 2 rows."""
+    rng = np.random.default_rng(seed)
+    t = empty_table(C, KR, KK, n)
+    m = min(n, C)
+    length = rng.integers(1, 9, m).astype(np.int32)
+    if 0 <= long_row < m:
+        length[long_row] = long_len
+    A = int(length.sum())
+    t["buf_start"][:m] = place(rng, length, A, 0)
+    t["length"][:m] = length
+    t["ins_seq"][:m] = np.where(rng.random(m) < 0.7,
+                                rng.integers(0, MSN + 1, m),
+                                rng.integers(MSN + 1, 2 * MSN, m))
+    t["ins_client"][:m] = rng.integers(0, 9, m)
+    palette = rng.integers(-1, 4, (2, KK))
+    t["props"][:m] = palette[rng.integers(0, 2, m)]
+    return case_of(t, MSN, rng, A, 3 * C + 8)
+
+
 def compaction_edge_cases(C: int, KR: int, KK: int) -> List[dict]:
     """The cases at capacity C: dicts with ``label``, ``table``,
     ``min_seq``, ``doc_arena`` and ``stream_text``."""
     cases = []
-    A, S = 2 * GATHER_TILE + 8 * C + 100, 6 * C + 50
+    A, S = 4196 + 8 * C, 6 * C + 50
 
     def case(label, c):
         c["label"] = label
@@ -210,6 +242,70 @@ def compaction_edge_cases(C: int, KR: int, KK: int) -> List[dict]:
     t["length"][:] = 1
     t["buf_start"][:] = place(rng, t["length"], C + 40, 0)
     t["ins_seq"][:] = MSN + 1  # unsettled: a run a row
-    case("more kept rows than a gather block stages",
+    case("every row a run of one character",
          case_of(t, MSN, rng, A, S))
+    if C <= 5 * TILE:
+        return cases
+    # the single-pass kernel's look-back over tiles
+    c = settled_run(C, KR, KK, C, 16, A, S)
+    c["table"]["rem_seq"][TILE:4 * TILE] = MSN
+    case("three empty tiles inside one run", c)
+    c = settled_run(C, KR, KK, C, 17, A, S)
+    c["table"]["rem_seq"][TILE:4 * TILE] = MSN
+    if KK:
+        c["table"]["props"][4 * TILE:, KK - 1] = 9
+    case("three empty tiles between two runs", c)
+    c = settled_run(C, KR, KK, C, 18, A, S)
+    c["table"]["ins_seq"][:TILE - 5] = MSN + 1
+    c["table"]["ins_seq"][5 * TILE + 4:] = MSN + 1
+    case("a run from one tile to four tiles later", c)
+    c = random_case(C, KR, KK, 4 * TILE + 100, 19, A, S)
+    c["table"]["rem_seq"][4 * TILE - 30:4 * TILE + 100] = MSN
+    case("the last live tile keeps nothing", c)
+    return cases
+
+
+def text_edge_cases(C: int, KR: int, KK: int) -> List[dict]:
+    """Cases at capacity C (at least 64) on the text's bounds, each with
+    its own text arrays: dicts as `compaction_edge_cases` gives."""
+    cases = []
+    n = C - C // 8
+
+    def case(label, c):
+        c["label"] = label
+        cases.append(c)
+
+    long_len = 4 * TEXT_CAP + 5 * THREADS + 17
+    case("one kept row longer than several blocks' worth of elements",
+         packed_case(C, KR, KK, n, 20, long_row=2, long_len=long_len))
+    c = random_case(C, KR, KK, n, 21, 4196 + 8 * C, 6 * C + 50)
+    c["table"]["length"][:] = 0
+    case("total text length 0", c)
+    case("total text length exactly A", packed_case(C, KR, KK, n, 22))
+    c = packed_case(C, KR, KK, C, 23)
+    c["table"]["n_rows"] = np.int32((1 << 31) - 1)
+    case("n_rows at the int32 maximum", c)
+    return cases
+
+
+def wide_prop_cases(C: int, KR: int, KK: int) -> List[dict]:
+    """Cases at capacity C with KK prop keys, each run split by its last
+    key only: a random table, a settled run whose last key changes every
+    seventh row, and one that changes at each tile's edge. Dicts as
+    `compaction_edge_cases` gives."""
+    cases = []
+    A, S = 4196 + 8 * C, 6 * C + 50
+    n = C - C // 8
+
+    def case(label, c):
+        c["label"] = label
+        cases.append(c)
+
+    case(f"random, {KK} keys", random_case(C, KR, KK, n, 24, A, S))
+    c = settled_run(C, KR, KK, n, 25, A, S)
+    c["table"]["props"][3:n:7, KK - 1] = 9
+    case(f"settled, the last of {KK} keys differs every 7th row", c)
+    c = settled_run(C, KR, KK, C, 26, A, S)
+    c["table"]["props"][:, KK - 1] = np.arange(C) // TILE
+    case(f"settled, the last of {KK} keys differs at the tile edges", c)
     return cases

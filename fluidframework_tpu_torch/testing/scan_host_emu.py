@@ -114,6 +114,10 @@ static thread_local EmuCluster* emu_cluster;
 static thread_local unsigned emu_rank;
 static thread_local int emu_cluster_phase;
 static int emu_nt;
+// How a launch runs its clusters: 0 one after another in blockIdx
+// order, 1 in its reverse, 2 all at once.
+static int emu_order = 0;
+extern "C" void emu_set_order(int o) { emu_order = o; }
 static std::mutex emu_atomic;
 inline int emu_lane() { return threadIdx.x & 31; }
 inline EmuWarp& emu_warp() { return emu_block->w[threadIdx.x >> 5]; }
@@ -128,6 +132,13 @@ inline int __shfl_up_sync(unsigned, int v, int o) {
     return (int)emu_xchg(v, l >= o ? l - o : l);
 }
 inline int __shfl_sync(unsigned, int v, int s) { return (int)emu_xchg(v, s & 31); }
+inline int __shfl_xor_sync(unsigned, int v, int m) {
+    return (int)emu_xchg(v, emu_lane() ^ (m & 31));
+}
+inline int __shfl_down_sync(unsigned, int v, int o) {
+    const int l = emu_lane();
+    return (int)emu_xchg(v, l + o < 32 ? l + o : l);
+}
 inline unsigned __ballot_sync(unsigned, int p) {
     EmuWarp& w = emu_warp();
     w.buf[emu_lane()] = p ? 1 : 0; w.b.wait(32);
@@ -139,6 +150,7 @@ inline unsigned __ballot_sync(unsigned, int p) {
 inline bool __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 inline int __ffs(unsigned v) { return __builtin_ffs(v); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __clz(int v) { return v ? __builtin_clz((unsigned)v) : 32; }
 inline void __syncthreads() { emu_block->b0.wait(emu_nt); }
 inline void __syncwarp() { emu_warp().b.wait(32); }
 inline void emu_bar1(int n) { emu_block->b1.wait(n); }
@@ -148,6 +160,22 @@ inline unsigned long long atomicMin(unsigned long long* a, unsigned long long v)
     const unsigned long long o = *a;
     if (v < o) *a = v;
     return o;
+}
+inline int atomicAdd(int* a, int v) {
+    std::lock_guard<std::mutex> l(emu_atomic);
+    const int o = *a;
+    *a = o + v;
+    return o;
+}
+// A release store and an acquire load of a status word another block
+// reads or wrote.
+inline void emu_st_release(int* p, int v) {
+    std::lock_guard<std::mutex> l(emu_atomic);
+    *p = v;
+}
+inline int emu_ld_acquire(const int* p) {
+    std::lock_guard<std::mutex> l(emu_atomic);
+    return *p;
 }
 // Clusters: the rank, the split cluster barrier over all the cluster's
 // threads, and `p`'s offset in rank `r`'s shared memory.
@@ -203,37 +231,54 @@ template <class T> cudaError_t cudaMemcpyToSymbol(T&, const void*, size_t) {
 }
 // A launch of n_ctas CTAs of NT threads in clusters of G: each cluster's
 // CTAs run at once, every thread an OS thread; the clusters one after
-// another. Shared memory starts as garbage, as on the card.
+// another in blockIdx order, in its reverse, or all at once
+// (`emu_set_order`). Shared memory starts as garbage, as on the card.
+struct EmuClusterRun {
+    EmuCluster cl;
+    std::vector<EmuBlock*> blocks;
+    std::vector<std::vector<int>> sms;
+    std::vector<std::thread> ts;
+};
+template <class A>
+void emu_start_cluster(EmuClusterRun& r, void (*k)(A), unsigned c0, int NT,
+                       size_t words, int G, A a) {
+    r.cl.n = G * NT;
+    r.sms.assign(G, std::vector<int>(words));
+    for (int g = 0; g < G; ++g) {
+        r.blocks.push_back(new EmuBlock());
+        std::memset(r.sms[g].data(), 0xAB, words * 4);
+        r.cl.smem.push_back(r.sms[g].data());
+    }
+    for (int g = 0; g < G; ++g)
+        for (int t = 0; t < NT; ++t)
+            r.ts.emplace_back([=, &r] {
+                threadIdx = {(unsigned)t, 0, 0};
+                blockIdx = {c0 + (unsigned)g, 0, 0};
+                emu_block = r.blocks[g];
+                emu_smem = r.cl.smem[g];
+                emu_cluster = &r.cl;
+                emu_rank = (unsigned)g;
+                k(a);
+            });
+}
+inline void emu_join_cluster(EmuClusterRun& r) {
+    for (auto& t : r.ts) t.join();
+    for (EmuBlock* b : r.blocks) delete b;
+}
 template <class A>
 void emu_launch_cluster(void (*k)(A), unsigned n_ctas, int NT, size_t smem,
                         int G, A a) {
     emu_nt = NT;
     const size_t words = (smem + 3) / 4 + 4;
-    for (unsigned c0 = 0; c0 < n_ctas; c0 += (unsigned)G) {
-        EmuCluster cl;
-        cl.n = G * NT;
-        std::vector<EmuBlock*> blocks;
-        std::vector<std::vector<int>> sms(G, std::vector<int>(words));
-        for (int g = 0; g < G; ++g) {
-            blocks.push_back(new EmuBlock());
-            std::memset(sms[g].data(), 0xAB, words * 4);
-            cl.smem.push_back(sms[g].data());
-        }
-        std::vector<std::thread> ts;
-        for (int g = 0; g < G; ++g)
-            for (int t = 0; t < NT; ++t)
-                ts.emplace_back([=, &cl, &blocks] {
-                    threadIdx = {(unsigned)t, 0, 0};
-                    blockIdx = {c0 + (unsigned)g, 0, 0};
-                    emu_block = blocks[g];
-                    emu_smem = cl.smem[g];
-                    emu_cluster = &cl;
-                    emu_rank = (unsigned)g;
-                    k(a);
-                });
-        for (auto& t : ts) t.join();
-        for (EmuBlock* b : blocks) delete b;
+    const unsigned n_cl = (n_ctas + (unsigned)G - 1) / (unsigned)G;
+    std::vector<EmuClusterRun> runs(n_cl);
+    for (unsigned q = 0; q < n_cl; ++q) {
+        const unsigned c = emu_order == 1 ? n_cl - 1 - q : q;
+        emu_start_cluster(runs[c], k, c * (unsigned)G, NT, words, G, a);
+        if (emu_order != 2) emu_join_cluster(runs[c]);
     }
+    if (emu_order == 2)
+        for (auto& r : runs) emu_join_cluster(r);
 }
 template <class A>
 void emu_launch(void (*k)(A), unsigned D, int NT, size_t smem, A a) {

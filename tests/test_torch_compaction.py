@@ -10,7 +10,10 @@ the whole table (rows at and above ``n_rows`` hold the fills),
   dropped, ``n_rows`` past C, spans in both regions and in neither,
   runs across the kernel's tile edges, props that differ in one key,
   runs that the zamboni's contiguity test would split, int32 length
-  sums near the wrap, more kept rows than a gather block stages);
+  sums near the wrap, every row a run of one character; runs
+  across tiles that keep nothing, a run over five tiles, a last live
+  tile that keeps nothing, a row longer than several blocks' worth of
+  elements, total text lengths 0 and A, ``n_rows`` at the int32 max);
 - seeded random tables;
 - every compaction's inputs of the port's chunk-path replay on the CPU
   (recorded from `ColumnarReplica.replay`).
@@ -18,8 +21,14 @@ the whole table (rows at and above ``n_rows`` hold the fills),
 The kernel's own source, ``csrc/zamboni.cu`` (its ``compaction_launch``
 entry), runs on the host through `testing/zamboni_host_emu.py` (g++, an
 OS thread per CUDA thread) and is held to the plain version on the same
-tables, with the MSN passed by value and by pointer. Last, the
-dispatcher takes no other device and never falls back.
+tables, with the MSN passed by value and by pointer; with its blocks
+run in reverse blockIdx order and all at once (the tiles' order comes
+from the kernel's ticket, and blocks at once spin on each other's
+statuses); with no inclusive prefix published, so that every look-back
+combines aggregates back to the first tile (over windows of 32 tiles at
+C 20480, across runs of tiles that keep nothing); and over two and more
+calls on one scratch. Last, the dispatcher takes no other device and
+never falls back.
 """
 
 import jax.numpy as jnp
@@ -39,19 +48,29 @@ from fluidframework_tpu_torch.ops import zamboni_kernel as tzk
 from fluidframework_tpu_torch.ops.mergetree_kernel import make_table
 from fluidframework_tpu_torch.testing import zamboni_host_emu
 from fluidframework_tpu_torch.testing.compaction_edges import (
+    MSN,
     compaction_edge_cases,
     random_case,
+    settled_run,
+    text_edge_cases,
+    wide_prop_cases,
 )
 from fluidframework_tpu_torch.testing.synthetic import generate_lagged_stream
 
 FIELDS = ("n_rows", "error", "buf_start", "length", "ins_seq", "ins_client",
           "rem_seq", "rem_clients", "props")
-# (C, KR, KK): one tile; two tiles; six tiles with more kept rows in one
-# gather block than it stages.
+# (C, KR, KK): one tile; two tiles; six tiles (the look-back's cases).
 SHAPES = ((64, 4, 8), (1024, 8, 8), (3072, 4, 4))
+TEXT = 100  # the index of text_edge_cases' first case among the edges
 EDGES = [(shape, i, c["label"]) for shape in SHAPES
-         for i, c in enumerate(compaction_edge_cases(*shape))]
-EDGE_IDS = [f"C{s[0]}-{i}" for s, i, _ in EDGES]
+         for i, c in enumerate(compaction_edge_cases(*shape))] + [
+    (shape, TEXT + i, c["label"]) for shape in SHAPES
+    for i, c in enumerate(text_edge_cases(*shape))]
+EDGE_IDS = [f"C{s[0]}-{i}" if i < TEXT else f"C{s[0]}-text{i - TEXT}"
+            for s, i, _ in EDGES]
+ORDER_SHAPE = SHAPES[2]
+ORDER_EDGES = [e for e in EDGES if e[0] == ORDER_SHAPE]
+WIDE = (20480, 4, 4)  # 40 tiles: look-backs over more than 32
 SEEDED = [((C, KR, KK), seed) for C, KR, KK in ((256, 4, 8), (1500, 8, 2))
           for seed in (21, 22, 23)]
 
@@ -89,7 +108,24 @@ def _assert_equal(got: tuple, want: tuple, label: str) -> None:
 
 
 def _edge(shape, index) -> dict:
+    if index >= TEXT:
+        return text_edge_cases(*shape)[index - TEXT]
     return compaction_edge_cases(*shape)[index]
+
+
+def _wide_cases() -> list:
+    """C 20480: one run across 35 tiles that keep nothing, and two
+    runs split after them."""
+    C, KR, KK = WIDE
+    A, S = 4196 + 8 * C, 6 * C + 50
+    tile = tzk.TILE
+    one = settled_run(C, KR, KK, C - 9, 40, A, S)
+    one["table"]["rem_seq"][2 * tile - 3:37 * tile + 2] = MSN
+    two = settled_run(C, KR, KK, C - 9, 41, A, S)
+    two["table"]["rem_seq"][2 * tile - 3:37 * tile + 2] = MSN
+    two["table"]["props"][37 * tile + 2:, KK - 1] = 9
+    one["label"], two["label"] = "35 empty tiles in a run", "and two runs"
+    return [one, two]
 
 
 @pytest.fixture(scope="module")
@@ -179,8 +215,49 @@ def test_edge_cases_are_what_they_are_named_for():
     assert out["a tile dropped inside one run"][1] == 1
     n_in, n_out = out["run starts at the tile edges"][:2]
     assert n_out > 1
-    n_in, n_out = out["more kept rows than a gather block stages"][:2]
+    n_in, n_out = out["every row a run of one character"][:2]
     assert n_out == n_in == C > 2048
+
+
+def test_lookback_and_text_cases_are_what_they_are_named_for():
+    """The look-back's and the text's cases produce the outcome their
+    labels promise (against JAX)."""
+    C, KR, KK = ORDER_SHAPE
+    tile = tzk.TILE
+    out = {}
+    for c in compaction_edge_cases(C, KR, KK) + text_edge_cases(C, KR, KK):
+        table, arena = _jax(c)
+        out[c["label"]] = (c, table, arena)
+    for label, runs in (("three empty tiles inside one run", 1),
+                        ("three empty tiles between two runs", 2)):
+        c, table, _ = out[label]
+        live = c["table"]["rem_seq"] == np.int32(2147483647)
+        assert not live[tile:4 * tile].any() and live[4 * tile], label
+        assert int(table["n_rows"]) == runs, label
+    c, table, _ = out["a run from one tile to four tiles later"]
+    runs = int(table["n_rows"])
+    assert runs == (tile - 5) + 1 + (C - 5 * tile - 4)
+    assert int(table["length"][tile - 5]) == int(
+        c["table"]["length"][tile - 5:5 * tile + 4].sum())
+    c, table, _ = out["the last live tile keeps nothing"]
+    n = int(c["table"]["n_rows"])
+    assert n // tile == 4 and n % tile
+    assert (c["table"]["rem_seq"][4 * tile:n] <= MSN).all()
+    assert 0 < int(table["n_rows"]) < n
+    c, table, arena = out[
+        "one kept row longer than several blocks' worth of elements"]
+    assert int(c["table"]["length"][2]) > 4 * tzk.TEXT_CAP
+    assert int(table["length"].astype(np.int64).sum()) == arena.shape[0]
+    assert arena.all()
+    c, table, arena = out["total text length 0"]
+    assert int(table["n_rows"]) > 0 and not table["length"].any()
+    assert not arena.any() and c["doc_arena"].any()
+    c, table, arena = out["total text length exactly A"]
+    assert int(table["length"].astype(np.int64).sum()) == arena.shape[0]
+    assert arena.all()
+    c, table, _ = out["n_rows at the int32 maximum"]
+    assert int(c["table"]["n_rows"]) == (1 << 31) - 1
+    assert int(table["n_rows"]) > 1
 
 
 @pytest.mark.parametrize("shape,index,label", EDGES, ids=EDGE_IDS)
@@ -205,6 +282,111 @@ def test_kernel_source_on_the_host_replay(replay_cases):
     for case in replay_cases:
         _assert_equal(_port(case, zamboni_host_emu.run_compaction),
                       _port(case), case["label"])
+
+
+ORDER_IDS = [i for i, e in zip(EDGE_IDS, EDGES) if e[0] == ORDER_SHAPE]
+
+
+@pytest.mark.parametrize("order", ["reverse", "at once"])
+@pytest.mark.parametrize("shape,index,label", ORDER_EDGES, ids=ORDER_IDS)
+def test_kernel_source_block_order(shape, index, label, order):
+    """The emulated blocks in reverse blockIdx order, and all at once:
+    the same result, since the kernel orders its tiles by ticket."""
+    case = _edge(shape, index)
+    _assert_equal(_port(case, zamboni_host_emu.run_compaction, order=order,
+                        by_pointer=order == "reverse"),
+                  _port(case), label)
+
+
+@pytest.mark.parametrize("order", ["in order", "at once"])
+@pytest.mark.parametrize("shape,index,label", ORDER_EDGES, ids=ORDER_IDS)
+def test_kernel_source_aggregates_only(shape, index, label, order):
+    """With no inclusive prefix published, every look-back combines the
+    aggregates of all the tiles before it: the combine is associative
+    over any split into windows and over tiles that keep nothing."""
+    case = _edge(shape, index)
+    _assert_equal(_port(case, zamboni_host_emu.run_compaction, order=order,
+                        aggregates_only=True),
+                  _port(case), label)
+
+
+WIDE_MODES = {"prefixes": {}, "aggregates only": {"aggregates_only": True},
+              "at once": {"order": "at once"}}
+
+
+@pytest.mark.parametrize("mode", list(WIDE_MODES))
+def test_kernel_source_wide_lookback(mode):
+    """40 tiles, 35 of them keeping nothing inside one run (and before
+    a split): look-backs over more than one window of 32 tiles (combined
+    window by window, junctions across the windows' edges)."""
+    kw = WIDE_MODES[mode]
+    for case in _wide_cases():
+        want = _port(case)
+        assert int(want[0]["n_rows"]) == (
+            1 if case["label"].startswith("35") else 2)
+        _assert_equal(_port(case, zamboni_host_emu.run_compaction, **kw),
+                      want, case["label"])
+
+
+def test_kernel_source_calls_on_one_scratch():
+    """Calls in a row on one scratch, each with another table (and the
+    MSN by value, then by pointer), blocks all at once: no call reads the
+    statuses the call before left, and each leaves the ticket and done
+    counters at 0."""
+    shape = ORDER_SHAPE
+    scratch = zamboni_host_emu.CompactionScratch(shape[0])
+    labels = ("random 6", "three empty tiles between two runs",
+              "no live row", "a run from one tile to four tiles later",
+              "random 6")
+    by_label = {c["label"]: c for c in compaction_edge_cases(*shape)}
+    for i, label in enumerate(labels):
+        case = by_label[label]
+        _assert_equal(_port(case, zamboni_host_emu.run_compaction,
+                            scratch=scratch, order="at once",
+                            by_pointer=i % 2 == 1),
+                      _port(case), f"call {i}: {label}")
+        assert scratch.epoch == i + 1
+        assert not scratch.ints[:tzk.COUNTER_INTS].any()
+
+
+def test_compaction_epochs():
+    """The epochs a scratch's calls pass: 1 first, never 0, and
+    another than the last call's across the wrap."""
+    assert tzk.next_epoch(0) == 1
+    assert tzk.next_epoch(5) == 6
+    assert tzk.next_epoch(tzk.EPOCHS - 1) == 1
+    assert tzk.compaction_scratch_ints(1024) == 32 + 16 * 2
+
+
+@pytest.mark.parametrize("kk", [16, tzk.COMPACTION_MAX_KK])
+def test_kernel_source_wide_props(kk):
+    """Prop keys whose staged props take a block past 48 KB of shared
+    memory (the launch opts in to more), up to the most the wrapper
+    takes: equal to the plain version and to the JAX function."""
+    assert tzk.compaction_smem(kk) > 48 * 1024
+    for case in wide_prop_cases(1024, 4, kk):
+        want = _port(case)
+        _assert_equal(want, _jax(case), case["label"] + " (JAX)")
+        _assert_equal(_port(case, zamboni_host_emu.run_compaction), want,
+                      case["label"])
+
+
+def test_compaction_prop_key_limit():
+    """The wrapper's mirror of a block's shared memory equals the
+    source's at every KK; the wrapper takes KK up to what a block may
+    opt in to and raises past it, and the C entry refuses it too."""
+    for kk in range(0, 130):
+        assert zamboni_host_emu.compaction_smem_bytes(kk) == (
+            tzk.compaction_smem(kk)), kk
+    top = tzk.COMPACTION_MAX_KK
+    assert tzk.compaction_smem(top) <= tzk.SMEM_OPT_IN < (
+        tzk.compaction_smem(top + 1))
+    tzk.CompactionKernel.check_kk(top)
+    with pytest.raises(ValueError, match="prop keys"):
+        tzk.CompactionKernel.check_kk(top + 1)
+    case = random_case(64, 4, top + 1, 50, 27, 600, 400)
+    with pytest.raises(RuntimeError, match="refused"):
+        _port(case, zamboni_host_emu.run_compaction)
 
 
 def test_zamboni_source_msn_by_pointer():

@@ -52,6 +52,9 @@ from fluidframework_tpu_torch.server.summary_fold import (
 )
 from fluidframework_tpu_torch.testing.compaction_edges import (
     compaction_edge_cases,
+    random_case,
+    text_edge_cases,
+    wide_prop_cases,
 )
 from fluidframework_tpu_torch.testing.block_edges import (
     block_edge_chunks,
@@ -847,13 +850,14 @@ def test_zamboni_kernel_edge_tables(cuda, C, KR):
 
 @pytest.mark.parametrize("C,KR", [(1024, 8), (131072, 24)])
 def test_compaction_kernel_edge_cases(cuda, C, KR):
-    """Every edge case of `testing/compaction_edges.py` (the tile edges
-    and the gather's staging limit at C 131072) through the compaction
-    kernel, the MSN an int and a tensor on the card, against the plain
-    version on CPU copies, exactly: the whole table and the whole new
-    arena; the inputs are left as they were."""
+    """Every edge case of `testing/compaction_edges.py` (the tile edges,
+    the look-back over tiles that keep nothing, the text's bounds at C
+    131072) through the compaction kernel, one call after another on the
+    wrapper's scratch, the MSN an int and a tensor on the card, against
+    the plain version on CPU copies, exactly: the whole table and the
+    whole new arena; the inputs are left as they were."""
     before = tzk.compaction_kernel.launches
-    cases = compaction_edge_cases(C, KR, 8)
+    cases = compaction_edge_cases(C, KR, 8) + text_edge_cases(C, KR, 8)
     for i, case in enumerate(cases):
         t = interop.segment_table_from_numpy(case["table"], cuda)
         copy = interop.segment_table_from_numpy(case["table"], cuda)
@@ -871,6 +875,31 @@ def test_compaction_kernel_edge_cases(cuda, C, KR):
         assert torch.equal(doc.cpu(), torch.from_numpy(case["doc_arena"]))
     assert tzk.compaction_kernel.launches - before == (
         len(cases) * tzk.compaction_kernel.LAUNCHES)
+
+
+@pytest.mark.parametrize("C", [1024, 131072])
+def test_compaction_kernel_wide_props(cuda, C):
+    """16 prop keys, which take a compaction block past 48 KB of shared
+    memory (the launch opts in to more), against the plain version on
+    CPU copies, exactly; one key past the most the wrapper takes raises
+    before any launch."""
+    before = tzk.compaction_kernel.launches
+    cases = wide_prop_cases(C, 8, 16)
+    for case in cases:
+        t = interop.segment_table_from_numpy(case["table"], cuda)
+        doc = torch.from_numpy(case["doc_arena"]).to(cuda)
+        text = torch.from_numpy(case["stream_text"]).to(cuda)
+        got, arena = compact_gather_text(t, case["min_seq"], doc, text)
+        want, want_arena = compact_gather_text_ref(
+            t.to("cpu"), case["min_seq"], doc.cpu(), text.cpu())
+        _assert_whole_table_equal(got, want, case["label"])
+        assert torch.equal(arena.cpu(), want_arena), case["label"]
+    assert tzk.compaction_kernel.launches - before == len(cases)
+    wide = interop.segment_table_from_numpy(random_case(
+        64, 4, tzk.COMPACTION_MAX_KK + 1, 50, 27, 600, 400)["table"], cuda)
+    with pytest.raises(ValueError, match="prop keys"):
+        tzk.compaction_kernel(wide, 0, doc[:600], text[:400])
+    assert tzk.compaction_kernel.launches - before == len(cases)
 
 
 def test_zamboni_kernel_on_a_scan_replica(cuda):

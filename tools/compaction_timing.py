@@ -9,17 +9,17 @@ smoke:
 
 - the zamboni (`zamboni_kernel`) on phase 26's table: a scan-engine
   replay of the first 20,000 headline ops with no host compaction;
-- the compaction (`compaction_kernel`) on the chunk path's table at
-  each depth: the replica's table before its compaction after the
-  first 4 of its last chunks (phase 7's), against the plain version
-  `compact_gather_text_ref` on the card.
+- the compaction (`compaction_kernel`, one launch a call) on the chunk
+  path's table at each depth: the replica's table before its compaction
+  after the first 4 of its last chunks (phase 7's at 500k ops), against
+  the plain version `compact_gather_text_ref` on the card.
 
 For each: ms a call by CUDA events behind a spin (`chip_smoke.spin_time`),
 three times; for the compaction also by events around back-to-back
 calls, the host's enqueue included, for the kernel and the plain
 version; and each kernel launch's mean device time under
-`torch.profiler`. Prints the card's name and power limit first. Imports
-nothing of JAX.
+`torch.profiler`, with the launches a call. Prints the card's name and
+power limit first. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,6 +60,31 @@ def per_launch_us(fn, reps: int) -> dict:
             for e in prof.key_averages() if e.device_time_total > 0}
 
 
+def deep_compaction(full, initial_len: int, ops: int, dev) -> tuple:
+    """The arguments of phase 7's compaction on the first `ops` ops of
+    the headline stream `full`: the chunk path's table before its
+    compaction after the first 4 of its last chunks, its MSN, the arena
+    and the stream text."""
+    import chip_smoke as cs
+    from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
+    from fluidframework_tpu_torch.ops.mergetree_chunk import apply_chunk_at
+    from fluidframework_tpu_torch.testing.golden import stream_prefix
+
+    s = stream_prefix(full, ops)
+    r = ColumnarReplica(s, initial_len=initial_len, chunk_size=cs.CHUNK,
+                        capacity=cs.ROW_CAPACITY, n_removers=cs.N_REMOVERS,
+                        n_prop_keys=cs.N_PROP_KEYS,
+                        sync_interval=cs.ROW_SYNC, device=dev)
+    lo = (r.n_chunks - cs.DEEP_CHUNKS) // cs.ROW_SYNC * cs.ROW_SYNC
+    r.replay(limit_chunks=lo)
+    t, dev_ops = r.table, r.op_segment(0, ops)
+    hi = min(lo + cs.ROW_SYNC, r.n_chunks)
+    for ci in range(lo, hi):
+        t = apply_chunk_at(t, dev_ops, ci * cs.CHUNK, cs.CHUNK)
+    m = int(s.min_seq[min(hi * cs.CHUNK, ops) - 1])
+    return t, m, r.arena, r.stream_text
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depths", default="100000,500000",
@@ -75,8 +100,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    from fluidframework_tpu_torch.core.columnar_replay import ColumnarReplica
-    from fluidframework_tpu_torch.ops.mergetree_chunk import apply_chunk_at
     from fluidframework_tpu_torch.ops.zamboni import compact_gather_text_ref
     from fluidframework_tpu_torch.ops.zamboni_kernel import (
         compaction_kernel, zamboni_kernel,
@@ -106,24 +129,13 @@ def main() -> int:
         print(f"  {us:8.3f} us  {name[:70]}")
 
     for ops in (int(x) for x in args.depths.split(",")):
-        s = stream_prefix(full, ops)
-        r = ColumnarReplica(s, initial_len=initial_len, chunk_size=cs.CHUNK,
-                            capacity=cs.ROW_CAPACITY,
-                            n_removers=cs.N_REMOVERS,
-                            n_prop_keys=cs.N_PROP_KEYS,
-                            sync_interval=cs.ROW_SYNC, device=dev)
-        lo = (r.n_chunks - cs.DEEP_CHUNKS) // cs.ROW_SYNC * cs.ROW_SYNC
-        r.replay(limit_chunks=lo)
-        t, dev_ops = r.table, r.op_segment(0, ops)
-        hi = min(lo + cs.ROW_SYNC, r.n_chunks)
-        for ci in range(lo, hi):
-            t = apply_chunk_at(t, dev_ops, ci * cs.CHUNK, cs.CHUNK)
-        m = int(s.min_seq[min(hi * cs.CHUNK, ops) - 1])
-        comp_args = (t, m, r.arena, r.stream_text)
+        comp_args = deep_compaction(full, initial_len, ops, dev)
+        t, arena = comp_args[0], comp_args[2]
         comp = lambda: compaction_kernel(*comp_args)  # noqa: E731
         plain = lambda: compact_gather_text_ref(*comp_args)  # noqa: E731
         print(f"compaction at {ops} ops ({int(t.n_rows)} rows, arena "
-              f"{r.arena.shape[0]}): ms a call " + ", ".join(
+              f"{arena.shape[0]}; {compaction_kernel.LAUNCHES} launch a "
+              f"call): ms a call " + ", ".join(
                   f"{cs.spin_time(comp, args.reps):.6f}" for _ in range(3))
               + f"; back to back {events_ms(comp, args.reps):.6f}, the "
               f"plain version {events_ms(plain, args.reps):.6f}")
